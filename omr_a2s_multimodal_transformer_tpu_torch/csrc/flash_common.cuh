@@ -1,6 +1,7 @@
 // Shared pieces of the head-packed flash attention kernels (flash_fwd.cu,
-// flash_bwd.cu): tile geometry, bf16 mma.sync and ldmatrix helpers,
-// cp.async tile loads and the dropout keep-mask hash.
+// flash_bwd.cu, flash_dq.cu, flash_dkv.cu) and of the keep-mask probe
+// (keep_mask.cu): tile geometry, bf16 mma.sync and ldmatrix helpers,
+// cp.async tile loads, the key test and the dropout keep-mask hash.
 //
 // Layout: q/o/do are [B, Lq, H*64] bf16 and k/v are [B, Lk, H*64] bf16,
 // contiguous. A block works on one head: it indexes head h's 64 columns of
@@ -130,6 +131,44 @@ __device__ __forceinline__ void load_b_frags(uint32_t (&frag)[8][2], const bf16*
     frag[n][1] = r[1];
     frag[n + 1][0] = r[2];
     frag[n + 1][1] = r[3];
+  }
+}
+
+// The key test of every kernel (JAX _row_mask, ops/flash_packed.py:63-73):
+// query q sees key k when k < kv_len[b], kv_valid[b, k] and, for a causal
+// call, k <= q and (window > 0 only) k >= q - window. key_valid is the
+// first half, read once per key tile; in_band the second.
+__device__ __forceinline__ bool key_valid(const uint8_t* valid_b, int len, int k) {
+  return k < len && valid_b[k] != 0;
+}
+
+template <bool CAUSAL>
+__device__ __forceinline__ bool in_band(int q, int k, int window) {
+  return !CAUSAL || (k <= q && (window <= 0 || k >= q - window));
+}
+
+// Key tiles [lo, hi] that hold a key some query of [q0, q0 + BQ) may see
+// (empty when lo > hi). The skip is by 64-key tile; the key test above
+// still masks each score, so the result equals the JAX block skip's.
+template <bool CAUSAL>
+__device__ __forceinline__ void key_tiles(int q0, int n_tiles, int window, int& lo, int& hi) {
+  lo = 0;
+  hi = n_tiles - 1;
+  if (CAUSAL) {
+    hi = min(hi, (q0 + BQ - 1) / BK);
+    if (window > 0) lo = max(0, q0 - window) / BK;
+  }
+}
+
+// Query tiles [lo, hi] that hold a query which may see some key of
+// [k0, k0 + BK).
+template <bool CAUSAL>
+__device__ __forceinline__ void query_tiles(int k0, int n_tiles, int window, int& lo, int& hi) {
+  lo = 0;
+  hi = n_tiles - 1;
+  if (CAUSAL) {
+    lo = k0 / BQ;
+    if (window > 0) hi = min(hi, (k0 + BK - 1 + window) / BQ);
   }
 }
 

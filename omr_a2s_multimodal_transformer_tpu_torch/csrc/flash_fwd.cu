@@ -1,26 +1,38 @@
-// K1: head-packed flash attention forward with attention-weight dropout.
+// K1 / K1c: head-packed flash attention forward with attention-weight
+// dropout, non-causal (K1) or causal with an optional window (K1c).
 //
 // Replaces omr_a2s_multimodal_transformer_tpu/ops/flash_packed.py
-// _fwd_kernel (non-causal), launched from make_flash_attention_packed
-// ._fwd_impl. Per head h:
+// _fwd_kernel, launched from make_flash_attention_packed._fwd_impl: K1 is
+// its non-causal call (the decoder's cross-attention), K1c its call with
+// causal=True and window (:177-185). Per head h:
 //   o   = (softmax(q k^T / 8) * M / (1 - p)) v,   M = dropout keep-mask
 //   lse = log-sum-exp of the masked scores (f32, [B, H, Lq])
-// keys masked where !kv_valid[b, k] or k >= kv_len[b] (score -> -1e30).
+// keys masked where !kv_valid[b, k] or k >= kv_len[b], and for K1c where
+// k > q or k < q - window (score -> -1e30).
 //
 // One block of 4 warps per (64-query tile, head, batch row); each warp owns
-// 16 queries and walks all key tiles of 64 with an online softmax in f32
+// 16 queries and walks the key tiles of 64 with an online softmax in f32
 // (kept in the log2 domain, so each score costs one ex2). Both products run
 // on the tensor cores as bf16 mma.sync m16n8k16 with f32 accumulation, fed
 // by ldmatrix; p is rounded to bf16 before the PV product, as in the TPU
 // kernel. The score tile never leaves registers: its accumulator layout is
 // re-used as the A operand of the PV product. K/V tiles are double-buffered
-// with cp.async, so the next tile's copy overlaps this tile's math.
+// with cp.async, so the next tile's copy overlaps this tile's math. K1c
+// walks only the key tiles of its band (key_tiles): the 64-key tiles wholly
+// above the diagonal or below q0 - window are never loaded. The TPU kernel
+// skipped whole JAX blocks (_window_blocks); the per-score key test makes
+// both give the same o and lse on every row that has a key to see.
 //
 // What bounds it on the H100: the two products are 4*B*H*Lq*Lk*64 FLOP
 // against about 2*B*Lk*256*2 bytes of K/V, far above the card's ~295
-// FLOP/byte balance point, so tensor-core FLOPs bound it. Here the CUDA
+// FLOP/byte balance point, so tensor-core FLOPs bound K1. Here the CUDA
 // cores set the pace first: per score an exp, the online-softmax update
 // and, with dropout, the keep-mask hash (~5e8 scores per flagship call).
+// K1c at the paper's window (100) sees at most 101 keys per query: about
+// 2.6e4 FLOP against 512 bytes of q, k, v and o per query and head, ~50
+// FLOP/byte, so bytes bound it; at the paper shape (8 x 1268 queries, a
+// few microseconds of traffic) launch latency and the 2-4 key tiles each
+// 64-query tile walks set its time.
 // The design hoists every per-score multiply and modulo of the hash out of
 // the loop and multiplies by 1/(1-p); wgmma/TMA and warp specialisation
 // are later work.
@@ -28,11 +40,13 @@
 
 using namespace flash;
 
+template <bool CAUSAL>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                  const int* __restrict__ kv_len, const uint8_t* __restrict__ kv_valid,
                  const int* __restrict__ seed_p, bf16* __restrict__ o, float* __restrict__ lse,
-                 int H, int Lq, int Lk, int mbq, int mbk, float rate, float keep_scale, uint32_t thresh) {
+                 int H, int Lq, int Lk, int mbq, int mbk, int window, float rate, float keep_scale,
+                 uint32_t thresh) {
   __shared__ __align__(16) bf16 sQ[TILE];
   __shared__ __align__(16) bf16 sK[2][TILE];
   __shared__ __align__(16) bf16 sV[2][TILE];
@@ -50,7 +64,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
   const bool dropout = rate > 0.f;
   const int seed = dropout ? *seed_p : 0;
   const float scale_log2 = 0.125f * LOG2E;  // 1/sqrt(64), in the log2 domain
-  const int nkt = (Lk + BK - 1) / BK;
+  int kt_lo, kt_hi;
+  key_tiles<CAUSAL>(q0, (Lk + BK - 1) / BK, window, kt_lo, kt_hi);
+  const int n_iter = kt_hi - kt_lo + 1;  // <= 0: no key tile to see; o = 0, lse = 0
 
   auto issue_kv = [&](int kt, int buf) {
     const int k0 = kt * BK;
@@ -59,12 +75,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
     cp_async_commit();
     if (tid < BK) {
       const int kk = k0 + tid;
-      sValid[buf][tid] = (kk < len && validb[kk]) ? 1 : 0;
+      sValid[buf][tid] = key_valid(validb, len, kk) ? 1 : 0;
     }
   };
 
-  load_tile_async(sQ, qb, q0, Lq, ld, tid);
-  issue_kv(0, 0);  // commits Q and the first K/V tile as one group
+  if (n_iter > 0) {
+    load_tile_async(sQ, qb, q0, Lq, ld, tid);
+    issue_kv(kt_lo, 0);  // commits Q and the first K/V tile as one group
+  }
 
   // rows owned by this thread: r = 0 -> query q0+warp*16+g, r = 1 -> +8
   float m_r[2] = {NEG_INF, NEG_INF};  // running max, log2 domain
@@ -78,17 +96,18 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
                                 (uint32_t)(h * mbq + qrow[1] % mbq) * ROW_MUL};
   uint32_t qf[4][4];
 
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int buf = kt & 1;
+  for (int it = 0; it < n_iter; ++it) {
+    const int kt = kt_lo + it;
+    const int buf = it & 1;
     const int k0 = kt * BK;
-    if (kt + 1 < nkt) {
+    if (it + 1 < n_iter) {
       issue_kv(kt + 1, buf ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == 0) load_a_frags(qf, sQ, warp * 16, lane);
+    if (it == 0) load_a_frags(qf, sQ, warp * 16, lane);
     const bf16* K = sK[buf];
     const bf16* V = sV[buf];
     const uint8_t* valid = sValid[buf];
@@ -109,7 +128,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = valid[j * 8 + 2 * t + (e & 1)] ? s[j][e] * scale_log2 : NEG_INF;
+        const int kc = j * 8 + 2 * t + (e & 1);
+        const bool see = valid[kc] && in_band<CAUSAL>(qrow[e >> 1], k0 + kc, window);
+        const float x = see ? s[j][e] * scale_log2 : NEG_INF;
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -190,11 +211,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
 
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, const void* kv_len,
                                 const void* kv_valid, const void* seed, void* o, void* lse, int B,
-                                int H, int Lq, int Lk, int mbq, int mbk, float rate, float keep_scale,
-                                unsigned int thresh, void* stream) {
+                                int H, int Lq, int Lk, int mbq, int mbk, int causal, int window,
+                                float rate, float keep_scale, unsigned int thresh, void* stream) {
   dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+  auto kernel = causal ? &flash_fwd_kernel<true> : &flash_fwd_kernel<false>;
+  kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)kv_len, (const uint8_t*)kv_valid,
-      (const int*)seed, (bf16*)o, (float*)lse, H, Lq, Lk, mbq, mbk, rate, keep_scale, thresh);
+      (const int*)seed, (bf16*)o, (float*)lse, H, Lq, Lk, mbq, mbk, window, rate, keep_scale, thresh);
   return (int)cudaGetLastError();
 }

@@ -9,9 +9,12 @@ state_dict names (``transformer_decoder.layers.{i}.self_attn.in_proj_*``,
 Conv1d weight [V, D, 1]).
 
 Ported: the full-sequence forward with plain or flash cross-attention
-(``ops/flash_packed.py``, kernels K1/K2 on CUDA) and float decode caches.
-Not ported yet: ``attn_window > 0`` (banded self-attention and the ring
-cache) and int8/int4 caches; both raise.
+(``ops/flash_packed.py``, kernels K1/K2 on CUDA), windowed self-attention
+(``attn_window > 0``: the windowed causal mask up to two band chunks, the
+banded attention of ``ops/banded_attention.py`` above, both plain PyTorch
+as they are XLA in the JAX package) and float decode caches, with a ring
+self-cache of ``attn_window + 1`` slots when windowed. Not ported yet:
+int8/int4 caches; they raise.
 
 Dtypes follow flax's promotion rule (a layer runs in the promoted dtype of
 its input and parameters), so the bf16 compute mode of the train step,
@@ -35,6 +38,7 @@ from omr_a2s_multimodal_transformer_tpu_torch.ops.attention import (
     merge_heads,
     split_heads,
 )
+from omr_a2s_multimodal_transformer_tpu_torch.ops.banded_attention import band_chunk, banded_causal_attention
 from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import flash_attention_packed
 
 INT32_MAX = 2 ** 31 - 1
@@ -113,9 +117,19 @@ class DecoderLayer(nn.Module):
         h = torch.relu(linear(x, self.linear1.weight, self.linear1.bias))
         return linear(dropout(h, self.dropout, generator), self.linear2.weight, self.linear2.bias)
 
-    def forward(self, x, memory, self_mask, mem_mask, generator=None, memory_valid=None):
+    def forward(self, x, memory, self_mask, mem_mask, generator=None, memory_valid=None,
+                banded_window: int = 0, self_key_bias=None):
+        """banded_window > 0 computes the self-attention as that exact band
+        (``self_key_bias`` [B, L] its additive key bias); else ``self_mask``."""
         rate = self.dropout if generator is not None else 0.0
-        h = self.self_attn(x, x, self_mask, rate, generator)
+        if banded_window > 0:
+            sa = self.self_attn
+            q, k, v = (split_heads(f(x), self.n_heads) for f in (sa.q_proj, sa.k_proj, sa.v_proj))
+            h = banded_causal_attention(q, k, v, banded_window, key_bias=self_key_bias,
+                                        dropout_rate=rate, generator=generator)
+            h = sa.out(merge_heads(h))
+        else:
+            h = self.self_attn(x, x, self_mask, rate, generator)
         x = layer_norm(x + dropout(h, rate, generator), self.norm1)
         if self.use_flash_cross:
             # bf16 at the kernel boundary, as in the JAX layer; softmax
@@ -144,13 +158,14 @@ class DecoderLayer(nn.Module):
         """Cross-attention K/V, head-packed [B, S, D], once per sequence."""
         return self.multihead_attn.k_proj(memory), self.multihead_attn.v_proj(memory)
 
-    def step(self, x, pos: int, cache_k, cache_v, cross_k, cross_v, self_mask, mem_bias):
+    def step(self, x, write_at: int, cache_k, cache_v, cross_k, cross_v, self_mask, mem_bias):
         """One decode step. x [B, 1, D]; caches head-packed [B, cache_len, D],
-        written in place at ``pos``. Returns y [B, 1, D]."""
+        written in place at slot ``write_at`` (the position, or its ring
+        slot). Returns y [B, 1, D]."""
         sa, ca = self.self_attn, self.multihead_attn
         q = sa.q_proj(x)[:, 0]
-        cache_k[:, pos] = sa.k_proj(x)[:, 0].to(cache_k.dtype)
-        cache_v[:, pos] = sa.v_proj(x)[:, 0].to(cache_v.dtype)
+        cache_k[:, write_at] = sa.k_proj(x)[:, 0].to(cache_k.dtype)
+        cache_v[:, write_at] = sa.v_proj(x)[:, 0].to(cache_v.dtype)
         h = attend_packed_single_query(q, cache_k, cache_v, self.n_heads, self_mask)
         x = layer_norm(x + sa.out(h[:, None, :].to(x.dtype)), self.norm1)
         q2 = ca.q_proj(x)[:, 0]
@@ -174,12 +189,11 @@ class KernDecoder(nn.Module):
                  ff_dim: int = 256, n_layers: int = 8, dropout: float = 0.1, attn_window: int = -1,
                  cache_dtype: str = "float32", use_flash_cross: bool = False):
         super().__init__()
-        if attn_window > 0:
-            raise NotImplementedError("windowed self-attention (attn_window > 0) is not ported yet")
         if cache_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(f"cache_dtype {cache_dtype!r} is not ported yet")
         self.vocab_size, self.max_seq_len, self.d_model = vocab_size, max_seq_len, d_model
         self.n_layers, self.dropout, self.cache_dtype = n_layers, dropout, cache_dtype
+        self.attn_window = attn_window
         self.use_flash_cross = use_flash_cross
         self.embedding = nn.Embedding(vocab_size, d_model)
         nn.init.normal_(self.embedding.weight, std=1.0)
@@ -212,22 +226,33 @@ class KernDecoder(nn.Module):
         b, l = tgt_ids.shape
         gen = generator if self.dropout > 0.0 else None
         x = dropout(self._embed(tgt_ids) + self.pe[None, :l], self.dropout, gen)
-        self_mask = M.windowed_causal_mask(l, -1, device=x.device)[None, None]
-        mem_mask = None
+        # windowed: the exact band above two chunks, the full masked matrix below
+        w = self.attn_window
+        banded = w if (w > 0 and l > 2 * band_chunk(w)) else 0
+        self_mask = None if banded else M.windowed_causal_mask(l, w, device=x.device)[None, None]
+        self_key_bias = mem_mask = None
         if memory_valid is not None:
             pad_bias = 1.0 if torch_float_parity else M.NEG_INF
             key_bias = torch.where(tgt_ids != 0, 0.0, pad_bias)
-            self_mask = self_mask + key_bias[:, None, None, :]
+            if banded:
+                self_key_bias = key_bias
+            else:
+                self_mask = self_mask + key_bias[:, None, None, :]
             mem_mask = M.key_padding_additive(memory_valid, torch_float_parity=torch_float_parity)
         if self.use_flash_cross and torch_float_parity:
             raise ValueError("flash cross-attention implies -inf pad masking")
         for layer in self.layers:
-            x = layer(x, memory, self_mask, mem_mask, gen, memory_valid if self.use_flash_cross else None)
+            x = layer(x, memory, self_mask, mem_mask, gen, memory_valid if self.use_flash_cross else None,
+                      banded, self_key_bias)
         return self._logits(x)
 
     # ---------------------------------------------------------------- decode
     @property
     def cache_len(self) -> int:
+        """Self-attention cache slots: with a window only the last W + 1
+        positions are attended, so the cache is a ring of that size."""
+        if self.attn_window > 0:
+            return min(self.max_seq_len, self.attn_window + 1)
         return self.max_seq_len
 
     def _cache_dtype(self):
@@ -256,10 +281,22 @@ class KernDecoder(nn.Module):
         """One greedy-decode step at position ``pos`` (a Python int).
         Returns (logits [B, V], cache); the caches are updated in place."""
         x = self._embed(token_ids)[:, None, :] + self.pe[pos][None, None]
-        allowed = torch.arange(self.cache_len, device=x.device)[None, :] <= pos
+        c_len, w = self.cache_len, self.attn_window
+        slot = torch.arange(c_len, device=x.device)[None, :]
+        if w > 0 and c_len < self.max_seq_len:
+            # ring: slot s holds position p_s = pos - ((pos - s) mod C), the
+            # latest congruent to s; unwritten slots have p_s < 0
+            write_at = pos % c_len
+            p_s = pos - (pos - slot) % c_len
+            allowed = (p_s >= 0) & (p_s >= pos - w)
+        else:
+            write_at = pos
+            allowed = slot <= pos
+            if w > 0:
+                allowed &= slot >= pos - w
         self_mask = torch.where(allowed, 0.0, M.NEG_INF)  # [1, cache_len]
         mem_bias = None if memory_valid is None else torch.where(memory_valid, 0.0, M.NEG_INF)
         for i, layer in enumerate(self.layers):
             c, cr = cache[f"layer{i}"], cross[f"layer{i}"]
-            x = layer.step(x, pos, c["k"], c["v"], cr["k"], cr["v"], self_mask, mem_bias)
+            x = layer.step(x, write_at, c["k"], c["v"], cr["k"], cr["v"], self_mask, mem_bias)
         return self._logits(x)[:, 0, :], cache

@@ -16,8 +16,12 @@ three sites is active; there a coin picks elementwise dropout (p) or
 channel dropout (p/2). The elementwise draw is u8 bits against a 1/256
 threshold and is shared by the three sites, as in the JAX version; the
 bits come from a ``torch.Generator`` and so differ from ``jax.random``.
-The width-packed stem (``packed_stem``) is the same math on the same
-parameters and is not ported yet.
+The width-packed stem (``packed_stem=True``, JAX ``PackedConvBlock`` and
+``ops/packed_conv.py``) relabels the same convolutions on the same
+[kh, kw, ci, co] parameters to fill the TPU's 128 lanes; it has no
+counterpart on the GPU, so the port accepts the flag and runs these plain
+convolutions (the JAX package holds packed equal to standard to 1e-9,
+``tests/test_packed_stem.py``).
 """
 
 from __future__ import annotations
@@ -155,9 +159,9 @@ class ConvStemEncoder(nn.Module):
     """Full conv stem: [B, H, W, 1] -> [B, H/16, W/8, 256] (NHWC)."""
 
     def __init__(self, dropout: float = 0.5, masked_norm: bool = False, packed_stem: bool = False):
+        """``packed_stem`` is accepted for the JAX hparams and changes
+        nothing: the same convolutions run either way (module docstring)."""
         super().__init__()
-        if packed_stem:
-            raise NotImplementedError("the width-packed stem (packed_stem=True) is not ported yet")
         self.dropout = dropout
         self.masked_norm = masked_norm
         chans = [1] + [c for c, _ in CONV_STAGES]

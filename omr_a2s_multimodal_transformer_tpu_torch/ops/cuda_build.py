@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv", "keep_mask")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -30,8 +30,11 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # argtypes of each library's launch function: pointers and the stream as
 # c_void_p (a bare Python int would be passed as a 32-bit int and cut).
 SIGNATURES = {
-    "flash_fwd": ("flash_fwd_launch", [_P] * 8 + [_I] * 6 + [_F, _F, _U, _P]),
+    "flash_fwd": ("flash_fwd_launch", [_P] * 8 + [_I] * 8 + [_F, _F, _U, _P]),
     "flash_bwd": ("flash_bwd_launch", [_P] * 12 + [_I] * 6 + [_F, _F, _U, _P]),
+    "flash_dq": ("flash_dq_launch", [_P] * 10 + [_I] * 8 + [_F, _F, _U, _P]),
+    "flash_dkv": ("flash_dkv_launch", [_P] * 11 + [_I] * 8 + [_F, _F, _U, _P]),
+    "keep_mask": ("keep_mask_launch", [_P] * 2 + [_I] * 6 + [_U, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,29 +1,35 @@
 """Head-packed flash attention with attention-weight dropout.
 
-Port of ``omr_a2s_multimodal_transformer_tpu/ops/flash_packed.py`` for the
-non-causal path the decoder's cross-attention takes. q is [B, Lq, H*64]
-and k/v are [B, Lk, H*64]; per head h,
+Port of ``omr_a2s_multimodal_transformer_tpu/ops/flash_packed.py``. q is
+[B, Lq, H*64] and k/v are [B, Lk, H*64]; per head h,
 
     o = (softmax(q_h k_h^T / sqrt(64)) * M / (1 - rate)) v_h
 
-with keys masked where ``kv_valid`` is False or ``k >= kv_len`` (their
-score becomes -1e30) and M the dropout keep-mask, applied after the
-softmax (torch MHA semantics).
+with keys masked where ``kv_valid`` is False or ``k >= kv_len`` and, for a
+causal call, where k > q or (window > 0) k < q - window (their score
+becomes -1e30), and M the dropout keep-mask, applied after the softmax
+(torch MHA semantics).
 
 Two routes, chosen by where the tensors lie, never by a switch:
 
 - CUDA tensors go through ``FlashAttention`` (a ``torch.autograd.Function``)
-  whose forward launches kernel K1 (``csrc/flash_fwd.cu``) and whose
-  backward launches K2 (``csrc/flash_bwd.cu``). There is no fallback: a
-  kernel that does not build or launch raises.
+  whose forward launches kernel K1 (non-causal) or K1c (causal, optionally
+  windowed; both ``csrc/flash_fwd.cu``) and whose backward launches K2
+  (``csrc/flash_bwd.cu``, the merged backward of a non-causal call) or K3a
+  then K3b (``csrc/flash_dq.cu``, ``csrc/flash_dkv.cu``, the split backward
+  of every other call), as the JAX backward chooses. ``export_keep_masks``
+  launches K4 (``csrc/keep_mask.cu``). There is no fallback: a kernel that
+  does not build or launch raises.
 - CPU tensors go through ``flash_attention_plain``, the same function as
-  dense masked softmax in PyTorch, differentiated by autograd.
+  dense masked softmax in PyTorch, differentiated by autograd, and
+  ``keep_mask``.
 
 The keep-mask is a pure function of (seed, b, h, q, k): the counter hash
-of the JAX kernel's interpret mode evaluated on global indices at the JAX
-mask geometry (``mask_geometry``). Both routes therefore apply the masks
-that ``export_keep_masks(..., interpret=True)`` of the JAX package returns,
-bit for bit.
+of the JAX kernel's interpret mode evaluated on global indices at the
+caller's JAX mask geometry (``mask_geometry``: the decoder's 128/2048, or
+the blocks given to ``make_flash_attention_packed``). Both routes
+therefore apply the masks that ``export_keep_masks(..., interpret=True)``
+of the JAX package returns, bit for bit.
 """
 
 from __future__ import annotations
@@ -33,12 +39,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, resolve_device
 from omr_a2s_multimodal_transformer_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
 HEAD_DIM = 64
-KERNEL_TILE = 64  # rows per tile in both CUDA kernels
-MASK_BQ, MASK_BK = 128, 2048  # the decoder's JAX block sizes, which seed the keep-mask hash
+KERNEL_TILE = 64  # rows per tile in the CUDA flash kernels
+MASK_BQ, MASK_BK = 128, 2048  # the decoder's JAX block sizes, which seed its keep-mask hash
+KEEP_MASK_KEYS = 16  # keys per thread (one 16-byte store) in K4
 _U32 = 0xFFFFFFFF
 
 
@@ -46,10 +54,17 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def mask_geometry(lq: int, lk: int) -> Tuple[int, int]:
-    """(bq, bk) blocks of the decoder's JAX kernel at (lq, lk): the
-    keep-mask's hash is seeded per block of this geometry."""
-    return min(MASK_BQ, _round_up(lq, 128)), min(MASK_BK, _round_up(lk, 128))
+def mask_geometry(lq: int, lk: int, block_q: int = MASK_BQ, block_k: int = MASK_BK) -> Tuple[int, int]:
+    """(bq, bk) blocks of the JAX kernel called with (block_q, block_k) at
+    (lq, lk), rounded as its ``_shapes``: the keep-mask hash is seeded per
+    block of this geometry. The defaults are the decoder's call."""
+    return min(block_q, _round_up(lq, 128)), min(block_k, _round_up(lk, 128))
+
+
+def band_window(causal: bool, window: int) -> int:
+    """The window a call applies: JAX limits keys to k >= q - window only
+    for a causal call with window > 0; every other call has none (-1)."""
+    return window if causal and window > 0 else -1
 
 
 def dropout_threshold(rate: float) -> int:
@@ -65,9 +80,11 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _U32
 
 
-def keep_mask(seed: int, batch: int, n_heads: int, lq: int, lk: int, rate: float, device=None) -> torch.Tensor:
-    """[B, H, Lq, Lk] bool keep-mask of the flash kernels (True = keep)."""
-    bq, bk = mask_geometry(lq, lk)
+def keep_mask(seed: int, batch: int, n_heads: int, lq: int, lk: int, rate: float, device=None,
+              block_q: int = MASK_BQ, block_k: int = MASK_BK) -> torch.Tensor:
+    """[B, H, Lq, Lk] bool keep-mask of the flash kernels (True = keep), at
+    the mask geometry of (block_q, block_k); plain version of K4."""
+    bq, bk = mask_geometry(lq, lk, block_q, block_k)
     thresh = dropout_threshold(rate)
     qpos = torch.arange(lq, device=device, dtype=torch.int64)
     kpos = torch.arange(lk, device=device, dtype=torch.int64)
@@ -104,29 +121,44 @@ def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.reshape(b, l, n_heads, pd // n_heads).transpose(1, 2)
 
 
-def flash_attention_plain(q, k, v, kv_len, kv_valid, seed, dropout_rate: float = 0.0, n_heads: int = 4):
-    """Plain PyTorch version of K1 (autograd gives K2's function).
+def flash_attention_plain(q, k, v, kv_len, kv_valid, seed, dropout_rate: float = 0.0, n_heads: int = 4,
+                          causal: bool = False, window: int = -1, block_q: int = MASK_BQ, block_k: int = MASK_BK):
+    """Plain PyTorch version of K1 and K1c (autograd gives the function of
+    K2, K3a and K3b).
 
     Returns (o [B, Lq, H*Dh] in q's dtype, lse [B, H, Lq] f32). Scores,
     softmax and dropout are float32; p is rounded to the input dtype before
-    the PV product, as the kernels do. A row with no valid key averages v
-    over the Lk keys (no NaN); the JAX kernel averages over its padded Lk.
+    the PV product, as the kernels do. The keep-mask is that of the mask
+    geometry of (block_q, block_k). A row with no key to see averages v over
+    the Lk keys (no NaN); the JAX kernel averages over the keys of the
+    blocks it ran, the CUDA kernels over their 64-key tiles.
     """
     b, lq, pd = q.shape
     lk = k.shape[1]
     dh = pd // n_heads
     qh, kh, vh = (_heads(t.float(), n_heads) for t in (q, k, v))
     s = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / dh ** 0.5)
-    valid = kv_valid.bool() & (torch.arange(lk, device=q.device)[None, :] < kv_len[:, None])
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    kpos = torch.arange(lk, device=q.device)
+    see = (kv_valid.bool() & (kpos[None, :] < kv_len[:, None]))[:, None, None, :]  # [B, 1, 1, Lk]
+    if causal:
+        qpos = torch.arange(lq, device=q.device)[:, None]
+        band = kpos[None, :] <= qpos
+        window = band_window(causal, window)
+        if window > 0:
+            band &= kpos[None, :] >= qpos - window
+        see = see & band
+    s = torch.where(see, s, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)  # not exp(s - lse): -1e30 + log(Lk) rounds to -1e30 in a row with no valid key
     if dropout_rate > 0.0:
-        keep = keep_mask(int(seed), b, n_heads, lq, lk, dropout_rate, q.device)
+        keep = keep_mask(int(seed), b, n_heads, lq, lk, dropout_rate, q.device, block_q, block_k)
         p = torch.where(keep, p / _keep_den(dropout_rate), 0.0)
     p = p.to(v.dtype).float()
     o = torch.matmul(p, vh).transpose(1, 2).reshape(b, lq, pd)
     return o.to(q.dtype), lse
+
+
+# ------------------------------------------------------------------ kernels
 
 
 def _check_cuda_inputs(q, k, v, kv_len, kv_valid, seed, n_heads, mask_bq, mask_bk):
@@ -151,10 +183,22 @@ def _check_cuda_inputs(q, k, v, kv_len, kv_valid, seed, n_heads, mask_bq, mask_b
         raise ValueError("seed must be a one-element int32 tensor on q's device")
 
 
-def flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk):
-    """Launch K1. Returns (o bf16 [B, Lq, H*64], lse f32 [B, H, Lq])."""
+def _check_bwd_inputs(q, do, lse, delta, n_heads):
+    b, lq, _ = q.shape
+    if do.shape != q.shape or do.dtype != torch.bfloat16 or not do.is_contiguous():
+        raise ValueError(f"do must be a contiguous bfloat16 tensor of q's shape {tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (b, n_heads, lq) or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous float32 [B, H, Lq] tensor on q's device")
+
+
+def _dropout_args(rate: float):
+    return float(rate), _keep_scale(rate), dropout_threshold(rate)
+
+
+def _launch_fwd(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk, causal, window):
     _check_cuda_inputs(q, k, v, kv_len, kv_valid, seed, n_heads, mask_bq, mask_bk)
-    b, lq, pd = q.shape
+    b, lq, _ = q.shape
     lk = k.shape[1]
     o = torch.empty_like(q)
     lse = torch.empty((b, n_heads, lq), device=q.device, dtype=torch.float32)
@@ -162,29 +206,51 @@ def flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
              seed.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk,
-             float(dropout_rate), _keep_scale(dropout_rate), dropout_threshold(dropout_rate), stream)
+             int(causal), band_window(causal, window), *_dropout_args(dropout_rate), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
-    flash_fwd_cuda.launches += 1
     return o, lse
+
+
+def flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk):
+    """Launch K1 (non-causal). Returns (o bf16 [B, Lq, H*64], lse f32 [B, H, Lq])."""
+    out = _launch_fwd(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk, False, -1)
+    flash_fwd_cuda.launches += 1
+    return out
 
 
 flash_fwd_cuda.launches = 0
 
 
+def flash_fwd_causal_cuda(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk, window=-1):
+    """Launch K1c (causal; keys k >= q - window too when window > 0).
+    Returns (o, lse) as K1. A query with no key tile to see gets o = 0,
+    lse = 0."""
+    out = _launch_fwd(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk, True, window)
+    flash_fwd_causal_cuda.launches += 1
+    return out
+
+
+flash_fwd_causal_cuda.launches = 0
+
+
+def attention_delta(do: torch.Tensor, o: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """delta = rowsum(do * o) per (b, h, q), f32 [B, H, Lq]: a PyTorch
+    expression, as it is XLA outside the TPU kernels."""
+    b, lq, pd = o.shape
+    return (do.float() * o.float()).reshape(b, lq, n_heads, pd // n_heads).sum(-1).transpose(1, 2).contiguous()
+
+
 def flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, dropout_rate, n_heads, mask_bq, mask_bk):
-    """Launch K2. Returns (dq, dk, dv) bf16. delta = rowsum(do * o) per
-    head is a PyTorch expression, as it is XLA outside the TPU kernel."""
+    """Launch K2 (merged backward of a non-causal call). Returns (dq, dk, dv) bf16."""
     _check_cuda_inputs(q, k, v, kv_len, kv_valid, seed, n_heads, mask_bq, mask_bk)
     b, lq, pd = q.shape
     lk = k.shape[1]
-    if do.shape != q.shape or o.shape != q.shape:
-        raise ValueError(f"do {tuple(do.shape)} and o {tuple(o.shape)} must have q's shape {tuple(q.shape)}")
-    if lse.dtype != torch.float32 or lse.shape != (b, n_heads, lq) or not lse.is_contiguous() \
-            or lse.device != q.device:
-        raise ValueError("lse must be a contiguous float32 [B, H, Lq] tensor on q's device")
+    if o.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} must have q's shape {tuple(q.shape)}")
     do = do.to(torch.bfloat16).contiguous()
-    delta = (do.float() * o.float()).reshape(b, lq, n_heads, pd // n_heads).sum(-1).transpose(1, 2).contiguous()
+    delta = attention_delta(do, o, n_heads)
+    _check_bwd_inputs(q, do, lse, delta, n_heads)
     dq_acc = torch.zeros((b, lq, pd), device=q.device, dtype=torch.float32)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -193,7 +259,7 @@ def flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, dropout_rate, n_
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
              seed.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk,
-             float(dropout_rate), _keep_scale(dropout_rate), dropout_threshold(dropout_rate), stream)
+             *_dropout_args(dropout_rate), stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd launch failed: cudaError {err}")
     flash_bwd_cuda.launches += 1
@@ -203,38 +269,170 @@ def flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, dropout_rate, n_
 flash_bwd_cuda.launches = 0
 
 
+def flash_dq_cuda(q, k, v, kv_len, kv_valid, seed, do, lse, delta, dropout_rate, n_heads, mask_bq, mask_bk,
+                  causal=False, window=-1):
+    """Launch K3a: dq (bf16) of the split backward, given the forward's lse
+    and ``attention_delta``. Deterministic: dq is written once."""
+    _check_cuda_inputs(q, k, v, kv_len, kv_valid, seed, n_heads, mask_bq, mask_bk)
+    _check_bwd_inputs(q, do, lse, delta, n_heads)
+    b, lq, _ = q.shape
+    dq = torch.empty_like(q)
+    fn = cuda_build.load("flash_dq")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
+             seed.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             b, n_heads, lq, k.shape[1], mask_bq, mask_bk, int(causal), band_window(causal, window),
+             *_dropout_args(dropout_rate), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_dq launch failed: cudaError {err}")
+    flash_dq_cuda.launches += 1
+    return dq
+
+
+flash_dq_cuda.launches = 0
+
+
+def flash_dkv_cuda(q, k, v, kv_len, kv_valid, seed, do, lse, delta, dropout_rate, n_heads, mask_bq, mask_bk,
+                   causal=False, window=-1):
+    """Launch K3b: (dk, dv) bf16 of the split backward, given the forward's
+    lse and ``attention_delta``. Deterministic: each row is written once."""
+    _check_cuda_inputs(q, k, v, kv_len, kv_valid, seed, n_heads, mask_bq, mask_bk)
+    _check_bwd_inputs(q, do, lse, delta, n_heads)
+    b, lq, _ = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    fn = cuda_build.load("flash_dkv")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
+             seed.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             b, n_heads, lq, k.shape[1], mask_bq, mask_bk, int(causal), band_window(causal, window),
+             *_dropout_args(dropout_rate), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_dkv launch failed: cudaError {err}")
+    flash_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_dkv_cuda.launches = 0
+
+
+def keep_mask_cuda(seed: torch.Tensor, batch: int, n_heads: int, lq_p: int, lk_p: int, rate: float,
+                   mask_bq: int, mask_bk: int) -> torch.Tensor:
+    """Launch K4: the [B, H, lq_p, lk_p] bool keep-mask at the mask geometry
+    (mask_bq, mask_bk), for the padded lengths of that geometry."""
+    if seed.device.type != "cuda" or seed.dtype != torch.int32 or seed.numel() != 1:
+        raise ValueError("seed must be a one-element int32 CUDA tensor")
+    if mask_bk % KEEP_MASK_KEYS or lk_p % KEEP_MASK_KEYS:
+        raise ValueError(f"K4 writes {KEEP_MASK_KEYS} keys per thread: the k block and Lk_p must be multiples of it")
+    if lq_p > 65535 or batch * n_heads > 65535:
+        raise ValueError("K4's grid takes at most 65535 query rows and 65535 (batch, head) pairs")
+    out = torch.empty((batch, n_heads, lq_p, lk_p), device=seed.device, dtype=torch.bool)
+    fn = cuda_build.load("keep_mask")
+    stream = torch.cuda.current_stream(seed.device).cuda_stream
+    err = fn(seed.data_ptr(), out.data_ptr(), batch, n_heads, lq_p, lk_p, mask_bq, mask_bk,
+             dropout_threshold(rate), stream)
+    if err != 0:
+        raise RuntimeError(f"keep_mask launch failed: cudaError {err}")
+    keep_mask_cuda.launches += 1
+    return out
+
+
+keep_mask_cuda.launches = 0
+
+
+# ------------------------------------------------------------------ autograd
+
+
 class FlashAttention(torch.autograd.Function):
-    """K1 forward, K2 backward; saves q, k, v, o and lse (no score tensor)."""
+    """K1 or K1c forward; K2, or K3a then K3b, backward (the JAX
+    ``_bwd_rule`` choice, ops/flash_packed.py:581: merged only for a merged,
+    non-causal call). Saves q, k, v, o and lse (no score tensor)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk):
-        o, lse = flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk)
+    def forward(ctx, q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk,
+                causal, window, merged_bwd):
+        if causal:
+            o, lse = flash_fwd_causal_cuda(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads,
+                                           mask_bq, mask_bk, window)
+        else:
+            o, lse = flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk)
         ctx.save_for_backward(q, k, v, kv_len, kv_valid, seed, o, lse)
         ctx.cfg = (dropout_rate, n_heads, mask_bq, mask_bk)
+        ctx.band = (causal, window, merged_bwd)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, kv_len, kv_valid, seed, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, *ctx.cfg)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        causal, window, merged_bwd = ctx.band
+        if merged_bwd and not causal:
+            dq, dk, dv = flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, *ctx.cfg)
+        else:
+            do = do.to(torch.bfloat16).contiguous()
+            delta = attention_delta(do, o, ctx.cfg[1])
+            args = (q, k, v, kv_len, kv_valid, seed, do, lse, delta, *ctx.cfg, causal, window)
+            dq = flash_dq_cuda(*args)
+            dk, dv = flash_dkv_cuda(*args)
+        return dq, dk, dv, None, None, None, None, None, None, None, None, None, None
+
+
+def _seed_tensor(seed, device) -> torch.Tensor:
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.tensor([int(seed)], dtype=torch.int32, device=device)
+
+
+def make_flash_attention_packed(n_heads: int, causal: bool = False, window: int = -1, block_q: int = 128,
+                                block_k: int = 512, dropout_rate: float = 0.0, merged_bwd: bool = True):
+    """Differentiable packed flash attention with the JAX factory's
+    signature and defaults (ops/flash_packed.py:458-467).
+
+    Returns f(q, k, v, kv_len, kv_valid, seed) -> o with q [B, Lq, H*Dh],
+    k/v [B, Lk, H*Dh], kv_len [B] int32, kv_valid [B, Lk] bool and seed an
+    int or a one-element int32 tensor (dropout stream id; unused at rate
+    0). The keep-mask follows the mask geometry of (block_q, block_k). CPU
+    tensors take the plain version; CUDA tensors launch K1 or K1c, and in
+    the backward K2 for a merged non-causal call, else K3a and K3b.
+    """
+    window = band_window(causal, window)
+
+    def flash(q, k, v, kv_len, kv_valid, seed):
+        bq, bk = mask_geometry(q.shape[1], k.shape[1], block_q, block_k)
+        if q.device.type == "cpu":
+            o, _ = flash_attention_plain(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads,
+                                         causal, window, bq, bk)
+            return o
+        if q.device.type != "cuda":
+            raise ValueError(f"flash attention runs on CPU or CUDA tensors, got {q.device}")
+        o, _ = FlashAttention.apply(q, k, v, kv_len, kv_valid, _seed_tensor(seed, q.device), dropout_rate,
+                                    n_heads, bq, bk, causal, window, merged_bwd)
+        return o
+
+    return flash
 
 
 def flash_attention_packed(q, k, v, kv_len, kv_valid, seed, dropout_rate: float = 0.0, n_heads: int = 4):
-    """Differentiable packed flash attention; returns o [B, Lq, H*Dh].
-
-    q [B, Lq, H*Dh], k/v [B, Lk, H*Dh], kv_len [B] int32, kv_valid [B, Lk]
-    bool, seed a one-element int32 tensor (dropout stream id; unused at
-    rate 0). The keep-mask follows the JAX mask geometry
-    (``mask_geometry``), not the CUDA tile. CPU tensors take the plain
-    version; CUDA tensors launch the kernels.
+    """The decoder's cross-attention call: non-causal with the merged
+    backward (K1/K2 on CUDA), at the decoder's mask geometry (128/2048).
+    Returns o [B, Lq, H*Dh]; arguments as for ``make_flash_attention_packed``.
     """
-    if q.device.type == "cpu":
-        o, _ = flash_attention_plain(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads)
-        return o
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on CPU or CUDA tensors, got {q.device}")
-    o, _ = FlashAttention.apply(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads,
-                                *mask_geometry(q.shape[1], k.shape[1]))
-    return o
+    flash = make_flash_attention_packed(n_heads, block_q=MASK_BQ, block_k=MASK_BK, dropout_rate=dropout_rate)
+    return flash(q, k, v, kv_len, kv_valid, seed)
+
+
+def export_keep_masks(seed: int, batch: int, n_heads: int, lq: int, lk: int, *, dropout_rate: float,
+                      block_q: int = 128, block_k: int = 512, device: DeviceLike = None) -> torch.Tensor:
+    """The dropout keep-masks that the flash kernels regenerate, as the
+    JAX probe returns them (ops/flash_packed.py:727-765): [B, H, Lq_p,
+    Lk_p] bool over the lengths padded to the mask geometry of (block_q,
+    block_k). Runs on ``device`` (``cuda`` unless the caller says
+    otherwise): CUDA launches K4, the CPU takes ``keep_mask``."""
+    dev = resolve_device(device)
+    bq, bk = mask_geometry(lq, lk, block_q, block_k)
+    lq_p, lk_p = _round_up(lq, bq), _round_up(lk, bk)
+    if dev.type == "cpu":
+        return keep_mask(int(seed), batch, n_heads, lq_p, lk_p, dropout_rate, dev, bq, bk)
+    if dev.type != "cuda":
+        raise ValueError(f"export_keep_masks runs on the CPU or CUDA, got {dev}")
+    return keep_mask_cuda(_seed_tensor(seed, dev), batch, n_heads, lq_p, lk_p, dropout_rate, bq, bk)

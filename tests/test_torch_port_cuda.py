@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+K1 and K2 (the decoder's cross-attention), K1c, K3a and K3b (causal,
+windowed and split-backward calls of ``make_flash_attention_packed``) and
+K4 (``export_keep_masks``).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels are
 built with nvcc on first use) and skip elsewhere. They import nothing of
@@ -11,7 +14,9 @@ each tensor on its own scale (the rule chip_smoke.py holds the kernels
 to). Both routes take the same bf16 inputs and the same keep-mask; the
 kernels round p and ds to bf16 before their products and sum in another
 order, the plain version keeps ds in float32. A kernel that wrote zeros
-would miss this by a factor of 50.
+would miss this by a factor of 50. Causal and windowed calls compare o, dq
+and lse on the query rows that have a key to see; the cotangent is zero on
+the others (ROADMAP Queue 3). K4 must equal the plain keep-mask bit for bit.
 """
 
 import numpy as np
@@ -76,6 +81,99 @@ def test_flash_kernels_match_plain_on_gpu(case):
     bq, bk = fp.mask_geometry(case["lq"], case["lk"])
     _, lse = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, case["rate"], H, bq, bk)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.detach().cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+SPLIT_CASES = [
+    # K1c + K3a + K3b: the paper's windowed self-attention in small, ragged targets
+    dict(b=2, h=4, lq=300, lk=300, causal=True, window=100, rate=0.0, merged=True),
+    dict(b=2, h=4, lq=300, lk=300, causal=True, window=100, rate=0.1, merged=True),
+    # full causal with 2 heads (pd 128), as in tests/test_flash_packed.py
+    dict(b=2, h=2, lq=192, lk=192, causal=True, window=-1, rate=0.1, merged=True),
+    # K1 + K3a + K3b: a non-causal call with merged_bwd=False, two mask k-blocks of 512
+    dict(b=2, h=4, lq=150, lk=700, causal=False, window=-1, rate=0.1, merged=False),
+]
+
+
+def _split_inputs(case, dev):
+    rng = np.random.default_rng(1)
+    b, h, lq, lk = case["b"], case["h"], case["lq"], case["lk"]
+    q, do = (torch.from_numpy(rng.normal(size=(b, lq, h * 64)).astype(np.float32)).to(dev, torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(b, lk, h * 64)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(2))
+    kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
+    kv_valid[-1, lk // 2:] = False  # a short target, or a ragged memory
+    kv_len = torch.full((b,), lk, dtype=torch.int32, device=dev)
+    # rows without a key to see (pad queries past the window) get no cotangent
+    qpos, kpos = torch.arange(lq, device=dev)[:, None], torch.arange(lk, device=dev)[None, :]
+    band = torch.ones((lq, lk), dtype=torch.bool, device=dev)
+    if case["causal"]:
+        band = kpos <= qpos
+        if case["window"] > 0:
+            band &= kpos >= qpos - case["window"]
+    rows = (kv_valid[:, None, :] & band[None]).any(-1)  # [B, Lq]
+    return q, k, v, do * rows[:, :, None], kv_len, kv_valid, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: f"h{c['h']}_q{c['lq']}_c{int(c['causal'])}_w{c['window']}"
+                                                            f"_r{c['rate']}")
+def test_causal_and_split_kernels_match_plain_on_gpu(case):
+    dev = _cuda()
+    q, k, v, do, kv_len, kv_valid, rows = _split_inputs(case, dev)
+    seed = torch.tensor([91], dtype=torch.int32, device=dev)
+    kw = dict(causal=case["causal"], window=case["window"], dropout_rate=case["rate"], merged_bwd=case["merged"])
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    counters = (fp.flash_fwd_cuda, fp.flash_fwd_causal_cuda, fp.flash_bwd_cuda, fp.flash_dq_cuda, fp.flash_dkv_cuda)
+    before = [f.launches for f in counters]
+    o = fp.make_flash_attention_packed(case["h"], **kw)(*ins, kv_len, kv_valid, seed)
+    o.backward(do)
+    bq, bk = fp.mask_geometry(case["lq"], case["lk"], 128, 512)
+    o_ref, lse_ref = fp.flash_attention_plain(*ref_ins, kv_len, kv_valid, seed, case["rate"], case["h"],
+                                              case["causal"], case["window"], bq, bk)
+    o_ref.backward(do)
+    torch.cuda.synchronize()
+    fwd = (0, 1) if case["causal"] else (1, 0)
+    assert [f.launches - n for f, n in zip(counters, before)] == [*fwd, 0, 1, 1]
+    _assert_close("o", o[rows], o_ref[rows])
+    _assert_close("dq", ins[0].grad[rows], ref_ins[0].grad[rows])
+    _assert_close("dk", ins[1].grad, ref_ins[1].grad)
+    _assert_close("dv", ins[2].grad, ref_ins[2].grad)
+    launch = fp.flash_fwd_causal_cuda if case["causal"] else fp.flash_fwd_cuda
+    extra = (case["window"],) if case["causal"] else ()
+    _, lse = launch(q, k, v, kv_len, kv_valid, seed, case["rate"], case["h"], bq, bk, *extra)
+    np.testing.assert_allclose(lse[rows.unsqueeze(1).expand_as(lse)].cpu().numpy(),
+                               lse_ref.detach()[rows.unsqueeze(1).expand_as(lse)].cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_split_backward_is_deterministic_on_gpu():
+    dev = _cuda()
+    q, k, v, do, kv_len, kv_valid, _ = _split_inputs(SPLIT_CASES[1], dev)
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    o, lse = fp.flash_fwd_causal_cuda(q, k, v, kv_len, kv_valid, seed, 0.1, 4, 128, 512, 100)
+    delta = fp.attention_delta(do, o, 4)
+    args = (q, k, v, kv_len, kv_valid, seed, do, lse, delta, 0.1, 4, 128, 512, True, 100)
+    first = (fp.flash_dq_cuda(*args), *fp.flash_dkv_cuda(*args))
+    second = (fp.flash_dq_cuda(*args), *fp.flash_dkv_cuda(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [(128, 512, 200, 700, 0.1, 7), (128, 2048, 130, 2100, 0.3, -7),
+                                      (128, 128, 384, 384, 0.5, 12345)])
+def test_keep_mask_kernel_bits_equal_plain(geometry):
+    dev = _cuda()
+    bq, bk, lq, lk, rate, seed = geometry
+    n = fp.keep_mask_cuda.launches
+    got = fp.export_keep_masks(seed, 2, 4, lq, lk, dropout_rate=rate, block_q=bq, block_k=bk)
+    ref = fp.export_keep_masks(seed, 2, 4, lq, lk, dropout_rate=rate, block_q=bq, block_k=bk, device="cpu")
+    torch.cuda.synchronize()
+    assert fp.keep_mask_cuda.launches == n + 1
+    assert got.device.type == "cuda" and got.dtype == torch.bool
+    assert torch.equal(got.cpu(), ref)
 
 
 @pytest.mark.cuda

@@ -74,6 +74,6 @@ def test_unported_options_raise():
     from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
 
     base = dict(vocab_size=11, max_seq_len=4, input_modality="image")
-    for over in (dict(input_modality="both"), dict(packed_stem=True), dict(attn_window=8), dict(cache_dtype="int8")):
+    for over in (dict(input_modality="both"), dict(cache_dtype="int8"), dict(cache_dtype="int4")):
         with pytest.raises(NotImplementedError):
             build_model({**base, **over}, device="cpu")

@@ -44,13 +44,14 @@ def port_and_jax_params(seed=0, **over):
     return model, {"params": jax.tree.map(jnp.asarray, tree)}
 
 
-def batch(seed=0, b=2):
-    """Images in [0, 1], ragged hw, token rows with pads (0) at the end of row 0."""
+def batch(seed=0, b=2, length=MAXLEN):
+    """Images in [0, 1], ragged hw, token rows of ``length`` with pads (0) at
+    the end of row 0 (its last quarter, at least 3)."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(size=(b, IMG_H, IMG_W, 1)).astype(np.float32)
     hw = np.array([[IMG_H, IMG_W]] + [[IMG_H - 7, IMG_W - 20]] * (b - 1), np.int32)
-    y = rng.integers(2, V, size=(b, MAXLEN + 1)).astype(np.int32)
-    y[0, MAXLEN - 3:] = 0
+    y = rng.integers(2, V, size=(b, length + 1)).astype(np.int32)
+    y[0, length - max(3, length // 4):] = 0
     return {"x": x, "x_hw": hw, "y_in": y[:, :-1], "y_out": y[:, 1:]}
 
 
