@@ -18,8 +18,17 @@ Phases, each of which raises on failure (exit code 1):
        window 100, ragged target lengths, 128/512 blocks), dropout 0 and
        0.1: K1c, K3a and K3b, with the banded attention of the windowed
        decoder as a second witness at dropout 0; full causal once;
-  3. three paths, each with every kernel's launch count set to 0 just
+     - at the three packed stem block shapes (tools/bench_fused_block.py:
+       b8, bf16; blocks 0-2 on 361x4416 images), dropout 0.5 and none: K5a
+       (y2, statistics) and K5b (out) against plain_k1/plain_k2 and the
+       whole block against reference_block; the plain block's forward, the
+       cuDNN convolutions of the block alone (convs_ms), and forward +
+       backward of fused_packed_block against plain autograd;
+  3. four paths, each with every kernel's launch count set to 0 just
      before it and read just after:
+     - stem path: fused_packed_block forward and backward at the three
+       stem block shapes (dropout 0.5); K5a and K5b once per block, no
+       other kernel, gradients within tolerance of plain autograd;
      - flagship model (attn_window -1): 3 full-width train steps (vocab
        6,997, max_seq_len 1268, bf16 compute, flash cross-attention) on 8
        random 361x4416 images, then greedy decode of 4 raw u8 images with a
@@ -33,6 +42,8 @@ Phases, each of which raises on failure (exit code 1):
        forward and backward at the paper shape, a merged_bwd=False call at
        the cross shape, and export_keep_masks at the cross shape: K1c, K3a,
        K3b and K4 must launch.
+     K5a and K5b launch on the stem path only: no model calls the fused
+     block, as in the JAX package (fused_stem.py:24-35).
 It prints the card's name and power limit, one JSON line of kernel
 numbers, and last {"ok": true, "device": {...}}. Without a GPU it exits
 with code 2 and prints no result.
@@ -59,6 +70,8 @@ from omr_a2s_multimodal_transformer_tpu_torch.models import build_model  # noqa:
 from omr_a2s_multimodal_transformer_tpu_torch.models.transformer import memory_valid_from_hw  # noqa: E402
 from omr_a2s_multimodal_transformer_tpu_torch.ops import cuda_build  # noqa: E402
 from omr_a2s_multimodal_transformer_tpu_torch.ops import flash_packed as fp  # noqa: E402
+from omr_a2s_multimodal_transformer_tpu_torch.ops import fused_stem as fs  # noqa: E402
+from omr_a2s_multimodal_transformer_tpu_torch.ops.packed_conv import packed_conv  # noqa: E402
 from omr_a2s_multimodal_transformer_tpu_torch.ops.banded_attention import banded_causal_attention  # noqa: E402
 from omr_a2s_multimodal_transformer_tpu_torch.ops.image import preprocess_image_batch  # noqa: E402
 from omr_a2s_multimodal_transformer_tpu_torch.training.train_state import TrainState, make_train_step  # noqa: E402
@@ -78,16 +91,29 @@ TARGET_LENGTHS = (1268, 1203, 1111, 1010, 905, 811, 702, 640)  # ragged targets 
 KERNEL_TOL = 2e-2  # max |kernel - plain| <= KERNEL_TOL * max |plain| (bf16 outputs, p rounded to bf16)
 LSE_TOL = 1e-3     # lse is f32 from the same bf16 products, other summation order
 CSRC = "omr_a2s_multimodal_transformer_tpu_torch/csrc/"
-JAX_OP = "omr_a2s_multimodal_transformer_tpu/ops/flash_packed.py:"
-# name -> (launching wrapper, source, TPU kernel line, device symbol in a profiler trace)
+JAX_FLASH = "omr_a2s_multimodal_transformer_tpu/ops/flash_packed.py:"
+JAX_STEM = "omr_a2s_multimodal_transformer_tpu/ops/fused_stem.py:"
+# name -> (launching wrapper, source, TPU kernel (file:line), device symbol in a profiler trace,
+#          device kernels per launch)
 KERNELS = {
-    "K1 flash fwd": (fp.flash_fwd_cuda, "flash_fwd.cu", 161, "flash_fwd_kernel<false>"),
-    "K2 flash bwd": (fp.flash_bwd_cuda, "flash_bwd.cu", 364, "flash_bwd_kernel"),
-    "K1c flash fwd causal": (fp.flash_fwd_causal_cuda, "flash_fwd.cu", 161, "flash_fwd_kernel<true>"),
-    "K3a flash dq": (fp.flash_dq_cuda, "flash_dq.cu", 228, "flash_dq_kernel"),
-    "K3b flash dk/dv": (fp.flash_dkv_cuda, "flash_dkv.cu", 283, "flash_dkv_kernel"),
-    "K4 keep mask": (fp.keep_mask_cuda, "keep_mask.cu", 747, "keep_mask_kernel"),
+    "K1 flash fwd": (fp.flash_fwd_cuda, "flash_fwd.cu", JAX_FLASH + "161", "flash_fwd_kernel<false>", 1),
+    "K2 flash bwd": (fp.flash_bwd_cuda, "flash_bwd.cu", JAX_FLASH + "364", "flash_bwd_kernel", 1),
+    "K1c flash fwd causal": (fp.flash_fwd_causal_cuda, "flash_fwd.cu", JAX_FLASH + "161", "flash_fwd_kernel<true>", 1),
+    "K3a flash dq": (fp.flash_dq_cuda, "flash_dq.cu", JAX_FLASH + "228", "flash_dq_kernel", 1),
+    "K3b flash dk/dv": (fp.flash_dkv_cuda, "flash_dkv.cu", JAX_FLASH + "283", "flash_dkv_kernel", 1),
+    "K4 keep mask": (fp.keep_mask_cuda, "keep_mask.cu", JAX_FLASH + "747", "keep_mask_kernel", 1),
+    # K5a launches the tile kernel and the fixed-order statistics sum
+    "K5a fused stem k1": (fs.fused_stem_k1_cuda, "fused_stem_k1.cu", JAX_STEM + "288", "fused_stem_k1", 2),
+    "K5b fused stem k2": (fs.fused_stem_k2_cuda, "fused_stem_k2.cu", JAX_STEM + "412", "fused_stem_k2", 1),
 }
+# the fused stem block at b8 and the flagship width: (f_in, f_out, stride, ci, co, H, Wp) of
+# tools/bench_fused_block.py:24-29 (blocks 0-2 of the packed stem on 361x4416 images)
+STEM_BLOCKS = {
+    "block0": (8, 8, (1, 1), 1, 16, 361, 552),
+    "block1": (4, 2, (2, 2), 16, 32, 361, 1104),
+    "block2": (2, 1, (2, 2), 32, 64, 181, 1104),
+}
+STEM_DROPOUT = 0.5  # the encoder's default
 OUT_DIR = ROOT / "build" / "chip_smoke"  # set by --out-dir
 
 
@@ -117,11 +143,12 @@ def time_ms(fn, reps=5, warmup=2):
 
 
 def kernel_times(name, fn, reps=10):
-    """(device ms, call ms) of a kernel's wrapper fn: the mean duration of
-    the kernel itself over the launches that a profiler trace of reps calls
-    recorded (the tracer may miss one as it starts), and the CUDA-event
-    median of one call, which holds the wrapper's host work and its other
-    device work too (for a kernel of tens of microseconds, mostly host)."""
+    """(device ms, call ms) of a kernel's wrapper fn: the device time of
+    one launch (its kernels' durations that a profiler trace of reps calls
+    recorded, over the launches they make up; the tracer may miss one as it
+    starts), and the CUDA-event median of one call, which holds the
+    wrapper's host work and its other device work too (for a kernel of tens
+    of microseconds, mostly host)."""
     from torch.profiler import ProfilerActivity, profile
 
     call = time_ms(fn)
@@ -131,12 +158,12 @@ def kernel_times(name, fn, reps=10):
         torch.cuda.synchronize()
     trace = OUT_DIR / "kernel_timing_trace.json"
     prof.export_chrome_trace(str(trace))
-    symbol = KERNELS[name][3]
+    _, _, _, symbol, per_launch = KERNELS[name]
     durs = [e["dur"] for e in json.loads(trace.read_text())["traceEvents"]
             if e.get("cat") == "kernel" and symbol in e["name"]]
-    if not reps // 2 <= len(durs) <= reps:
+    if not reps // 2 * per_launch <= len(durs) <= reps * per_launch:
         raise AssertionError(f"{name}: {len(durs)} kernels named {symbol} in the trace of {reps} calls")
-    return sum(durs) / len(durs) / 1e3, call
+    return sum(durs) / (len(durs) / per_launch) / 1e3, call
 
 
 def reset_counts():
@@ -151,9 +178,9 @@ def read_counts():
 def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms, **extra):
     """One entry of the kernels line; the bound is the larger of the valid
     work's operations over the bf16 peak and its bytes over the memory rate."""
-    _, source, line, _ = KERNELS[name]
+    _, source, replaces, *_ = KERNELS[name]
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return dict(name=name, route="cuda", source=CSRC + source, replaces=f"{JAX_OP}{line}", max_abs_err=err, ms=ms,
+    return dict(name=name, route="cuda", source=CSRC + source, replaces=replaces, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=library_ms, **extra)
 
@@ -408,6 +435,167 @@ def phase_self(dev):
     }
 
 
+def stem_inputs(name, dev, p):
+    """bf16 input, HWIO weights and the dropout draw of one stem block at b8."""
+    f_in, _, _, ci, co, h, wp = STEM_BLOCKS[name]
+    g = torch.Generator(device=dev).manual_seed(5 + list(STEM_BLOCKS).index(name))
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    args = [randn(B, h, wp, f_in * ci), randn(3, 3, ci, co, scale=0.3), randn(co, scale=0.1),
+            randn(3, 3, co, co, scale=0.1), randn(co, scale=0.1), randn(3, 3, co, co, scale=0.1), randn(co, scale=0.1)]
+    drop = None if p is None else fs.make_drop_ctx(g, p, (B, h, wp, f_in * co), co)
+    return args, drop
+
+
+def stem_work(name, drop):
+    """(K5a, K5b) of one block as (operations, bytes) of the original 3x3
+    products and of x, y2, out (bf16) and the u8 bits a kernel must read:
+    K5a reads bits only when site 1 or 2 runs elementwise dropout, K5b when
+    site 3 does (the draw decides; its other sites multiply by 1 or by a
+    channel factor)."""
+    f_in, f_out, (sh, sw), ci, co, h, wp = STEM_BLOCKS[name]
+    px, px3 = B * h * wp * f_in, B * -(-h // sh) * wp * f_out  # pixels of y2 and of out
+    pos, use_elem = (0, 0) if drop is None else (int(drop["pos"]), int(drop["use_elem"]))
+    bits_a = px * co if use_elem and pos in (1, 2) else 0
+    bits_b = px3 * co if use_elem and pos == 3 else 0
+    k5a = (2 * px * 9 * co * (ci + co), px * ci * 2 + bits_a + px * co * 2 + B * 2 * co * 4)
+    k5b = (2 * px3 * 9 * co * co, px * co * 2 + B * 2 * co * 4 + bits_b + px3 * co * 2)
+    return k5a, k5b
+
+
+def phase_stem(dev):
+    """K5a and K5b at the three stem block shapes (b8, bf16), dropout 0.5
+    and none: each kernel against its plain version, the whole block against
+    reference_block; device times, the plain block's forward, the cuDNN
+    convolutions of the same block alone, and forward + backward of the
+    fused block against plain autograd."""
+    t0 = time.perf_counter()
+    rows = {}
+    for name, (f_in, f_out, stride, ci, co, h, wp) in STEM_BLOCKS.items():
+        for p in (STEM_DROPOUT, None):
+            (x, w1, b1, w2, b2, w3, b3), drop = stem_inputs(name, dev, p)
+            kw = dict(f_in=f_in, f_out=f_out, stride=stride)
+            draw = "none" if drop is None else f"pos {int(drop['pos'])}, use_elem {int(drop['use_elem'])}"
+            log(f"[stem] {name}: x {tuple(x.shape)} bf16, ci {ci} -> co {co}, stride {stride}, dropout {p} ({draw})")
+            y2, stats = fs.fused_stem_k1_cuda(x, w1, b1, w2, b2, drop, f_in=f_in)
+            mean_inv = fs.norm_from_stats(stats, h * wp * f_in, 1e-3)
+            out = fs.fused_stem_k2_cuda(y2, mean_inv, w3, b3, drop, **kw)
+            block = fs.fused_packed_block(x, w1, b1, w2, b2, w3, b3, drop=drop, **kw)
+            torch.cuda.synchronize()
+            y2_p, stats_p = fs.plain_k1(x, w1, b1, w2, b2, f_in=f_in, drop=drop)
+            r = dict(pos=None if drop is None else int(drop["pos"]),
+                     use_elem=None if drop is None else int(drop["use_elem"]))
+            r["err_a"] = check_vs("K5a y2", y2, y2_p)
+            r["stats_rel_err"] = check_vs("K5a stats", stats, stats_p) / float(stats_p.abs().max())
+            del y2_p, stats_p
+            r["err_b"] = check_vs("K5b out", out, fs.plain_k2(y2, mean_inv, w3, b3, drop=drop, **kw))
+            r["err_block"] = check_vs("K5a+K5b block", block, fs.reference_block(x, w1, b1, w2, b2, w3, b3,
+                                                                                  drop=drop, **kw))
+            del block
+            torch.cuda.empty_cache()
+            r["ms_a"], r["call_a"] = kernel_times("K5a fused stem k1", lambda: fs.fused_stem_k1_cuda(
+                x, w1, b1, w2, b2, drop, f_in=f_in))
+            r["ms_b"], r["call_b"] = kernel_times("K5b fused stem k2", lambda: fs.fused_stem_k2_cuda(
+                y2, mean_inv, w3, b3, drop, **kw))
+            r["plain_ms"] = time_ms(lambda: fs.reference_block(x, w1, b1, w2, b2, w3, b3, drop=drop, **kw))
+            r["convs12_ms"] = time_ms(lambda: packed_conv(packed_conv(x, w1, b1, f_in, f_in, (1, 1)), w2, b2, f_in,
+                                                          f_in, (1, 1)))
+            r["conv3_ms"] = time_ms(lambda: packed_conv(y2, w3, b3, f_in, f_out, stride))
+            (ops_a, bytes_a), (ops_b, bytes_b) = stem_work(name, drop)
+            r["bound_a"] = max(ops_a / PEAK_BF16_FLOPS, bytes_a / PEAK_BYTES) * 1e3
+            r["bound_b"] = max(ops_b / PEAK_BF16_FLOPS, bytes_b / PEAK_BYTES) * 1e3
+            r["by_a"] = "operations" if ops_a / PEAK_BF16_FLOPS >= bytes_a / PEAK_BYTES else "bytes"
+            r["by_b"] = "operations" if ops_b / PEAK_BF16_FLOPS >= bytes_b / PEAK_BYTES else "bytes"
+            log(f"  K5a {r['ms_a']:.3f} ms (call {r['call_a']:.3f}, bound {r['bound_a']:.4f}), K5b {r['ms_b']:.3f} ms "
+                f"(call {r['call_b']:.3f}, bound {r['bound_b']:.4f}); plain block fwd {r['plain_ms']:.3f} ms, "
+                f"cuDNN conv1+conv2 {r['convs12_ms']:.3f} ms, conv3 {r['conv3_ms']:.3f} ms")
+            if p is not None:  # forward + backward, fused against plain autograd
+                gout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(9),
+                                   device=dev).to(out.dtype)
+                leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2, w3, b3)]
+
+                def fwd_bwd(block_fn):
+                    return torch.autograd.grad(block_fn(*leaves, drop=drop, **kw), leaves, gout)
+
+                r["fwd_bwd_ms"] = time_ms(lambda: fwd_bwd(fs.fused_packed_block), reps=3, warmup=1)
+                r["plain_fwd_bwd_ms"] = time_ms(lambda: fwd_bwd(fs.reference_block), reps=3, warmup=1)
+                log(f"  forward + backward: fused {r['fwd_bwd_ms']:.3f} ms, plain {r['plain_fwd_bwd_ms']:.3f} ms")
+            rows[(name, p)] = r
+            del x, w1, b1, w2, b2, w3, b3, drop, y2, stats, mean_inv, out
+            torch.cuda.empty_cache()
+    log(f"[stem] kernel checks and timings took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def stem_path(dev):
+    """The fused block's entry point at the three stem block shapes (b8,
+    bf16, dropout 0.5), forward and backward, counted from 0: K5a and K5b
+    once per block, no other kernel; gradients finite and within tolerance
+    of plain autograd through reference_block."""
+    inputs = {name: stem_inputs(name, dev, STEM_DROPOUT) for name in STEM_BLOCKS}
+    errs = {}
+    reset_counts()
+    for name, (args, drop) in inputs.items():
+        f_in, f_out, stride, *_ = STEM_BLOCKS[name]
+        kw = dict(f_in=f_in, f_out=f_out, stride=stride, drop=drop)
+        leaves = [t.detach().requires_grad_() for t in args]
+        out = fs.fused_packed_block(*leaves, **kw)
+        gout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(10), device=dev).to(out.dtype)
+        out.backward(gout)
+        inputs[name] = (leaves, out.detach(), gout, kw)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[stem path] kernel launches {launches}")
+    want = {name: 3 if name in ("K5a fused stem k1", "K5b fused stem k2") else 0 for name in KERNELS}
+    if launches != want:
+        raise AssertionError(f"stem path launched {launches}, expected {want}")
+    for name, (leaves, out, gout, kw) in inputs.items():
+        ref_leaves = [t.detach().requires_grad_() for t in leaves]
+        ref = fs.reference_block(*ref_leaves, **kw)
+        ref.backward(gout)
+        if not torch.isfinite(out.float()).all() or not all(torch.isfinite(t.grad.float()).all() for t in leaves):
+            raise AssertionError(f"stem path {name}: non-finite output or gradient")
+        log(f"[stem path] {name}")
+        errs[name] = max([check_vs("block out", out, ref)] +
+                         [check_vs(f"d{n}", t.grad, r.grad) for n, t, r in
+                          zip(("x", "w1", "b1", "w2", "b2", "w3", "b3"), leaves, ref_leaves)])
+    del inputs
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
+def stem_rows(rows, launches, errs):
+    """The K5a and K5b entries of the kernels line: times and bounds summed
+    over the three blocks at dropout 0.5, per-block numbers inside."""
+    out = {}
+    for key, name, conv in (("a", "K5a fused stem k1", "convs12_ms"), ("b", "K5b fused stem k2", "conv3_ms")):
+        main = [rows[(blk, STEM_DROPOUT)] for blk in STEM_BLOCKS]
+        none = [rows[(blk, None)] for blk in STEM_BLOCKS]
+        bound = sum(r["bound_" + key] for r in main)
+        by = "operations" if any(r["by_" + key] == "operations" for r in main) else "bytes"
+        per_block = {blk: dict(ms=r["ms_" + key], call_ms=r["call_" + key], bound_ms=r["bound_" + key],
+                               bound_by=r["by_" + key], plain_ms=r["plain_ms"], convs_ms=r[conv],
+                               pos=r["pos"], use_elem=r["use_elem"], max_abs_err=r["err_" + key],
+                               max_abs_err_block=r["err_block"], fwd_bwd_ms=r["fwd_bwd_ms"],
+                               plain_fwd_bwd_ms=r["plain_fwd_bwd_ms"], ms_dropout_none=n["ms_" + key],
+                               plain_ms_dropout_none=n["plain_ms"], max_abs_err_dropout_none=n["err_" + key],
+                               max_abs_err_path=errs[blk])
+                     | (dict(stats_rel_err=max(r["stats_rel_err"], n["stats_rel_err"])) if key == "a" else {})
+                     for blk, r, n in zip(STEM_BLOCKS, main, none)}
+        out[name] = dict(name=name, route="cuda", source=CSRC + KERNELS[name][1], replaces=KERNELS[name][2],
+                         launches=launches[name],
+                         max_abs_err=max(max(r["err_" + key], r["err_block"]) for r in main + none),
+                         ms=sum(r["ms_" + key] for r in main), plain_ms=sum(r["plain_ms"] for r in main),
+                         bound_ms=bound, bound_by=by, library_ms=None,
+                         library_note="no one PyTorch call computes the fused convolutions, ReLU, dropout "
+                                      "and instance norm; convs_ms times the block's cuDNN convolutions alone",
+                         convs_ms=sum(r[conv] for r in main),
+                         call_ms=sum(r["call_" + key] for r in main), blocks=per_block)
+    return out
+
+
 def build(dev, **hp):
     hp = dict(vocab_size=VOCAB, max_seq_len=LQ, input_modality="image", use_flash_cross=True,
               cache_dtype="bfloat16", **hp)
@@ -457,7 +645,8 @@ def kernel_kind(name: str) -> str:
     if "flash_fwd_kernel<true>" in low:
         return "K1c flash fwd causal"
     for key, kind in (("flash_fwd", "K1 flash fwd"), ("flash_bwd", "K2 flash bwd"), ("flash_dq", "K3a flash dq"),
-                      ("flash_dkv", "K3b flash dk/dv"), ("keep_mask", "K4 keep mask")):
+                      ("flash_dkv", "K3b flash dk/dv"), ("keep_mask", "K4 keep mask"),
+                      ("fused_stem_k1", "K5a fused stem k1"), ("fused_stem_k2", "K5b fused stem k2")):
         if key in low:
             return kind
     if re.search(r"conv|cudnn|implicit_gemm|wgrad|dgrad|fprop", low):
@@ -572,7 +761,7 @@ def op_path(dev):
     launches = read_counts()
     log(f"[op path] kernel launches {launches}, keep-mask {tuple(keep.shape)} keeps {float(keep.float().mean()):.4f}")
     want = {"K1 flash fwd": 1, "K2 flash bwd": 0, "K1c flash fwd causal": 1, "K3a flash dq": 2,
-            "K3b flash dk/dv": 2, "K4 keep mask": 1}
+            "K3b flash dk/dv": 2, "K4 keep mask": 1, "K5a fused stem k1": 0, "K5b fused stem k2": 0}
     if launches != want:
         raise AssertionError(f"op path launched {launches}, expected {want}")
     del keep
@@ -605,6 +794,9 @@ def main(argv=None):
 
     cross = phase_cross(dev)
     self_rows = phase_self(dev)
+    stem = phase_stem(dev)
+    stem_launches, stem_errs = stem_path(dev)
+    stem_k = stem_rows(stem, stem_launches, stem_errs)
     kernels = [cross["K1 flash fwd"], cross["K2 flash bwd"], self_rows["K1c flash fwd causal"],
                self_rows["K3a flash dq"] | cross["cross3a"], self_rows["K3b flash dk/dv"] | cross["cross3b"],
                cross["K4 keep mask"]]
@@ -616,12 +808,15 @@ def main(argv=None):
     log("[paper path] K1c, K3a, K3b and K4 launched 0 times: the windowed self-attention is plain PyTorch "
         "(dense mask up to 256 positions, banded above), as in the JAX model")
     ops = op_path(dev)
-    for k in kernels:  # K1/K2 from this slice's model path, the rest from the op path
+    for k in kernels:  # K1/K2 from the paper model's path, the rest from the op path
         k["launches"] = paper["launches"][k["name"]] if k["name"] in ("K1 flash fwd", "K2 flash bwd") else ops[k["name"]]
+    kernels += [stem_k["K5a fused stem k1"], stem_k["K5b fused stem k2"]]  # launches from the stem path
+    for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
 
-    result = dict(card=card, kernels=kernels, flagship=flagship, paper=paper, op_path=ops)
+    result = dict(card=card, kernels=kernels, flagship=flagship, paper=paper, op_path=ops,
+                  stem_path=dict(launches=stem_launches, max_abs_err=stem_errs))
     (args.out_dir / "chip_smoke_result.json").write_text(json.dumps(result, indent=1))
     log(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

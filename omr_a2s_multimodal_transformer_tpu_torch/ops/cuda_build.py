@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv", "keep_mask")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv", "keep_mask", "fused_stem_k1", "fused_stem_k2")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,6 +35,8 @@ SIGNATURES = {
     "flash_dq": ("flash_dq_launch", [_P] * 10 + [_I] * 8 + [_F, _F, _U, _P]),
     "flash_dkv": ("flash_dkv_launch", [_P] * 11 + [_I] * 8 + [_F, _F, _U, _P]),
     "keep_mask": ("keep_mask_launch", [_P] * 2 + [_I] * 6 + [_U, _P]),
+    "fused_stem_k1": ("fused_stem_k1_launch", [_P] * 13 + [_I] * 10 + [_F, _P]),
+    "fused_stem_k2": ("fused_stem_k2_launch", [_P] * 9 + [_I] * 13 + [_F, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

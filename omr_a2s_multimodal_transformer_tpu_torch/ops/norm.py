@@ -1,10 +1,10 @@
 """Instance normalization (NHWC) with optional validity masking.
 
 Port of ``omr_a2s_multimodal_transformer_tpu/ops/norm.py``
-``instance_norm``: per-sample, per-channel normalization over the spatial
-dims, biased variance, no affine, eps 1e-3 in the stem. Statistics are
-taken in float32 as E[x^2] - E[x]^2; the normalization itself runs in the
-input dtype, as in the JAX version.
+``instance_norm`` and ``instance_norm_packed``: per-sample, per-channel
+normalization over the spatial dims, biased variance, no affine, eps 1e-3
+in the stem. Statistics are taken in float32 as E[x^2] - E[x]^2; the
+normalization itself runs in the input dtype, as in the JAX version.
 """
 
 from __future__ import annotations
@@ -30,3 +30,14 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-3, valid: Optional[torch.Tens
     var = (mean_sq - mean.square()).clamp_min(0.0)
     inv = torch.rsqrt(var + eps)
     return (x - mean.to(dtype)) * inv.to(dtype)
+
+
+def instance_norm_packed(x: torch.Tensor, f: int, eps: float = 1e-3,
+                         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Instance norm over a width-packed tensor (``ops/packed_conv.py``),
+    port of the JAX ``instance_norm_packed``: x [B, H, W/f, f*C] is the
+    NHWC [B, H, W, C] by a reshape, so its statistics per original channel
+    over (H, W/f, slot) are ``instance_norm``'s on that tensor; valid is the
+    original-resolution [B, H, W] mask."""
+    b, h, wp, fc = x.shape
+    return instance_norm(x.reshape(b, h, wp * f, fc // f), eps=eps, valid=valid).reshape(b, h, wp, fc)

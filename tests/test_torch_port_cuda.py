@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 K1 and K2 (the decoder's cross-attention), K1c, K3a and K3b (causal,
-windowed and split-backward calls of ``make_flash_attention_packed``) and
-K4 (``export_keep_masks``).
+windowed and split-backward calls of ``make_flash_attention_packed``),
+K4 (``export_keep_masks``) and K5a/K5b (the fused stem block, against
+``plain_k1``, ``plain_k2`` and ``reference_block``: 2e-2 x max |plain| in
+bf16, 1e-4 in float32 with TF32 off).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels are
 built with nvcc on first use) and skip elsewhere. They import nothing of
@@ -227,3 +229,123 @@ def test_tiny_model_train_step_on_gpu_matches_cpu():
     assert (n_c, n_g) == (0, 8)
     np.testing.assert_allclose(loss_g, loss_c, rtol=1e-2)
     assert float((g_g - g_c).norm() / g_c.norm()) < 5e-2
+
+
+# ------------------------------------------------------- fused stem K5a/K5b
+
+# (f_in, f_out, stride, ci, co, H, Wp): small ragged versions of the stem
+# ladder's three packed stages: odd H, sh = 2, ci = 1, partial tiles in
+# height and width
+STEM_CASES = {
+    "block0": (8, 8, (1, 1), 1, 16, 13, 9),
+    "block1": (4, 2, (2, 2), 16, 32, 17, 11),
+    "block2": (2, 1, (2, 2), 32, 64, 9, 19),
+}
+STEM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # x max |plain|
+
+
+def _stem_inputs(geom, dtype, p, dev, seed=0):
+    from omr_a2s_multimodal_transformer_tpu_torch.ops import fused_stem as fs
+
+    f_in, _, _, ci, co, h, wp = geom
+    rng = np.random.default_rng(seed)
+    shapes = [(2, h, wp, f_in * ci), (3, 3, ci, co), (co,), (3, 3, co, co), (co,), (3, 3, co, co), (co,)]
+    scales = [1.0, 0.3, 0.1, 0.2, 0.1, 0.2, 0.1]
+    args = [torch.from_numpy(rng.normal(size=s) * k).to(dev, dtype) for s, k in zip(shapes, scales)]
+    drop = None
+    if p is not None:
+        drop = fs.make_drop_ctx(torch.Generator(device=dev).manual_seed(seed), p, (2, h, wp, f_in * co), co)
+    return args, drop
+
+
+def _stem_close(name, got, ref, dtype):
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    assert scale > 0 and err <= STEM_TOL[dtype] * scale, \
+        f"{name}: max_abs_err {err:.3e} > {STEM_TOL[dtype]} x max |plain| {scale:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("p", [None, 0.5])
+@pytest.mark.parametrize("name", list(STEM_CASES))
+def test_fused_stem_kernels_match_plain_on_gpu(name, p, dtype):
+    """K5a (y2, stats) and K5b (out) against plain_k1/plain_k2 on the same
+    inputs, at every dropout site with elementwise and channel dropout, and
+    the whole block against reference_block."""
+    from omr_a2s_multimodal_transformer_tpu_torch.device import set_float32_precision
+    from omr_a2s_multimodal_transformer_tpu_torch.ops import fused_stem as fs
+
+    dev = _cuda()
+    set_float32_precision()
+    f_in, f_out, stride, _, co, h, wp = STEM_CASES[name]
+    (x, w1, b1, w2, b2, w3, b3), drop = _stem_inputs(STEM_CASES[name], dtype, p, dev)
+    draws = [(None, None)] if drop is None else [(s, e) for s in (1, 2, 3) for e in (0, 1)]
+    for pos, use_elem in draws:
+        if drop is not None:
+            drop["pos"] = torch.tensor(pos, dtype=torch.int32, device=dev)
+            drop["use_elem"] = torch.tensor(use_elem, dtype=torch.int32, device=dev)
+        n1, n2 = fs.fused_stem_k1_cuda.launches, fs.fused_stem_k2_cuda.launches
+        y2, stats = fs.fused_stem_k1_cuda(x, w1, b1, w2, b2, drop, f_in=f_in)
+        y2_p, stats_p = fs.plain_k1(x, w1, b1, w2, b2, f_in=f_in, drop=drop)
+        mean_inv = fs.norm_from_stats(stats, h * wp * f_in, 1e-3)
+        out = fs.fused_stem_k2_cuda(y2, mean_inv, w3, b3, drop, f_in=f_in, f_out=f_out, stride=stride)
+        out_p = fs.plain_k2(y2, mean_inv, w3, b3, f_in=f_in, f_out=f_out, stride=stride, drop=drop)
+        block = fs.fused_packed_block(x, w1, b1, w2, b2, w3, b3, f_in=f_in, f_out=f_out, stride=stride, drop=drop)
+        block_p = fs.reference_block(x, w1, b1, w2, b2, w3, b3, f_in=f_in, f_out=f_out, stride=stride, drop=drop)
+        torch.cuda.synchronize()
+        assert (fs.fused_stem_k1_cuda.launches - n1, fs.fused_stem_k2_cuda.launches - n2) == (2, 2)
+        assert y2.shape == y2_p.shape and out.shape == out_p.shape == block.shape == block_p.shape
+        assert out.shape == (2, -(-h // stride[0]), wp, f_out * co) and out.dtype == dtype
+        tag = f"pos {pos} use_elem {use_elem}"
+        _stem_close(f"K5a y2 ({tag})", y2, y2_p, dtype)
+        _stem_close(f"K5a stats ({tag})", stats, stats_p, dtype)
+        _stem_close(f"K5b out ({tag})", out, out_p, dtype)
+        _stem_close(f"block ({tag})", block, block_p, dtype)
+
+
+@pytest.mark.cuda
+def test_fused_stem_statistics_are_deterministic_on_gpu():
+    from omr_a2s_multimodal_transformer_tpu_torch.ops import fused_stem as fs
+
+    dev = _cuda()
+    f_in = STEM_CASES["block1"][0]
+    (x, w1, b1, w2, b2, *_), drop = _stem_inputs(STEM_CASES["block1"], torch.bfloat16, 0.5, dev)
+    first = fs.fused_stem_k1_cuda(x, w1, b1, w2, b2, drop, f_in=f_in)
+    second = fs.fused_stem_k1_cuda(x, w1, b1, w2, b2, drop, f_in=f_in)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_fused_stem_wrappers_reject_what_the_kernels_do_not_take():
+    from omr_a2s_multimodal_transformer_tpu_torch.ops import fused_stem as fs
+
+    dev = _cuda()
+    f_in, f_out, stride = STEM_CASES["block0"][:3]
+    (x, w1, b1, w2, b2, w3, b3), drop = _stem_inputs(STEM_CASES["block0"], torch.float32, 0.5, dev)
+    kw = dict(f_in=f_in, f_out=f_out, stride=stride)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fs.fused_packed_block(*(t.double() for t in (x, w1, b1, w2, b2, w3, b3)), **kw)
+    with pytest.raises(ValueError, match="lies on"):
+        fs.fused_stem_k1_cuda(x, w1.cpu(), b1, w2, b2, drop, f_in=f_in)
+    with pytest.raises(ValueError, match="lies on"):
+        fs.fused_stem_k1_cuda(x, w1, b1, w2, b2, {**drop, "bits": drop["bits"].cpu()}, f_in=f_in)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fs.fused_stem_k1_cuda(x.cpu(), w1, b1, w2, b2, None, f_in=f_in)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_fused_stem_tile_height_on_gpu(dtype):
+    """tile_h sets the kernels' tile height: H 17 in tiles of 4 (K5a) and 2
+    (K5b) with ragged last tiles, against reference_block."""
+    from omr_a2s_multimodal_transformer_tpu_torch.device import set_float32_precision
+    from omr_a2s_multimodal_transformer_tpu_torch.ops import fused_stem as fs
+
+    dev = _cuda()
+    set_float32_precision()
+    f_in, f_out, stride = STEM_CASES["block1"][:3]
+    args, drop = _stem_inputs(STEM_CASES["block1"], dtype, 0.5, dev, seed=3)
+    kw = dict(f_in=f_in, f_out=f_out, stride=stride, drop=drop)
+    out = fs.fused_packed_block(*args, tile_h=4, **kw)
+    _stem_close("block, tile_h 4", out, fs.reference_block(*args, **kw), dtype)
