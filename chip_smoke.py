@@ -12,7 +12,7 @@ Phases, each of which raises on failure (exit code 1):
      function:
      - at the flagship cross-attention shape (B 8, Lq 1268, Lk 12,696,
        bf16, ragged keys), dropout 0 and 0.1: K1 and K2; K3a and K3b as the
-       split backward of a merged_bwd=False call (dropout 0.1); K4, the
+       split backward of a merged_bwd=False call (both rates); K4, the
        keep-mask probe at the decoder's 128/2048 blocks, bit for bit;
      - at the paper's self-attention shape (B 8, L 1268, 4 x 64 heads,
        window 100, ragged target lengths, 128/512 blocks), dropout 0 and
@@ -24,7 +24,14 @@ Phases, each of which raises on failure (exit code 1):
        whole block against reference_block; the plain block's forward, the
        cuDNN convolutions of the block alone (convs_ms), and forward +
        backward of fused_packed_block against plain autograd;
-  3. four paths, each with every kernel's launch count set to 0 just
+     - the per-head legacy flash family of tools/legacy_flash ([B, H, L, 64]
+       bf16) at the cross shape (L2: the images' kv_valid; L1: kv_len of
+       the same counts) and at the paper's self-attention shape (causal,
+       window 100, the targets as kv_len for L1 and kv_valid for L2, so pad
+       rows see no key and must give o = 0, lse = 0): L1, L2a, L2b, L2c
+       against the plain version, with plain and SDPA times, beside the
+       head-packed K1, K3a, K3b and K2 at dropout 0;
+  3. five paths, each with every kernel's launch count set to 0 just
      before it and read just after:
      - stem path: fused_packed_block forward and backward at the three
        stem block shapes (dropout 0.5); K5a and K5b once per block, no
@@ -42,8 +49,13 @@ Phases, each of which raises on failure (exit code 1):
        forward and backward at the paper shape, a merged_bwd=False call at
        the cross shape, and export_keep_masks at the cross shape: K1c, K3a,
        K3b and K4 must launch.
+     - legacy path: the port's tools/bench_flash_packed.main (L2 against
+       K1/K2, LEGACY_ITERS timed calls each) at its own shape, then one
+       inference call of flash_attention (L1) at the paper shape: exact
+       counts of all twelve kernels.
      K5a and K5b launch on the stem path only: no model calls the fused
-     block, as in the JAX package (fused_stem.py:24-35).
+     block, as in the JAX package (fused_stem.py:24-35); L1-L2c on the
+     legacy path only (no model calls them either).
 It prints the card's name and power limit, one JSON line of kernel
 numbers, and last {"ok": true, "device": {...}}. Without a GPU it exits
 with code 2 and prints no result.
@@ -74,6 +86,9 @@ from omr_a2s_multimodal_transformer_tpu_torch.ops import fused_stem as fs  # noq
 from omr_a2s_multimodal_transformer_tpu_torch.ops.packed_conv import packed_conv  # noqa: E402
 from omr_a2s_multimodal_transformer_tpu_torch.ops.banded_attention import banded_causal_attention  # noqa: E402
 from omr_a2s_multimodal_transformer_tpu_torch.ops.image import preprocess_image_batch  # noqa: E402
+from omr_a2s_multimodal_transformer_tpu_torch.tools import bench_flash_packed  # noqa: E402
+from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention as fl  # noqa: E402
+from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention_bwd as fb  # noqa: E402
 from omr_a2s_multimodal_transformer_tpu_torch.training.train_state import TrainState, make_train_step  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit.
@@ -93,6 +108,7 @@ LSE_TOL = 1e-3     # lse is f32 from the same bf16 products, other summation ord
 CSRC = "omr_a2s_multimodal_transformer_tpu_torch/csrc/"
 JAX_FLASH = "omr_a2s_multimodal_transformer_tpu/ops/flash_packed.py:"
 JAX_STEM = "omr_a2s_multimodal_transformer_tpu/ops/fused_stem.py:"
+JAX_LEGACY = "tools/legacy_flash/"
 # name -> (launching wrapper, source, TPU kernel (file:line), device symbol in a profiler trace,
 #          device kernels per launch)
 KERNELS = {
@@ -105,7 +121,17 @@ KERNELS = {
     # K5a launches the tile kernel and the fixed-order statistics sum
     "K5a fused stem k1": (fs.fused_stem_k1_cuda, "fused_stem_k1.cu", JAX_STEM + "288", "fused_stem_k1", 2),
     "K5b fused stem k2": (fs.fused_stem_k2_cuda, "fused_stem_k2.cu", JAX_STEM + "412", "fused_stem_k2", 1),
+    # the per-head legacy flash family of tools/legacy_flash (L1 and L2a share a source, not a symbol)
+    "L1 legacy flash fwd": (fl.legacy_fwd_cuda, "legacy_flash_fwd.cu", JAX_LEGACY + "flash_attention.py:42",
+                            "lf_fwd_kernel", 1),
+    "L2a legacy flash fwd lse": (fb.legacy_fwd_lse_cuda, "legacy_flash_fwd.cu",
+                                 JAX_LEGACY + "flash_attention_bwd.py:57", "lf_fwd_lse_kernel", 1),
+    "L2b legacy flash dq": (fb.legacy_dq_cuda, "legacy_flash_dq.cu", JAX_LEGACY + "flash_attention_bwd.py:109",
+                            "lf_dq_kernel", 1),
+    "L2c legacy flash dk/dv": (fb.legacy_dkv_cuda, "legacy_flash_dkv.cu", JAX_LEGACY + "flash_attention_bwd.py:150",
+                               "lf_dkv_kernel", 1),
 }
+LEGACY_ITERS = 2  # timed calls of each forward + backward in the legacy path's bench run
 # the fused stem block at b8 and the flagship width: (f_in, f_out, stride, ci, co, H, Wp) of
 # tools/bench_fused_block.py:24-29 (blocks 0-2 of the packed stem on 361x4416 images)
 STEM_BLOCKS = {
@@ -259,19 +285,19 @@ def phase_cross(dev):
         r["plain2"] = time_ms(lambda: torch.autograd.grad(o_p, (qr, kr, vr), do, retain_graph=True), reps=3, warmup=1)
         log(f"  K1 {r['ms1']:.3f} ms (call {r['call1']:.3f}, plain {r['plain1']:.3f} ms), K2 {r['ms2']:.3f} ms "
             f"(call {r['call2']:.3f}, plain autograd {r['plain2']:.3f} ms)")
-        if rate > 0.0:  # the split backward of a merged_bwd=False call
-            delta = fp.attention_delta(do, o_k, HEADS)
-            args = (q, k, v, kv_len, kv_valid, seed, do, lse_k, delta, rate, HEADS, bq, bk, False, -1)
-            dq3 = fp.flash_dq_cuda(*args)
-            dk3, dv3 = fp.flash_dkv_cuda(*args)
-            torch.cuda.synchronize()
-            r["err3a"] = check_vs("K3a dq", dq3, dq_p)
-            r["err3b"] = max(check_vs("K3b dk", dk3, dk_p), check_vs("K3b dv", dv3, dv_p))
-            r["ms3a"], r["call3a"] = kernel_times("K3a flash dq", lambda: fp.flash_dq_cuda(*args))
-            r["ms3b"], r["call3b"] = kernel_times("K3b flash dk/dv", lambda: fp.flash_dkv_cuda(*args))
-            log(f"  K3a {r['ms3a']:.3f} ms (call {r['call3a']:.3f}), K3b {r['ms3b']:.3f} ms (call {r['call3b']:.3f}) "
-                "(split backward, non-causal)")
-            del dq3, dk3, dv3, delta, args
+        # the split backward of a merged_bwd=False call (at dropout 0 also the packed twin of L2b/L2c)
+        delta = fp.attention_delta(do, o_k, HEADS)
+        args = (q, k, v, kv_len, kv_valid, seed, do, lse_k, delta, rate, HEADS, bq, bk, False, -1)
+        dq3 = fp.flash_dq_cuda(*args)
+        dk3, dv3 = fp.flash_dkv_cuda(*args)
+        torch.cuda.synchronize()
+        r["err3a"] = check_vs("K3a dq", dq3, dq_p)
+        r["err3b"] = max(check_vs("K3b dk", dk3, dk_p), check_vs("K3b dv", dv3, dv_p))
+        r["ms3a"], r["call3a"] = kernel_times("K3a flash dq", lambda: fp.flash_dq_cuda(*args))
+        r["ms3b"], r["call3b"] = kernel_times("K3b flash dk/dv", lambda: fp.flash_dkv_cuda(*args))
+        log(f"  K3a {r['ms3a']:.3f} ms (call {r['call3a']:.3f}), K3b {r['ms3b']:.3f} ms (call {r['call3b']:.3f}) "
+            "(split backward, non-causal)")
+        del dq3, dk3, dv3, delta, args
         rows[rate] = r
         del o_p, lse_p, dq_p, dk_p, dv_p, qr, kr, vr
         torch.cuda.empty_cache()
@@ -310,11 +336,13 @@ def phase_cross(dev):
         "K2 flash bwd": kernel_row("K2 flash bwd", max(main["err2"], r0["err2"]), main["ms2"], main["plain2"],
                                    flops2, bytes2, lib2, call_ms=main["call2"], ms_dropout0=r0["ms2"],
                                    plain_ms_dropout0=r0["plain2"]),
-        "cross3a": dict(max_abs_err_cross=main["err3a"], ms_cross=main["ms3a"], call_ms_cross=main["call3a"],
+        "cross3a": dict(max_abs_err_cross=max(main["err3a"], r0["err3a"]), ms_cross=main["ms3a"],
+                        call_ms_cross=main["call3a"], ms_cross_dropout0=r0["ms3a"],
                         plain_ms_cross=main["plain2"],
                         bound_ms_cross=max(flops3a / PEAK_BF16_FLOPS, bytes3a / PEAK_BYTES) * 1e3,
                         library_ms_cross=lib2),
-        "cross3b": dict(max_abs_err_cross=main["err3b"], ms_cross=main["ms3b"], call_ms_cross=main["call3b"],
+        "cross3b": dict(max_abs_err_cross=max(main["err3b"], r0["err3b"]), ms_cross=main["ms3b"],
+                        call_ms_cross=main["call3b"], ms_cross_dropout0=r0["ms3b"],
                         plain_ms_cross=main["plain2"],
                         bound_ms_cross=max(flops3b / PEAK_BF16_FLOPS, bytes3b / PEAK_BYTES) * 1e3,
                         library_ms_cross=lib2),
@@ -644,7 +672,9 @@ def kernel_kind(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel<true>" in low:
         return "K1c flash fwd causal"
-    for key, kind in (("flash_fwd", "K1 flash fwd"), ("flash_bwd", "K2 flash bwd"), ("flash_dq", "K3a flash dq"),
+    for key, kind in (("lf_fwd_lse_kernel", "L2a legacy flash fwd lse"), ("lf_fwd_kernel", "L1 legacy flash fwd"),
+                      ("lf_dq_kernel", "L2b legacy flash dq"), ("lf_dkv_kernel", "L2c legacy flash dk/dv"),
+                      ("flash_fwd", "K1 flash fwd"), ("flash_bwd", "K2 flash bwd"), ("flash_dq", "K3a flash dq"),
                       ("flash_dkv", "K3b flash dk/dv"), ("keep_mask", "K4 keep mask"),
                       ("fused_stem_k1", "K5a fused stem k1"), ("fused_stem_k2", "K5b fused stem k2")):
         if key in low:
@@ -760,13 +790,180 @@ def op_path(dev):
     torch.cuda.synchronize()
     launches = read_counts()
     log(f"[op path] kernel launches {launches}, keep-mask {tuple(keep.shape)} keeps {float(keep.float().mean()):.4f}")
-    want = {"K1 flash fwd": 1, "K2 flash bwd": 0, "K1c flash fwd causal": 1, "K3a flash dq": 2,
-            "K3b flash dk/dv": 2, "K4 keep mask": 1, "K5a fused stem k1": 0, "K5b fused stem k2": 0}
+    want = {name: 0 for name in KERNELS} | {"K1 flash fwd": 1, "K1c flash fwd causal": 1, "K3a flash dq": 2,
+                                            "K3b flash dk/dv": 2, "K4 keep mask": 1}
     if launches != want:
         raise AssertionError(f"op path launched {launches}, expected {want}")
     del keep
     torch.cuda.empty_cache()
     return launches
+
+
+def legacy_work(pairs, n_keys, lk, kv_valid):
+    """(operations, bytes) of L1, L2a, L2b and L2c at head width 64 for
+    `pairs` (head, query, key) triples that a query sees and `n_keys` valid
+    keys over the batch: the products of those pairs; q, o, do, dq once,
+    k and v at the valid keys, lse and delta (f32), the key masks, and dk
+    and dv written whole."""
+    qb = B * HEADS * LQ * 64 * 2
+    kv_bytes = n_keys * HEADS * 64 * 2
+    stats = B * HEADS * LQ * 4
+    small = B * 4 + kv_valid.numel()
+    return {"L1 legacy flash fwd": (4 * 64 * pairs, 2 * qb + 2 * kv_bytes + B * 4),
+            "L2a legacy flash fwd lse": (4 * 64 * pairs, 2 * qb + 2 * kv_bytes + stats + small),
+            "L2b legacy flash dq": (6 * 64 * pairs, 3 * qb + 2 * kv_bytes + 2 * stats + small),
+            "L2c legacy flash dk/dv": (8 * 64 * pairs, 2 * qb + 2 * kv_bytes + 2 * stats + small
+                                       + 2 * B * HEADS * lk * 64 * 2)}
+
+
+def phase_legacy(dev, cross):
+    """L1, L2a, L2b and L2c, per-head [B, H, L, 64] bf16, at the flagship
+    cross shape (L2: the images' kv_valid; L1: kv_len of the same counts)
+    and at the paper's self-attention shape (causal, window 100, the
+    targets as kv_len for L1 and as kv_valid for L2, so that the pad rows
+    past a target see no key): each against its plain version (rows with no
+    key: o = 0 and lse = 0 in both), device time, plain time and SDPA with
+    the same boolean mask (forward beside L1 and L2a, backward beside L2b
+    and L2c). The head-packed kernels of the cross phase at dropout 0 stand
+    beside them: K1 beside L2a, K3a beside L2b, K3b beside L2c, K2 beside
+    L2b + L2c."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    lengths = torch.tensor(TARGET_LENGTHS, dtype=torch.int32, device=dev)
+    valid_cross = memory_valid_from_hw(ragged_hw(B, dev), GRID_H, GRID_W).contiguous()
+    shapes = {
+        "cross": dict(lk=LK, band=dict(causal=False, window=-1), kv_len1=valid_cross.sum(1).to(torch.int32),
+                      kv_valid=valid_cross),
+        "self": dict(lk=LQ, band=dict(causal=True, window=WINDOW), kv_len1=lengths,
+                     kv_valid=(torch.arange(LQ, device=dev)[None, :] < lengths[:, None]).contiguous()),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {name: {} for name in KERNELS if name.startswith("L")}
+    for tag, s in shapes.items():
+        lk, band, kv_len1, kv_valid = s["lk"], s["band"], s["kv_len1"], s["kv_valid"]
+        kv_len2 = torch.full((B,), lk, dtype=torch.int32, device=dev)
+        q, k, v, do = (torch.randn((B, HEADS, n, 64), generator=g, device=dev).to(torch.bfloat16)
+                       for n in (LQ, lk, lk, LQ))
+        see = fl.visible_keys(LQ, lk, kv_len2, kv_valid, band["causal"], band["window"])  # [B, 1, Lq or 1, Lk]
+        pairs = HEADS * int(see.sum()) * (LQ if see.shape[2] == 1 else 1)
+        work = legacy_work(pairs, int(kv_valid.sum()), lk, kv_valid)
+        log(f"[legacy {tag}] B {B} H {HEADS} Lq {LQ} Lk {lk} D 64 bf16, {band}, "
+            f"{pairs // HEADS} (query, key) pairs to see over the batch")
+
+        o1 = fl.legacy_fwd_cuda(q, k, v, kv_len1, **band)
+        o2, lse2 = fb.legacy_fwd_lse_cuda(q, k, v, kv_len2, kv_valid, **band)
+        bargs = (q, k, v, kv_len2, kv_valid, do, lse2, fb.attention_delta(do, o2), band["causal"], band["window"])
+        dq = fb.legacy_dq_cuda(*bargs)
+        dk, dv = fb.legacy_dkv_cuda(*bargs)
+        torch.cuda.synchronize()
+        o1_p, lse1_p = fl.attention_plain(q, k, v, kv_len1, None, **band)
+        err = {"L1 legacy flash fwd": check_vs("L1 o", o1, o1_p)}
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o2_p, lse2_p = fl.attention_plain(qr, kr, vr, kv_len2, kv_valid, **band)
+        grads_p = torch.autograd.grad(o2_p, (qr, kr, vr), do, retain_graph=True)
+        err["L2a legacy flash fwd lse"] = max(check_vs("L2a o", o2, o2_p), check_lse("L2a lse", lse2, lse2_p))
+        err["L2b legacy flash dq"] = check_vs("L2b dq", dq, grads_p[0])
+        err["L2c legacy flash dk/dv"] = max(check_vs("L2c dk", dk, grads_p[1]), check_vs("L2c dv", dv, grads_p[2]))
+        n_empty = []
+        for name, o, lse_p, lse_k in (("L1", o1, lse1_p, None), ("L2a", o2, lse2_p, lse2)):
+            empty = lse_p.detach() == 0  # the plain version's rows with no key to see
+            n_empty.append(int(empty.sum()))
+            if o[empty].any() or (lse_k is not None and lse_k[empty].any()):
+                raise AssertionError(f"{name}: a row with no key to see must give o = 0 and lse = 0")
+        if band["causal"] and not all(n_empty):
+            raise AssertionError("the paper shape must have rows with no key to see")
+        log(f"  rows with no key (o = 0, lse = 0 in kernel and plain version): L1 {n_empty[0]}, L2a {n_empty[1]} "
+            f"of {B * HEADS * LQ}")
+        del o1_p, lse1_p, o1, dq, dk, dv
+
+        timed = {"L1 legacy flash fwd": lambda: fl.legacy_fwd_cuda(q, k, v, kv_len1, **band),
+                 "L2a legacy flash fwd lse": lambda: fb.legacy_fwd_lse_cuda(q, k, v, kv_len2, kv_valid, **band),
+                 "L2b legacy flash dq": lambda: fb.legacy_dq_cuda(*bargs),
+                 "L2c legacy flash dk/dv": lambda: fb.legacy_dkv_cuda(*bargs)}
+        plain_fwd1 = time_ms(lambda: fl.attention_plain(q, k, v, kv_len1, None, **band), reps=3, warmup=1)
+        plain_fwd2 = time_ms(lambda: fl.attention_plain(q, k, v, kv_len2, kv_valid, **band), reps=3, warmup=1)
+        plain_bwd = time_ms(lambda: torch.autograd.grad(o2_p, (qr, kr, vr), do, retain_graph=True), reps=3, warmup=1)
+        del o2_p, lse2_p, grads_p
+        # library yardstick (never called by the port): SDPA on the same [B, H, L, D] tensors and boolean mask
+        mask1 = fl.visible_keys(LQ, lk, kv_len1, None, band["causal"], band["window"])
+        lib_fwd1 = time_ms(lambda: sdpa(q, k, v, attn_mask=mask1))
+        lib_fwd2 = time_ms(lambda: sdpa(q, k, v, attn_mask=see))
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        o_s = sdpa(qs, ks, vs, attn_mask=see)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do, retain_graph=True))
+        del o_s, qs, ks, vs
+        plain = {"L1 legacy flash fwd": plain_fwd1, "L2a legacy flash fwd lse": plain_fwd2,
+                 "L2b legacy flash dq": plain_bwd, "L2c legacy flash dk/dv": plain_bwd}
+        lib = {"L1 legacy flash fwd": lib_fwd1, "L2a legacy flash fwd lse": lib_fwd2,
+               "L2b legacy flash dq": lib_bwd, "L2c legacy flash dk/dv": lib_bwd}
+        for name, fn in timed.items():
+            ms, call = kernel_times(name, fn)
+            ops, nbytes = work[name]
+            t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+            rows[name][tag] = dict(err=err[name], ms=ms, call_ms=call, plain_ms=plain[name], library_ms=lib[name],
+                                   work=work[name], bound_ms=max(t_ops, t_bytes) * 1e3,
+                                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log("  " + ", ".join(f"{n.split()[0]} {rows[n][tag]['ms']:.4f} ms (call {rows[n][tag]['call_ms']:.3f}, "
+                               f"bound {rows[n][tag]['bound_ms']:.4f})" for n in timed))
+        log(f"  plain fwd {plain_fwd1:.3f} (L1) / {plain_fwd2:.3f} (L2a) ms, plain autograd bwd {plain_bwd:.3f} ms; "
+            f"SDPA fwd {lib_fwd1:.3f} / {lib_fwd2:.3f} ms, bwd {lib_bwd:.3f} ms")
+        del q, k, v, do, o2, lse2, bargs, qr, kr, vr, see, mask1, timed
+        torch.cuda.empty_cache()
+
+    # the head-packed kernels of the same function at the cross shape, dropout 0
+    packed = {"L2a legacy flash fwd lse": dict(k1_ms_dropout0=cross["K1 flash fwd"]["ms_dropout0"]),
+              "L2b legacy flash dq": dict(k2_ms_dropout0=cross["K2 flash bwd"]["ms_dropout0"],
+                                          k3a_ms_dropout0=cross["cross3a"]["ms_cross_dropout0"]),
+              "L2c legacy flash dk/dv": dict(k2_ms_dropout0=cross["K2 flash bwd"]["ms_dropout0"],
+                                             k3b_ms_dropout0=cross["cross3b"]["ms_cross_dropout0"])}
+    ms = {name: r["cross"]["ms"] for name, r in rows.items()}
+    log(f"[legacy] per-head vs head-packed at the cross shape, dropout 0: forward L2a "
+        f"{ms['L2a legacy flash fwd lse']:.3f} ms vs K1 {cross['K1 flash fwd']['ms_dropout0']:.3f} ms; dq L2b "
+        f"{ms['L2b legacy flash dq']:.3f} ms vs K3a {cross['cross3a']['ms_cross_dropout0']:.3f} ms; dk/dv L2c "
+        f"{ms['L2c legacy flash dk/dv']:.3f} ms vs K3b {cross['cross3b']['ms_cross_dropout0']:.3f} ms; L2b + L2c "
+        f"{ms['L2b legacy flash dq'] + ms['L2c legacy flash dk/dv']:.3f} ms vs K2 "
+        f"{cross['K2 flash bwd']['ms_dropout0']:.3f} ms")
+    out = {}
+    for name, r in rows.items():
+        c, sf = r["cross"], r["self"]
+        out[name] = kernel_row(name, max(c["err"], sf["err"]), c["ms"], c["plain_ms"], *c["work"], c["library_ms"],
+                               call_ms=c["call_ms"], max_abs_err_cross=c["err"], max_abs_err_self=sf["err"],
+                               ms_self=sf["ms"], call_ms_self=sf["call_ms"], plain_ms_self=sf["plain_ms"],
+                               bound_ms_self=sf["bound_ms"], bound_by_self=sf["bound_by"],
+                               library_ms_self=sf["library_ms"], **packed.get(name, {}))
+    return out
+
+
+def legacy_path(dev):
+    """The legacy entry points, counted from 0: the port's
+    bench_flash_packed at its own shape (L2 against K1/K2, LEGACY_ITERS timed
+    calls each), then one inference call of flash_attention (L1) at the
+    paper's self-attention shape, held against its plain version."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    lengths = torch.tensor(TARGET_LENGTHS, dtype=torch.int32, device=dev)
+    q, k, v = (torch.randn((B, HEADS, LQ, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    reset_counts()
+    bench = bench_flash_packed.main(["--iters", str(LEGACY_ITERS)])
+    with torch.no_grad():
+        o = fl.flash_attention(q, k, v, lengths, causal=True, window=WINDOW)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[legacy path] kernel launches {launches}")
+    n = LEGACY_ITERS
+    # bench: each forward + backward runs once untimed and n times timed; then one forward of old and new,
+    # and three dropout forwards
+    want = {name: 0 for name in KERNELS} | {
+        "K1 flash fwd": 2 * (n + 1) + 1 + 3, "K2 flash bwd": 2 * (n + 1), "L2a legacy flash fwd lse": n + 2,
+        "L2b legacy flash dq": n + 1, "L2c legacy flash dk/dv": n + 1, "L1 legacy flash fwd": 1}
+    if launches != want:
+        raise AssertionError(f"legacy path launched {launches}, expected {want}")
+    err = check_vs("legacy path L1 o", o, fl.flash_attention_plain(q, k, v, lengths, causal=True, window=WINDOW))
+    bench_err = check("bench max |old - new| fwd", bench["max_abs_old_new"], bench["max_abs_new"], KERNEL_TOL)
+    if not (bench["dropout_deterministic"] and bench["dropout_varies_with_seed"]
+            and bench["dropout_changed_frac"] > 0.5):
+        raise AssertionError(f"bench dropout checks failed: {bench}")
+    del q, k, v, o
+    torch.cuda.empty_cache()
+    return dict(launches=launches, bench=bench, max_abs_err_l1=err, max_abs_err_bench=bench_err)
 
 
 def main(argv=None):
@@ -797,6 +994,7 @@ def main(argv=None):
     stem = phase_stem(dev)
     stem_launches, stem_errs = stem_path(dev)
     stem_k = stem_rows(stem, stem_launches, stem_errs)
+    legacy_k = phase_legacy(dev, cross)
     kernels = [cross["K1 flash fwd"], cross["K2 flash bwd"], self_rows["K1c flash fwd causal"],
                self_rows["K3a flash dq"] | cross["cross3a"], self_rows["K3b flash dk/dv"] | cross["cross3b"],
                cross["K4 keep mask"]]
@@ -811,12 +1009,15 @@ def main(argv=None):
     for k in kernels:  # K1/K2 from the paper model's path, the rest from the op path
         k["launches"] = paper["launches"][k["name"]] if k["name"] in ("K1 flash fwd", "K2 flash bwd") else ops[k["name"]]
     kernels += [stem_k["K5a fused stem k1"], stem_k["K5b fused stem k2"]]  # launches from the stem path
+    legacy = legacy_path(dev)
+    for name, row in legacy_k.items():
+        kernels.append(row | dict(launches=legacy["launches"][name]))
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
 
     result = dict(card=card, kernels=kernels, flagship=flagship, paper=paper, op_path=ops,
-                  stem_path=dict(launches=stem_launches, max_abs_err=stem_errs))
+                  stem_path=dict(launches=stem_launches, max_abs_err=stem_errs), legacy_path=legacy)
     (args.out_dir / "chip_smoke_result.json").write_text(json.dumps(result, indent=1))
     log(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -20,7 +20,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv", "keep_mask", "fused_stem_k1", "fused_stem_k2")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv", "keep_mask", "fused_stem_k1", "fused_stem_k2",
+           "legacy_flash_fwd", "legacy_flash_dq", "legacy_flash_dkv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +38,9 @@ SIGNATURES = {
     "keep_mask": ("keep_mask_launch", [_P] * 2 + [_I] * 6 + [_U, _P]),
     "fused_stem_k1": ("fused_stem_k1_launch", [_P] * 13 + [_I] * 10 + [_F, _P]),
     "fused_stem_k2": ("fused_stem_k2_launch", [_P] * 9 + [_I] * 13 + [_F, _P]),
+    "legacy_flash_fwd": ("lf_fwd_launch", [_P] * 7 + [_I] * 8 + [_F, _P]),
+    "legacy_flash_dq": ("lf_dq_launch", [_P] * 9 + [_I] * 7 + [_F, _P]),
+    "legacy_flash_dkv": ("lf_dkv_launch", [_P] * 10 + [_I] * 7 + [_F, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

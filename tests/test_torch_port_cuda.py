@@ -1,9 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 K1 and K2 (the decoder's cross-attention), K1c, K3a and K3b (causal,
 windowed and split-backward calls of ``make_flash_attention_packed``),
-K4 (``export_keep_masks``) and K5a/K5b (the fused stem block, against
+K4 (``export_keep_masks``), K5a/K5b (the fused stem block, against
 ``plain_k1``, ``plain_k2`` and ``reference_block``: 2e-2 x max |plain| in
-bf16, 1e-4 in float32 with TF32 off).
+bf16, 1e-4 in float32 with TF32 off) and the per-head legacy flash L1,
+L2a, L2b and L2c (``tools/legacy_flash``, against ``attention_plain`` and
+its autograd, heads of 36 to 128; rows with no key must give o = 0 and
+lse = 0 in both).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels are
 built with nvcc on first use) and skip elsewhere. They import nothing of
@@ -349,3 +352,101 @@ def test_fused_stem_tile_height_on_gpu(dtype):
     kw = dict(f_in=f_in, f_out=f_out, stride=stride, drop=drop)
     out = fs.fused_packed_block(*args, tile_h=4, **kw)
     _stem_close("block, tile_h 4", out, fs.reference_block(*args, **kw), dtype)
+
+
+# ------------------------------------------- per-head legacy flash L1, L2a-c
+
+# head widths 36 (padded to 40 by the wrapper), 40 and 64 (the 64 template)
+# and 128; non-causal with Lq != Lk, full causal, and causal with window 30,
+# where the short kv_len (L1) or target (L2's kv_valid) leaves rows with no key
+LEGACY_CASES = [dict(d=d, causal=c, window=w) for d in (40, 64, 128) for c, w in ((False, -1), (True, -1), (True, 30))]
+LEGACY_CASES.append(dict(d=36, causal=True, window=30))
+
+
+def _legacy_inputs(case, dev, seed=2):
+    rng = np.random.default_rng(seed)
+    b, h, d = 2, 3, case["d"]
+    lq, lk = (150, 150) if case["causal"] else (90, 200)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).to(dev, torch.bfloat16)
+                   for n in (lq, lk, lk, lq))
+    kv_len = torch.tensor([lk, 100 if case["causal"] else lk - 23], dtype=torch.int32, device=dev)
+    kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
+    kv_valid[0, 40:70] = False  # a hole, as in the concat mixer's fused memories
+    kv_valid[1, 90:] = False    # a short target
+    return q, k, v, do, kv_len, kv_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LEGACY_CASES, ids=lambda c: f"d{c['d']}_c{int(c['causal'])}_w{c['window']}")
+def test_legacy_flash_kernels_match_plain_on_gpu(case):
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention as l1
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention_bwd as l2
+
+    dev = _cuda()
+    q, k, v, do, kv_len, kv_valid = _legacy_inputs(case, dev)
+    band = dict(causal=case["causal"], window=case["window"])
+    wrappers = (l1.legacy_fwd_cuda, l2.legacy_fwd_lse_cuda, l2.legacy_dq_cuda, l2.legacy_dkv_cuda)
+    before = [f.launches for f in wrappers]
+    o1 = l1.flash_attention(q, k, v, kv_len, **band)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    o2 = l2.make_flash_attention(**band)(*ins, kv_len, kv_valid)
+    o2.backward(do)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [1, 1, 1, 1]
+
+    o1_ref, lse1_ref = l1.attention_plain(q, k, v, kv_len, None, **band)
+    _assert_close("L1 o", o1, o1_ref)
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    o2_ref, lse_ref = l1.attention_plain(*ref_ins, kv_len, kv_valid, **band)
+    o2_ref.backward(do)
+    _assert_close("L2a o", o2, o2_ref)
+    for name, a, r in zip(("L2b dq", "L2c dk", "L2c dv"), ins, ref_ins):
+        _assert_close(name, a.grad, r.grad)
+    _, lse = l2.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, **band)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.detach().cpu().numpy(), rtol=1e-4, atol=1e-4)
+    # rows with no key to see: o = 0 and lse = 0 exactly, in the kernels as in the plain version
+    for o, lse_p, lse_k in ((o1, lse1_ref, None), (o2, lse_ref, lse)):
+        empty = lse_p.detach() == 0
+        if case["window"] > 0:
+            assert empty.any()
+        assert not o[empty].any() and (lse_k is None or not lse_k[empty].any())
+
+
+@pytest.mark.cuda
+def test_legacy_backward_is_deterministic_on_gpu():
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention_bwd as l2
+
+    dev = _cuda()
+    q, k, v, do, kv_len, kv_valid = _legacy_inputs(dict(d=64, causal=True, window=30), dev)
+    o, lse = l2.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, True, 30)
+    args = (q, k, v, kv_len, kv_valid, do, lse, l2.attention_delta(do, o), True, 30)
+    first = (l2.legacy_dq_cuda(*args), *l2.legacy_dkv_cuda(*args))
+    second = (l2.legacy_dq_cuda(*args), *l2.legacy_dkv_cuda(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_legacy_wrappers_reject_what_the_kernels_do_not_take():
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention as l1
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention_bwd as l2
+
+    dev = _cuda()
+    q, k, v, do, kv_len, kv_valid = _legacy_inputs(dict(d=64, causal=False, window=-1), dev)
+    wide = torch.zeros((2, 3, 90, 136), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        l1.legacy_fwd_cuda(q.float(), k.float(), v.float(), kv_len)
+    with pytest.raises(ValueError, match="at most 128"):
+        l1.legacy_fwd_cuda(wide, wide, wide, kv_len)
+    with pytest.raises(ValueError, match="contiguous"):
+        l2.legacy_fwd_lse_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, kv_len, kv_valid)
+    with pytest.raises(ValueError, match="lies on"):
+        l2.legacy_fwd_lse_cuda(q, k.cpu(), v, kv_len, kv_valid)
+    with pytest.raises(ValueError, match="lies on"):
+        l1.legacy_fwd_cuda(q, k, v, kv_len.cpu())
+    o, lse = l2.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid)
+    delta = l2.attention_delta(do, o)
+    with pytest.raises(ValueError, match="float32"):
+        l2.legacy_dq_cuda(q, k, v, kv_len, kv_valid, do, lse.double(), delta)
+    with pytest.raises(ValueError, match="lies on"):
+        l2.legacy_dkv_cuda(q, k, v, kv_len, kv_valid, do.cpu(), lse, delta)

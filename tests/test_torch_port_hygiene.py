@@ -2,6 +2,7 @@
 entry points that never fall back to the CPU."""
 
 import ast
+import importlib.util
 import pkgutil
 import subprocess
 import sys
@@ -14,7 +15,8 @@ import omr_a2s_multimodal_transformer_tpu_torch as port
 from omr_a2s_multimodal_transformer_tpu_torch.device import resolve_device
 
 PORT_DIR = Path(port.__file__).parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "omr_a2s_multimodal_transformer_tpu")
+# the JAX stack, the JAX package, and the repository's tools/ (whose legacy flash kernels the port copies)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "omr_a2s_multimodal_transformer_tpu", "tools")
 
 
 def _port_modules():
@@ -77,3 +79,48 @@ def test_unported_options_raise():
     for over in (dict(input_modality="both"), dict(cache_dtype="int8"), dict(cache_dtype="int4")):
         with pytest.raises(NotImplementedError):
             build_model({**base, **over}, device="cpu")
+
+
+def test_bench_flash_packed_defaults_to_cuda_and_runs_on_the_cpu():
+    from omr_a2s_multimodal_transformer_tpu_torch.tools import bench_flash_packed
+
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_flash_packed.main(["--iters", "1"])
+    out = bench_flash_packed.main(["--iters", "1", "--shape", "1", "2", "16", "40", "64"], device="cpu")
+    assert out["device"] == "cpu" and out["shape"] == dict(B=1, H=2, Lq=16, Lk=40, Dh=64)
+    assert out["max_abs_old_new"] <= 2e-2 * out["max_abs_new"]  # per-head and packed compute one function
+    assert out["dropout_deterministic"] and out["dropout_varies_with_seed"] and out["dropout_changed_frac"] > 0.5
+    assert min(out["new_ms"], out["old_ms"], out["new_dropout_ms"]) > 0
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", PORT_DIR.parent / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_tells_every_kernel_apart_in_a_trace():
+    """chip_smoke picks a kernel's device time from a profiler trace by a
+    substring of its symbol, and classes kernels by kernel_kind: no symbol
+    may hold another, and each demangled name maps to its own kernel."""
+    cs = _chip_smoke()
+    symbols = [entry[3] for entry in cs.KERNELS.values()]
+    assert len(set(symbols)) == len(symbols)
+    assert not [(a, b) for a in symbols for b in symbols if a != b and a in b]
+    names = {"void flash_fwd_kernel<false>(bf16 const*)": "K1 flash fwd",
+             "void flash_fwd_kernel<true>(bf16 const*)": "K1c flash fwd causal",
+             "void lf_fwd_kernel<64, false>(__nv_bfloat16 const*, int)": "L1 legacy flash fwd",
+             "void lf_fwd_kernel<128, true>(__nv_bfloat16 const*, int)": "L1 legacy flash fwd",
+             "void lf_fwd_lse_kernel<64, false>(__nv_bfloat16 const*, float*)": "L2a legacy flash fwd lse",
+             "void lf_fwd_lse_kernel<64, true>(__nv_bfloat16 const*, float*)": "L2a legacy flash fwd lse",
+             "void lf_dq_kernel<64, true>(__nv_bfloat16 const*)": "L2b legacy flash dq",
+             "void lf_dkv_kernel<128, false>(__nv_bfloat16 const*)": "L2c legacy flash dk/dv"}
+    for name, kind in names.items():
+        assert cs.kernel_kind(name) == kind, name
+    for name, (_, _, _, symbol, _) in cs.KERNELS.items():
+        for demangled, kind in names.items():
+            assert (symbol in demangled) == (kind == name), (symbol, demangled)

@@ -1,0 +1,196 @@
+"""The port's per-head legacy flash attention (L1, and L2 with its backward)
+against the JAX kernels of ``tools/legacy_flash``, on the CPU.
+
+The JAX side runs ``flash_attention(..., interpret=True)`` (L1) and
+``make_flash_attention(..., interpret=True)`` through ``jax.vjp`` (L2a, L2b,
+L2c), with L2a's lse read from the forward rule of its ``custom_vjp``. The
+port takes its plain version (the route of CPU tensors), so these tests fix
+the function that L1, L2a, L2b and L2c are held to on the card. The JAX
+modules are loaded by path: ``tools/`` is not a package of the repository.
+
+Inputs come from a numpy seed. o and lse are compared on the query rows
+that see a key; on the others the port gives o = 0 and lse = 0, where the
+JAX kernel averages v over the blocks it ran (ROADMAP Queue 3). dq, dk and
+dv are compared on every row, with a nonzero cotangent everywhere: both
+mask p before its products, so a row with no key adds nothing.
+
+Tolerance: float32 at 1e-5 relative and absolute (the same float32
+formulas, the JAX kernel's online softmax against the dense softmax, in
+another summation order; the conftest sets JAX's matmuls to full float32);
+bf16 inputs at 3e-2 (outputs rounded to bf16 at other points).
+"""
+
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention as tl1
+from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention_bwd as tl2
+
+LEGACY = Path(__file__).resolve().parents[1] / "tools" / "legacy_flash"
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(f"jax_legacy_{name}", LEGACY / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+jl1 = _load("flash_attention")
+jl2 = _load("flash_attention_bwd")
+
+TOL = {np.float32: dict(rtol=1e-5, atol=1e-5), jnp.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+
+CASES = {
+    # non-causal, Lq != Lk, ragged kv_len; L2 adds non-prefix kv_valid holes (the concat mixer's fused memories)
+    "cross_ragged_d40": dict(b=2, h=2, lq=70, lk=200, d=40, causal=False, window=-1, kv_len=(200, 137),
+                             holes=((0, 10, 50), (1, 90, 120))),
+    "causal_full_d64": dict(b=2, h=2, lq=150, lk=150, d=64, causal=True, window=-1, kv_len=(150, 150), holes=()),
+    # the issue's probe: batch 1's queries past 180 see no key in their band
+    "window30_ragged_d40": dict(b=2, h=2, lq=200, lk=200, d=40, causal=True, window=30, kv_len=(200, 150),
+                                holes=()),
+    # windowed with holes: a short target as kv_valid, so the last rows of batch 0 see no key
+    "window20_holes_d128": dict(b=2, h=1, lq=130, lk=130, d=128, causal=True, window=20, kv_len=(130, 130),
+                                holes=((0, 60, 130), (1, 5, 9))),
+}
+# two JAX block geometries per case (the L1 defaults, and 128/128): the function must not depend on them
+BLOCKS = {"blocks_default": None, "blocks_128": (128, 128)}
+
+
+def _inputs(case, dtype=np.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    b, h, lq, lk, d = case["b"], case["h"], case["lq"], case["lk"], case["d"]
+    q, w = (rng.normal(size=(b, h, lq, d)).astype(dtype) for _ in range(2))
+    k, v = (rng.normal(size=(b, h, lk, d)).astype(dtype) for _ in range(2))
+    kv_len = np.asarray(case["kv_len"], np.int32)
+    kv_valid = np.ones((b, lk), bool)
+    for row, lo, hi in case["holes"]:
+        kv_valid[row, lo:hi] = False
+    return q, k, v, w, kv_len, kv_valid
+
+
+def _rows_with_a_key(case, kv_len, kv_valid):
+    """[B, Lq] bool: the query rows that see at least one key."""
+    qpos, kpos = np.arange(case["lq"])[:, None], np.arange(case["lk"])[None, :]
+    see = (kv_valid & (kpos < kv_len[:, None]))[:, None, :]
+    if case["causal"]:
+        band = kpos <= qpos
+        if case["window"] > 0:
+            band &= kpos >= qpos - case["window"]
+        see = see & band[None]
+    return np.broadcast_to(see, (len(kv_len), case["lq"], case["lk"])).any(-1)
+
+
+def _block_kw(blocks):
+    return {} if blocks is None else dict(block_q=blocks[0], block_k=blocks[1])
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("blocks", list(BLOCKS.values()), ids=list(BLOCKS))
+@pytest.mark.parametrize("name", list(CASES))
+def test_l1_plain_matches_jax_interpret(name, blocks):
+    case = CASES[name]
+    q, k, v, _, kv_len, _ = _inputs(case)
+    rows = _rows_with_a_key(case, kv_len, np.ones((case["b"], case["lk"]), bool))
+    kw = dict(causal=case["causal"], window=case["window"], **_block_kw(blocks))
+    oj = np.asarray(jl1.flash_attention(q, k, v, jnp.asarray(kv_len), interpret=True, **kw))
+    ot = tl1.flash_attention(*_torch(q, k, v, kv_len), **kw).numpy()
+    assert ot.shape == oj.shape and ot.dtype == np.float32
+    np.testing.assert_allclose(ot.transpose(0, 2, 1, 3)[rows], oj.transpose(0, 2, 1, 3)[rows], **TOL[np.float32])
+    assert not ot.transpose(0, 2, 1, 3)[~rows].any(), "a row with no key to see must give o = 0"
+
+
+@pytest.mark.parametrize("blocks", list(BLOCKS.values()), ids=list(BLOCKS))
+@pytest.mark.parametrize("name", list(CASES))
+def test_l2_plain_matches_jax_interpret_forward_lse_and_grads(name, blocks):
+    case = CASES[name]
+    q, k, v, w, kv_len, kv_valid = _inputs(case)
+    rows = _rows_with_a_key(case, kv_len, kv_valid)
+    kw = dict(causal=case["causal"], window=case["window"], **_block_kw(blocks))
+    j_flash = jl2.make_flash_attention(interpret=True, **kw)
+    j_len, j_valid = jnp.asarray(kv_len), jnp.asarray(kv_valid)
+    oj, vjp = jax.vjp(lambda q, k, v: j_flash(q, k, v, j_len, j_valid), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    gj = vjp(jnp.asarray(w))
+    lse_j = np.asarray(j_flash.fwd(q, k, v, j_len, j_valid)[1][5])  # residual lse, [B*H, Lq_p]
+    lse_j = lse_j.reshape(case["b"], case["h"], -1)[:, :, :case["lq"]]
+
+    qt, kt, vt = (t.requires_grad_() for t in _torch(q, k, v))
+    lent, validt = _torch(kv_len, kv_valid)
+    ot = tl2.make_flash_attention(**kw)(qt, kt, vt, lent, validt)
+    ot.backward(torch.from_numpy(w))
+    o_plain, lse_t = tl1.attention_plain(qt, kt, vt, lent, validt, case["causal"], case["window"])
+    np.testing.assert_array_equal(ot.detach().numpy(), o_plain.detach().numpy())
+
+    o_rows = ot.detach().numpy().transpose(0, 2, 1, 3)
+    lse_t = lse_t.detach().numpy().transpose(0, 2, 1)
+    np.testing.assert_allclose(o_rows[rows], np.asarray(oj).transpose(0, 2, 1, 3)[rows], **TOL[np.float32])
+    np.testing.assert_allclose(lse_t[rows], lse_j.transpose(0, 2, 1)[rows], **TOL[np.float32], err_msg="lse")
+    assert not o_rows[~rows].any() and not lse_t[~rows].any(), "a row with no key must give o = 0, lse = 0"
+    for label, got, ref in (("dq", qt, gj[0]), ("dk", kt, gj[1]), ("dv", vt, gj[2])):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref), **TOL[np.float32], err_msg=label)
+
+
+def test_l2_plain_matches_jax_interpret_in_bf16():
+    case = CASES["window30_ragged_d40"] | dict(d=64)
+    q, k, v, w, kv_len, kv_valid = _inputs(case, seed=1)
+    rows = _rows_with_a_key(case, kv_len, kv_valid)
+    kw = dict(causal=True, window=case["window"], block_q=128, block_k=128)
+    j_flash = jl2.make_flash_attention(interpret=True, **kw)
+    args = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    oj, vjp = jax.vjp(lambda q, k, v: j_flash(q, k, v, jnp.asarray(kv_len), jnp.asarray(kv_valid)), *args)
+    gj = vjp(jnp.asarray(w, jnp.bfloat16))
+
+    qt, kt, vt = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_() for a in (q, k, v))
+    ot = tl2.make_flash_attention(**kw)(qt, kt, vt, *_torch(kv_len, kv_valid))
+    ot.backward(torch.from_numpy(w).to(torch.bfloat16))
+    assert ot.dtype == torch.bfloat16 and qt.grad.dtype == torch.bfloat16
+    f32 = lambda t: (t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32))  # noqa: E731
+    np.testing.assert_allclose(f32(ot.detach()).transpose(0, 2, 1, 3)[rows],
+                               f32(oj).transpose(0, 2, 1, 3)[rows], **TOL[jnp.bfloat16])
+    for label, got, ref in (("dq", qt, gj[0]), ("dk", kt, gj[1]), ("dv", vt, gj[2])):
+        np.testing.assert_allclose(f32(got.grad), f32(ref), **TOL[jnp.bfloat16], err_msg=label)
+
+
+def test_l1_kv_len_defaults_to_all_keys_and_window_needs_causal():
+    case = CASES["cross_ragged_d40"]
+    q, k, v, _, _, _ = _inputs(case)
+    qt, kt, vt = _torch(q, k, v)
+    full = torch.full((case["b"],), case["lk"], dtype=torch.int32)
+    np.testing.assert_array_equal(tl1.flash_attention(qt, kt, vt).numpy(),
+                                  tl1.flash_attention(qt, kt, vt, full).numpy())
+    np.testing.assert_array_equal(tl1.flash_attention(qt, kt, vt, window=5).numpy(),
+                                  tl1.flash_attention(qt, kt, vt).numpy())
+
+
+def test_flash_attention_cached_returns_one_function_per_configuration():
+    a = tl2.flash_attention_cached(True, 30)
+    assert a is tl2.flash_attention_cached(True, 30)
+    assert a is not tl2.flash_attention_cached(True, 31)
+
+
+def test_legacy_kernels_refuse_cpu_tensors_without_launching():
+    """A wrapper launches its kernel on CUDA tensors or raises: CPU tensors
+    go through the plain version at the public functions, never here."""
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    kv_len, kv_valid = torch.full((1,), 8, dtype=torch.int32), torch.ones((1, 8), dtype=torch.bool)
+    stats = torch.zeros((1, 2, 8))
+    wrappers = (tl1.legacy_fwd_cuda, tl2.legacy_fwd_lse_cuda, tl2.legacy_dq_cuda, tl2.legacy_dkv_cuda)
+    counts = [f.launches for f in wrappers]
+    with pytest.raises(ValueError):
+        tl1.legacy_fwd_cuda(q, q, q, kv_len)
+    with pytest.raises(ValueError):
+        tl2.legacy_fwd_lse_cuda(q, q, q, kv_len, kv_valid)
+    with pytest.raises(ValueError):
+        tl2.legacy_dq_cuda(q, q, q, kv_len, kv_valid, q, stats, stats)
+    with pytest.raises(ValueError):
+        tl2.legacy_dkv_cuda(q, q, q, kv_len, kv_valid, q, stats, stats)
+    assert counts == [f.launches for f in wrappers]
