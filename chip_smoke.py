@@ -11,7 +11,9 @@ Phases, each of which raises on failure (exit code 1):
      plain version and the PyTorch library call that computes the same
      function:
      - at the flagship cross-attention shape (B 8, Lq 1268, Lk 12,696,
-       bf16, ragged keys), dropout 0 and 0.1: K1 and K2; K3a and K3b as the
+       bf16, ragged keys), dropout 0 and 0.1: K1 and K2, K1 also at each
+       split of its key tiles into 1-8 chunks (the split the wrapper
+       launched is read from the trace's grid); K3a and K3b as the
        split backward of a merged_bwd=False call (both rates); K4, the
        keep-mask probe at the decoder's 128/2048 blocks, bit for bit;
      - at the paper's self-attention shape (B 8, L 1268, 4 x 64 heads,
@@ -93,6 +95,7 @@ from omr_a2s_multimodal_transformer_tpu_torch.training.train_state import TrainS
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # float32 on the CUDA cores
 PEAK_BYTES = 3.35e12
 
 B, LQ, IMG_H, IMG_W = 8, 1268, 361, 4416
@@ -112,9 +115,11 @@ JAX_LEGACY = "tools/legacy_flash/"
 # name -> (launching wrapper, source, TPU kernel (file:line), device symbol in a profiler trace,
 #          device kernels per launch)
 KERNELS = {
-    "K1 flash fwd": (fp.flash_fwd_cuda, "flash_fwd.cu", JAX_FLASH + "161", "flash_fwd_kernel<false>", 1),
+    # K1 launches the key-chunk kernel and the merge (four chunks at the cross shape, fwd_splits)
+    "K1 flash fwd": (fp.flash_fwd_cuda, "flash_fwd.cu", JAX_FLASH + "161", "flash_fwd_tma", 2),
     "K2 flash bwd": (fp.flash_bwd_cuda, "flash_bwd.cu", JAX_FLASH + "364", "flash_bwd_kernel", 1),
-    "K1c flash fwd causal": (fp.flash_fwd_causal_cuda, "flash_fwd.cu", JAX_FLASH + "161", "flash_fwd_kernel<true>", 1),
+    "K1c flash fwd causal": (fp.flash_fwd_causal_cuda, "flash_fwd.cu", JAX_FLASH + "161", "flash_fwd_causal_kernel",
+                             1),
     "K3a flash dq": (fp.flash_dq_cuda, "flash_dq.cu", JAX_FLASH + "228", "flash_dq_kernel", 1),
     "K3b flash dk/dv": (fp.flash_dkv_cuda, "flash_dkv.cu", JAX_FLASH + "283", "flash_dkv_kernel", 1),
     "K4 keep mask": (fp.keep_mask_cuda, "keep_mask.cu", JAX_FLASH + "747", "keep_mask_kernel", 1),
@@ -130,7 +135,17 @@ KERNELS = {
                             "lf_dq_kernel", 1),
     "L2c legacy flash dk/dv": (fb.legacy_dkv_cuda, "legacy_flash_dkv.cu", JAX_LEGACY + "flash_attention_bwd.py:150",
                                "lf_dkv_kernel", 1),
+    # the same family for what the bf16 tensor-core kernels do not take (float16, float32, heads over 128)
+    "LA legacy flash fwd, any dtype": (fl.legacy_any_fwd_cuda, "legacy_flash_any_fwd.cu",
+                                       JAX_LEGACY + "flash_attention.py:42", "lfany_fwd_kernel", 1),
+    "LA legacy flash dq, any dtype": (fb.legacy_any_dq_cuda, "legacy_flash_any_dq.cu",
+                                      JAX_LEGACY + "flash_attention_bwd.py:109", "lfany_dq_kernel", 1),
+    "LA legacy flash dk/dv, any dtype": (fb.legacy_any_dkv_cuda, "legacy_flash_any_dkv.cu",
+                                         JAX_LEGACY + "flash_attention_bwd.py:150", "lfany_dkv_kernel", 1),
 }
+LEGACY_BF16 = ("L1 legacy flash fwd", "L2a legacy flash fwd lse", "L2b legacy flash dq", "L2c legacy flash dk/dv")
+LEGACY_ANY = ("LA legacy flash fwd, any dtype", "LA legacy flash dq, any dtype", "LA legacy flash dk/dv, any dtype")
+ANY_TOL = 1e-4  # float32 any-dtype kernels: max |kernel - plain| <= ANY_TOL * max |plain| (f32 sums, other order)
 LEGACY_ITERS = 2  # timed calls of each forward + backward in the legacy path's bench run
 # the fused stem block at b8 and the flagship width: (f_in, f_out, stride, ci, co, H, Wp) of
 # tools/bench_fused_block.py:24-29 (blocks 0-2 of the packed stem on 361x4416 images)
@@ -168,13 +183,19 @@ def time_ms(fn, reps=5, warmup=2):
     return sorted(times)[len(times) // 2]
 
 
-def kernel_times(name, fn, reps=10):
+KERNEL_INFO = {}  # name -> the launch record of its longest device kernel in its last timing trace
+
+
+def kernel_times(name, fn, reps=10, per_launch=None, record=True):
     """(device ms, call ms) of a kernel's wrapper fn: the device time of
     one launch (its kernels' durations that a profiler trace of reps calls
-    recorded, over the launches they make up; the tracer may miss one as it
-    starts), and the CUDA-event median of one call, which holds the
-    wrapper's host work and its other device work too (for a kernel of tens
-    of microseconds, mostly host)."""
+    recorded, over the launches they make up, KERNELS' count unless
+    per_launch is given; the tracer may miss one as it starts), and the
+    CUDA-event median of one call, which holds the wrapper's host work and
+    its other device work too (for a kernel of tens of microseconds, mostly
+    host). With record, the longest kernel's launch record as the trace
+    gives it (registers, shared memory, block and grid) goes to
+    KERNEL_INFO."""
     from torch.profiler import ProfilerActivity, profile
 
     call = time_ms(fn)
@@ -184,12 +205,31 @@ def kernel_times(name, fn, reps=10):
         torch.cuda.synchronize()
     trace = OUT_DIR / "kernel_timing_trace.json"
     prof.export_chrome_trace(str(trace))
-    _, _, _, symbol, per_launch = KERNELS[name]
-    durs = [e["dur"] for e in json.loads(trace.read_text())["traceEvents"]
-            if e.get("cat") == "kernel" and symbol in e["name"]]
+    _, _, _, symbol, n_kernels = KERNELS[name]
+    per_launch = per_launch or n_kernels
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") == "kernel" and symbol in e["name"]]
+    durs = [e["dur"] for e in events]
     if not reps // 2 * per_launch <= len(durs) <= reps * per_launch:
         raise AssertionError(f"{name}: {len(durs)} kernels named {symbol} in the trace of {reps} calls")
+    args = max(events, key=lambda e: e["dur"])["args"]
+    if record and "registers per thread" in args:
+        KERNEL_INFO[name] = dict(registers=args["registers per thread"], smem_bytes=args.get("shared memory"),
+                                 threads=args["block"][0] * args["block"][1] * args["block"][2],
+                                 grid=args.get("grid"))
     return sum(durs) / (len(durs) / per_launch) / 1e3, call
+
+
+def library_kernels(fn) -> list:
+    """Names of the device kernels one call of fn runs, longest first (the
+    backend a library call took)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = sorted(((e.device_time_total, e.key) for e in prof.key_averages() if e.device_time_total > 0), reverse=True)
+    return [key[:120] for _, key in times[:3]]
 
 
 def reset_counts():
@@ -201,11 +241,12 @@ def read_counts():
     return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
 
 
-def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms, **extra):
+def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms, peak=PEAK_BF16_FLOPS, **extra):
     """One entry of the kernels line; the bound is the larger of the valid
-    work's operations over the bf16 peak and its bytes over the memory rate."""
+    work's operations over the peak of their type (bf16 tensor cores unless
+    given) and its bytes over the memory rate."""
     _, source, replaces, *_ = KERNELS[name]
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return dict(name=name, route="cuda", source=CSRC + source, replaces=replaces, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=library_ms, **extra)
@@ -278,6 +319,27 @@ def phase_cross(dev):
                           (("dq", dq_k, dq_p), ("dk", dk_k, dk_p), ("dv", dv_k, dv_p))))
         r["ms1"], r["call1"] = kernel_times("K1 flash fwd", lambda: fp.flash_fwd_cuda(
             q, k, v, kv_len, kv_valid, seed, rate, HEADS, bq, bk))
+        grid = KERNEL_INFO["K1 flash fwd"]["grid"]  # the chunk kernel's (query tiles, H, B x chunks)
+        if grid[1] != HEADS or grid[2] % B:
+            raise AssertionError(f"K1's longest kernel has grid {grid}, not the chunk kernel's")
+        r["n_split"] = grid[2] // B
+        # K1 at each split of its key tiles into 1-8 chunks (chunk kernel + merge), against the plain version
+        r["split_ms"], split_errs = {}, []
+        for n_split in range(1, 9):
+            o_s, lse_s = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, rate, HEADS, bq, bk, n_split=n_split)
+            split_errs.append((max_err(o_s, o_p), max_err(lse_s, lse_p)))
+            r["split_ms"][n_split] = kernel_times("K1 flash fwd", lambda: fp.flash_fwd_cuda(
+                q, k, v, kv_len, kv_valid, seed, rate, HEADS, bq, bk, n_split=n_split), reps=20,
+                per_launch=1 if n_split == 1 else 2, record=False)[0]
+        r["err1"] = max(r["err1"], check("K1 o, 1-8 key chunks", max(e for e, _ in split_errs),
+                                         float(o_p.detach().float().abs().max()), KERNEL_TOL))
+        lse_err = max(e for _, e in split_errs)
+        log(f"  K1 lse, 1-8 key chunks: max_abs_err {lse_err:.3e} (tolerance {LSE_TOL:g})")
+        if lse_err > LSE_TOL:
+            raise AssertionError("K1 lse at a given split disagrees with its plain version")
+        fastest = min(r["split_ms"], key=r["split_ms"].get)
+        log(f"  K1 launched {r['n_split']} key chunks (grid {grid} in its trace); device ms by chunks: "
+            + ", ".join(f"{n} {ms:.4f}" for n, ms in r["split_ms"].items()) + f"; fastest {fastest}")
         r["ms2"], r["call2"] = kernel_times("K2 flash bwd", lambda: fp.flash_bwd_cuda(
             q, k, v, kv_len, kv_valid, seed, o_k, lse_k, do, rate, HEADS, bq, bk))
         r["plain1"] = time_ms(lambda: fp.flash_attention_plain(q, k, v, kv_len, kv_valid, seed, rate, HEADS),
@@ -316,26 +378,38 @@ def phase_cross(dev):
     plain4 = time_ms(lambda: fp.keep_mask(int(seed), B, HEADS, lq_p, lk_p, 0.1, dev, bq, bk), reps=3, warmup=1)
     log(f"  K4 {ms4:.3f} ms (call {call4:.3f}, plain {plain4:.3f} ms)")
 
-    # library yardstick (never called by the port): SDPA, same boolean mask, dropout 0
+    # library yardstick (never called by the port): SDPA on the same tensors and boolean mask, at dropout 0
+    # and at the path's 0.1 (its own RNG: another keep-mask, the same work)
     qs, ks, vs = (t.view(t.shape[0], t.shape[1], HEADS, 64).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     mask = kv_valid[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib1 = time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask))
-    o_s = sdpa(qs, ks, vs, attn_mask=mask)
     do_s = do.view(B, LQ, HEADS, 64).transpose(1, 2)
-    lib2 = time_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True))
-    log(f"[cross] library: SDPA fwd {lib1:.3f} ms, SDPA bwd {lib2:.3f} ms (dropout 0)")
-    del o_s, q, k, v, do
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = {}
+    for rate in (0.0, 0.1):
+        lib1 = time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, dropout_p=rate))
+        o_s = sdpa(qs, ks, vs, attn_mask=mask, dropout_p=rate)
+        lib2 = time_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True))
+        backend = library_kernels(lambda: torch.autograd.grad(sdpa(qs, ks, vs, attn_mask=mask, dropout_p=rate),
+                                                              (qs, ks, vs), do_s))
+        lib[rate] = (lib1, lib2, backend)
+        log(f"[cross] library: SDPA fwd {lib1:.3f} ms, SDPA bwd {lib2:.3f} ms (dropout {rate}; kernels {backend})")
+        del o_s
+    lib1, lib2 = lib[0.1][0], lib[0.1][1]
+    del q, k, v, do
     torch.cuda.empty_cache()
 
     main, r0 = rows[0.1], rows[0.0]  # the training path runs dropout 0.1
     return {
         "K1 flash fwd": kernel_row("K1 flash fwd", max(main["err1"], r0["err1"]), main["ms1"], main["plain1"],
                                    flops1, bytes1, lib1, call_ms=main["call1"],
-                                   ms_dropout0=r0["ms1"], plain_ms_dropout0=r0["plain1"]),
+                                   ms_dropout0=r0["ms1"], plain_ms_dropout0=r0["plain1"],
+                                   library_ms_dropout0=lib[0.0][0], library_kernels=lib[0.1][2],
+                                   n_split=main["n_split"], split_ms=main["split_ms"],
+                                   split_ms_dropout0=r0["split_ms"]),
         "K2 flash bwd": kernel_row("K2 flash bwd", max(main["err2"], r0["err2"]), main["ms2"], main["plain2"],
                                    flops2, bytes2, lib2, call_ms=main["call2"], ms_dropout0=r0["ms2"],
-                                   plain_ms_dropout0=r0["plain2"]),
+                                   plain_ms_dropout0=r0["plain2"], library_ms_dropout0=lib[0.0][1],
+                                   library_kernels=lib[0.1][2]),
         "cross3a": dict(max_abs_err_cross=max(main["err3a"], r0["err3a"]), ms_cross=main["ms3a"],
                         call_ms_cross=main["call3a"], ms_cross_dropout0=r0["ms3a"],
                         plain_ms_cross=main["plain2"],
@@ -670,9 +744,12 @@ def phase_train(model, dev, tag, n_steps=3):
 def kernel_kind(name: str) -> str:
     """Coarse class of a device kernel, by its name."""
     low = name.lower()
-    if "flash_fwd_kernel<true>" in low:
+    if "flash_fwd_causal_kernel" in low:
         return "K1c flash fwd causal"
-    for key, kind in (("lf_fwd_lse_kernel", "L2a legacy flash fwd lse"), ("lf_fwd_kernel", "L1 legacy flash fwd"),
+    for key, kind in (("lfany_fwd_kernel", "LA legacy flash fwd, any dtype"),
+                      ("lfany_dq_kernel", "LA legacy flash dq, any dtype"),
+                      ("lfany_dkv_kernel", "LA legacy flash dk/dv, any dtype"),
+                      ("lf_fwd_lse_kernel", "L2a legacy flash fwd lse"), ("lf_fwd_kernel", "L1 legacy flash fwd"),
                       ("lf_dq_kernel", "L2b legacy flash dq"), ("lf_dkv_kernel", "L2c legacy flash dk/dv"),
                       ("flash_fwd", "K1 flash fwd"), ("flash_bwd", "K2 flash bwd"), ("flash_dq", "K3a flash dq"),
                       ("flash_dkv", "K3b flash dk/dv"), ("keep_mask", "K4 keep mask"),
@@ -837,7 +914,7 @@ def phase_legacy(dev, cross):
                      kv_valid=(torch.arange(LQ, device=dev)[None, :] < lengths[:, None]).contiguous()),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = {name: {} for name in KERNELS if name.startswith("L")}
+    rows = {name: {} for name in LEGACY_BF16}
     for tag, s in shapes.items():
         lk, band, kv_len1, kv_valid = s["lk"], s["band"], s["kv_len1"], s["kv_valid"]
         kv_len2 = torch.full((B,), lk, dtype=torch.int32, device=dev)
@@ -933,18 +1010,125 @@ def phase_legacy(dev, cross):
     return out
 
 
+# the any-dtype legacy kernels at a small shape: B 2, H 4, Lq 256, Lk 1024, D 64
+ANY_SHAPE = (2, 4, 256, 1024, 64)
+
+
+def any_inputs(dev, dtype, d=64, causal=False):
+    """q, k, v, do [B, H, L, d] of dtype, the images-like kv_valid of L2
+    (a hole and a short row) and kv_len of the same counts for L1."""
+    b, h, lq, lk, _ = ANY_SHAPE
+    if causal:
+        lk = lq
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, do = (torch.randn((b, h, n, d), generator=g, device=dev).to(dtype) for n in (lq, lk, lk, lq))
+    kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
+    kv_valid[0, 100:300] = False
+    kv_valid[1, lk * 3 // 4:] = False
+    return q, k, v, do, kv_valid.sum(1).to(torch.int32), kv_valid
+
+
+def phase_legacy_any(dev):
+    """The any-dtype legacy kernels (what the bf16 tensor-core kernels do
+    not take) against the plain version: float32 at ANY_SHAPE, non-causal
+    and causal with window 100, within ANY_TOL x max |plain| (lse 1e-4);
+    float16 at D 64 and bf16 at D 192 within KERNEL_TOL; device, plain and
+    SDPA (float32, same boolean mask) times of the float32 non-causal call."""
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash.flash_attention_bwd import make_flash_attention
+
+    errs = {name: 0.0 for name in LEGACY_ANY}
+    for dtype, d, causal, tol in ((torch.float32, 64, False, ANY_TOL), (torch.float32, 64, True, ANY_TOL),
+                                  (torch.float16, 64, True, KERNEL_TOL), (torch.bfloat16, 192, False, KERNEL_TOL)):
+        band = dict(causal=causal, window=WINDOW if causal else -1)
+        q, k, v, do, kv_len1, kv_valid = any_inputs(dev, dtype, d, causal)
+        kv_len2 = torch.full_like(kv_len1, k.shape[2])
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        n = read_counts()
+        o1 = fl.flash_attention(q, k, v, kv_len1, **band)
+        o2 = make_flash_attention(**band)(*ins, kv_len2, kv_valid)
+        o2.backward(do)
+        _, lse2 = fb.legacy_fwd_lse_cuda(q, k, v, kv_len2, kv_valid, **band)
+        torch.cuda.synchronize()
+        got = {name: read_counts()[name] - n[name] for name in LEGACY_ANY + LEGACY_BF16}
+        if got != dict.fromkeys(LEGACY_BF16, 0) | dict(zip(LEGACY_ANY, (3, 1, 1))):
+            raise AssertionError(f"any-dtype legacy call launched {got}")
+        refs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o2_p, lse2_p = fl.attention_plain(*refs, kv_len2, kv_valid, **band)
+        o2_p.backward(do)
+        tag = f"{str(dtype)[6:]} D {d} {'window 100' if causal else 'non-causal'}"
+        log(f"[legacy any] {tag}: B, H, Lq, Lk = {tuple(q.shape[:3]) + (k.shape[2],)}")
+        o1_p = fl.flash_attention_plain(q, k, v, kv_len1, **band)
+        e_fwd = max(check(f"LA L1 o ({tag})", max_err(o1, o1_p), float(o1_p.float().abs().max()), tol),
+                    check(f"LA L2a o ({tag})", max_err(o2, o2_p), float(o2_p.detach().float().abs().max()), tol),
+                    check_lse(f"LA L2a lse ({tag})", lse2, lse2_p))
+        e_dq = check(f"LA dq ({tag})", max_err(ins[0].grad, refs[0].grad), float(refs[0].grad.abs().max()), tol)
+        e_dkv = max(check(f"LA {n_} ({tag})", max_err(a.grad, r.grad), float(r.grad.abs().max()), tol)
+                    for n_, a, r in (("dk", ins[1], refs[1]), ("dv", ins[2], refs[2])))
+        if dtype == torch.float32:
+            for name, e in zip(LEGACY_ANY, (e_fwd, e_dq, e_dkv)):
+                errs[name] = max(errs[name], e)
+        del o1, o1_p, o2, o2_p, lse2, lse2_p, ins, refs
+
+    # times of the float32 non-causal call
+    q, k, v, do, _, kv_valid = any_inputs(dev, torch.float32)
+    b, h, lq, lk, d = ANY_SHAPE
+    kv_len = torch.full((b,), lk, dtype=torch.int32, device=dev)
+    o, lse = fb.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid)
+    bargs = (q, k, v, kv_len, kv_valid, do, lse, fb.attention_delta(do, o), False, -1)
+    timed = {"LA legacy flash fwd, any dtype": lambda: fl.legacy_any_fwd_cuda(q, k, v, kv_len, kv_valid, False, -1,
+                                                                               with_lse=True),
+             "LA legacy flash dq, any dtype": lambda: fb.legacy_any_dq_cuda(*bargs),
+             "LA legacy flash dk/dv, any dtype": lambda: fb.legacy_any_dkv_cuda(*bargs)}
+    pairs = h * lq * int(kv_valid.sum())
+    n_keys = int(kv_valid.sum())
+    qb, kvb, stats = b * h * lq * d * 4, n_keys * h * d * 4, b * h * lq * 4
+    work = {"LA legacy flash fwd, any dtype": (4 * d * pairs, 2 * qb + 2 * kvb + stats),
+            "LA legacy flash dq, any dtype": (6 * d * pairs, 3 * qb + 2 * kvb + 2 * stats),
+            "LA legacy flash dk/dv, any dtype": (8 * d * pairs, 2 * qb + 2 * kvb + 2 * stats + 2 * b * h * lk * d * 4)}
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_p, _ = fl.attention_plain(qr, kr, vr, kv_len, kv_valid)
+    plain_fwd = time_ms(lambda: fl.attention_plain(q, k, v, kv_len, kv_valid), reps=3, warmup=1)
+    plain_bwd = time_ms(lambda: torch.autograd.grad(o_p, (qr, kr, vr), do, retain_graph=True), reps=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = kv_valid[:, None, None, :]
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+    o_s = sdpa(qr, kr, vr, attn_mask=mask)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qr, kr, vr), do, retain_graph=True))
+    out = {}
+    for name, fn in timed.items():
+        ms, call = kernel_times(name, fn)
+        is_fwd = "fwd" in name
+        out[name] = kernel_row(name, errs[name], ms, plain_fwd if is_fwd else plain_bwd, *work[name],
+                               lib_fwd if is_fwd else lib_bwd, peak=PEAK_F32_FLOPS, call_ms=call,
+                               shape="B 2, H 4, Lq 256, Lk 1024, D 64, float32")
+    log("  " + ", ".join(f"{n.split(',')[0]} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})" for n, r in out.items())
+        + f"; plain fwd {plain_fwd:.3f} / bwd {plain_bwd:.3f} ms; SDPA f32 fwd {lib_fwd:.3f} / bwd {lib_bwd:.3f} ms")
+    del q, k, v, do, o, lse, bargs, qr, kr, vr, o_p, o_s
+    torch.cuda.empty_cache()
+    return out
+
+
 def legacy_path(dev):
     """The legacy entry points, counted from 0: the port's
     bench_flash_packed at its own shape (L2 against K1/K2, LEGACY_ITERS timed
     calls each), then one inference call of flash_attention (L1) at the
-    paper's self-attention shape, held against its plain version."""
+    paper's self-attention shape, held against its plain version, and the
+    float32 route at ANY_SHAPE: one flash_attention call and one forward +
+    backward of make_flash_attention (the any-dtype kernels)."""
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash.flash_attention_bwd import make_flash_attention
+
     g = torch.Generator(device=dev).manual_seed(7)
     lengths = torch.tensor(TARGET_LENGTHS, dtype=torch.int32, device=dev)
     q, k, v = (torch.randn((B, HEADS, LQ, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    q32, k32, v32, do32, kv_len32, kv_valid32 = any_inputs(dev, torch.float32)
+    leaves = [t.requires_grad_() for t in (q32, k32, v32)]
     reset_counts()
     bench = bench_flash_packed.main(["--iters", str(LEGACY_ITERS)])
     with torch.no_grad():
         o = fl.flash_attention(q, k, v, lengths, causal=True, window=WINDOW)
+        o32 = fl.flash_attention(q32, k32, v32, kv_len32)
+    o32b = make_flash_attention()(*leaves, torch.full_like(kv_len32, k32.shape[2]), kv_valid32)
+    o32b.backward(do32)
     torch.cuda.synchronize()
     launches = read_counts()
     log(f"[legacy path] kernel launches {launches}")
@@ -953,17 +1137,23 @@ def legacy_path(dev):
     # and three dropout forwards
     want = {name: 0 for name in KERNELS} | {
         "K1 flash fwd": 2 * (n + 1) + 1 + 3, "K2 flash bwd": 2 * (n + 1), "L2a legacy flash fwd lse": n + 2,
-        "L2b legacy flash dq": n + 1, "L2c legacy flash dk/dv": n + 1, "L1 legacy flash fwd": 1}
+        "L2b legacy flash dq": n + 1, "L2c legacy flash dk/dv": n + 1, "L1 legacy flash fwd": 1,
+        "LA legacy flash fwd, any dtype": 2, "LA legacy flash dq, any dtype": 1, "LA legacy flash dk/dv, any dtype": 1}
     if launches != want:
         raise AssertionError(f"legacy path launched {launches}, expected {want}")
     err = check_vs("legacy path L1 o", o, fl.flash_attention_plain(q, k, v, lengths, causal=True, window=WINDOW))
+    o32_p = fl.flash_attention_plain(q32.detach(), k32.detach(), v32.detach(), kv_len32)
+    err32 = check("legacy path float32 L1 o", max_err(o32, o32_p), float(o32_p.abs().max()), ANY_TOL)
+    if not all(torch.isfinite(t.grad).all() for t in leaves) or not torch.isfinite(o32b).all():
+        raise AssertionError("legacy path float32: non-finite output or gradient")
     bench_err = check("bench max |old - new| fwd", bench["max_abs_old_new"], bench["max_abs_new"], KERNEL_TOL)
     if not (bench["dropout_deterministic"] and bench["dropout_varies_with_seed"]
             and bench["dropout_changed_frac"] > 0.5):
         raise AssertionError(f"bench dropout checks failed: {bench}")
-    del q, k, v, o
+    del q, k, v, o, q32, k32, v32, do32, o32, o32b, leaves
     torch.cuda.empty_cache()
-    return dict(launches=launches, bench=bench, max_abs_err_l1=err, max_abs_err_bench=bench_err)
+    return dict(launches=launches, bench=bench, max_abs_err_l1=err, max_abs_err_l1_float32=err32,
+                max_abs_err_bench=bench_err)
 
 
 def main(argv=None):
@@ -994,7 +1184,7 @@ def main(argv=None):
     stem = phase_stem(dev)
     stem_launches, stem_errs = stem_path(dev)
     stem_k = stem_rows(stem, stem_launches, stem_errs)
-    legacy_k = phase_legacy(dev, cross)
+    legacy_k = phase_legacy(dev, cross) | phase_legacy_any(dev)
     kernels = [cross["K1 flash fwd"], cross["K2 flash bwd"], self_rows["K1c flash fwd causal"],
                self_rows["K3a flash dq"] | cross["cross3a"], self_rows["K3b flash dk/dv"] | cross["cross3b"],
                cross["K4 keep mask"]]
@@ -1013,6 +1203,7 @@ def main(argv=None):
     for name, row in legacy_k.items():
         kernels.append(row | dict(launches=legacy["launches"][name]))
     for k in kernels:
+        k.update(KERNEL_INFO.get(k["name"], {}))
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
 

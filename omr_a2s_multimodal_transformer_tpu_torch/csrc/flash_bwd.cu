@@ -8,245 +8,303 @@
 //   dp = (do v^T) * M / (1 - rate),  ds = p * (dp - delta) / 8
 //   dv = (p * M / (1 - rate))^T do,  dk = ds^T q,  dq = ds k
 //
-// One block of 4 warps per (64-key tile, head, batch row) walks every query
-// tile, with the Q/dO tiles double-buffered by cp.async. Each warp owns 16
-// keys and works in the transposed frame (s^T = k q^T, dp^T = v do^T), so
-// dk and dv accumulate in registers over all query tiles and are written
-// once. ds (rounded to bf16, as in the TPU kernel) goes through shared
-// memory for dq = ds k, whose 64x64 partial per (key tile, query tile) is
-// added into a float32 [B, Lq, H*64] buffer with 16-byte vector atomicAdd
-// (sm_90). The order of those adds changes from run to run, so dq is not
-// bitwise deterministic; its error is that of an f32 sum over ceil(Lk/64)
-// partials.
-//
-// What bounds it on the H100: five products, 10*B*H*Lq*Lk*64 FLOP, about
-// 2.5x the forward, so tensor-core FLOPs bound it. The CUDA cores come
-// first here too (exp, the keep-mask hash, ds), then the dq atomics
-// (B*H*Lq*Lk/16 floats). Every per-score multiply and modulo of the hash is
-// hoisted out of the loop; wgmma/TMA and a dq pass without atomics are
-// later work.
+// What bounds it on the H100: five products, 10*B*H*Lq*Lk*64 FLOP (0.29 ms
+// at the flagship cross shape), then the CUDA cores (an exp, ds and, with
+// dropout, the keep-mask hash per score, as in the forward) and the dq
+// sums across key blocks. The design, for Hopper:
+// - a block of three warpgroups per (128-key block, head, batch row): a
+//   producer (one warp: a thread issues TMA loads, the block's K and V tiles
+//   once, then a 3-stage ring of 64-query Q and dO tiles, 128-byte-swizzled,
+//   and a bulk copy of each tile's (lse * log2 e, delta) pairs; the lanes
+//   write the tile's folded hash row terms), and two
+//   consumer warpgroups of 64 keys each that share the ring (half the L2
+//   traffic of 64-key blocks); setmaxnreg moves the producer's registers
+//   to them;
+// - all five products on wgmma, in the transposed frame: s^T = k q^T and
+//   dp^T = v do^T from shared memory (no K/V fragments held in registers),
+//   dv += p_drop^T do and dk += ds^T q with A from registers and do, q read
+//   MN-major, and dq = ds k with ds^T staged in shared memory (MN-major A);
+// - the keep-mask hash of a tile runs while s^T and dp^T are in flight, its
+//   first step folded into per-key and per-query terms (fold16);
+// - dq without per-thread atomics: each warpgroup stages its 64 x 64 f32
+//   partial in shared memory (128-byte swizzled) and adds it into a f32
+//   [B, Lq, H*64] buffer with two bulk tensor reduce-adds per query tile.
+//   The order of those adds across key blocks changes from run to run, so
+//   dq is not bitwise deterministic (an f32 sum over ceil(Lk / 64)
+//   partials); dk and dv are written once and are.
+// The accumulator layout gives each thread keys 16w + g and + 8 and query
+// pairs 8j + 2t, the layout of the mma.sync kernels, so the hoisted hash
+// terms, and the keep-mask, are the same as the forward's.
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 using namespace flash;
 
-// shared memory: K, dS^T, Q[2], dO[2] tiles (bf16), lse*log2(e)[2], delta[2]
-constexpr int BWD_SMEM = 6 * TILE * (int)sizeof(bf16) + 4 * BQ * (int)sizeof(float);
+namespace k2 {
 
-__global__ void __launch_bounds__(NT)
-flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                 const int* __restrict__ kv_len, const uint8_t* __restrict__ kv_valid,
-                 const int* __restrict__ seed_p, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                 int Lq, int Lk, int mbq, int mbk, float rate, float keep_scale, uint32_t thresh) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdS = sK + TILE;     // ds^T: [key][query]; holds V until its fragments are loaded
-  bf16* sQ = sdS + TILE;     // [2][TILE]
-  bf16* sdO = sQ + 2 * TILE; // [2][TILE]
-  float* sLse = reinterpret_cast<float*>(sdO + 2 * TILE);  // [2][BQ], log2 domain
-  float* sDelta = sLse + 2 * BQ;                            // [2][BQ]
+constexpr int STAGES = 3;
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int KEYS = 128;     // keys per block, 64 per consumer warpgroup
+constexpr int TILE_BYTES = 64 * 64 * 2;
+constexpr int STAT_BYTES = 64 * 2 * 4;  // (lse * log2 e, delta) of 64 queries
 
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int ld = H * DH;
-  const int k0 = kt * BK;
-  const bf16* qb = q + (size_t)b * Lq * ld + h * DH;
-  const bf16* dob = dout + (size_t)b * Lq * ld + h * DH;
-  const float* lseb = lse + ((size_t)b * H + h) * Lq;
-  const float* deltab = delta + ((size_t)b * H + h) * Lq;
-  const int len = min(kv_len[b], Lk);
-  const bool dropout = rate > 0.f;
-  const int seed = dropout ? *seed_p : 0;
-  const float scale = 0.125f;  // 1/sqrt(64)
+struct Smem {
+  bf16 k[2][64 * 64];  // every tile 1024-byte aligned (the struct is placed at a 1024-byte boundary)
+  bf16 v[2][64 * 64];
+  bf16 q[STAGES][64 * 64];
+  bf16 dout[STAGES][64 * 64];
+  bf16 ds[2][64 * 64];       // ds^T of each warpgroup: [key][query], the MN-major A of dq = ds k
+  float dq[2][2][64 * 32];   // dq partial of each warpgroup: two 32-column halves of 128-byte rows
+  float stats[STAGES][64 * 2];
+  uint32_t rowx[STAGES][64];  // fold16 of each query's hash row term (dropout only)
+  uint64_t full[STAGES];
+  uint64_t empty[STAGES];
+  uint64_t kvbar;
+};
+
+constexpr int SMEM_BYTES = (int)sizeof(Smem) + 1024;  // + room to align the base
+
+__device__ __forceinline__ Smem& smem() {
+  extern __shared__ unsigned char smem_raw[];
+  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+}
+
+}  // namespace k2
+
+// grid (ceil(Lk / 128), H, B). stats is [B, H, ceil(Lq / 64) * 64, 2] f32:
+// (lse * log2 e, delta), zero past Lq. dq_acc is the zeroed f32 [B, Lq, H*64]
+// that the bulk reductions add into (map tdq).
+__global__ void __launch_bounds__(k2::THREADS, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdq, const int* __restrict__ kv_len,
+                 const uint8_t* __restrict__ kv_valid, const int* __restrict__ seed_p,
+                 const float* __restrict__ stats, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Lq,
+                 int Lk, int mbq, int mbk, float rate, float keep_scale, uint32_t thresh) {
+  using namespace hopper;
+  k2::Smem& sm = k2::smem();
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * k2::KEYS;
   const int nqt = (Lq + BQ - 1) / BQ;
+  const int wg = threadIdx.x >> 7;
 
-  auto issue_q = [&](int qt, int buf) {
-    const int q0 = qt * BQ;
-    load_tile_async(sQ + buf * TILE, qb, q0, Lq, ld, tid);
-    load_tile_async(sdO + buf * TILE, dob, q0, Lq, ld, tid);
-    cp_async_commit();
-    if (tid < BQ) {
-      const bool in = q0 + tid < Lq;
-      sLse[buf * BQ + tid] = in ? lseb[q0 + tid] * LOG2E : 0.f;
-      sDelta[buf * BQ + tid] = in ? deltab[q0 + tid] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < k2::STAGES; ++s) {
+      mbar_init(&sm.full[s], 32);    // the producer warp's lanes (lane 0 also expects the copies' bytes)
+      mbar_init(&sm.empty[s], 256);  // every consumer thread
     }
-  };
-
-  load_tile_async(sK, k + (size_t)b * Lk * ld + h * DH, k0, Lk, ld, tid);
-  load_tile_async(sdS, v + (size_t)b * Lk * ld + h * DH, k0, Lk, ld, tid);
-  issue_q(0, 0);  // commits K, V and the first Q/dO tile as one group
-
-  // keys owned by this thread: r = 0 -> k0+warp*16+g, r = 1 -> +8
-  const int krow[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  bool kval[2];
-  uint32_t col_term[2];  // hash column terms; k tiles lie inside one mask k-block
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    kval[r] = key_valid(kv_valid + (size_t)b * Lk, len, krow[r]);
-    col_term[r] = (uint32_t)(krow[r] % mbk) * COL_MUL;
+    mbar_init(&sm.kvbar, 1);
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  float dk_acc[8][4], dv_acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-  }
-  uint32_t kf[4][4], vf[4][4];
-
-  for (int qt = 0; qt < nqt; ++qt) {
-    const int buf = qt & 1;
-    const int q0 = qt * BQ;
-    if (qt + 1 < nqt) {
-      issue_q(qt + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (qt == 0) {
-      load_a_frags(kf, sK, warp * 16, lane);
-      load_a_frags(vf, sdS, warp * 16, lane);
-      __syncthreads();  // V is in registers; sdS is free for ds
-    }
-    const bf16* Q = sQ + buf * TILE;
-    const bf16* dO = sdO + buf * TILE;
-    const float* L2 = sLse + buf * BQ;
-    const float* D = sDelta + buf * BQ;
-
-    // s^T = k q^T and dp^T = v do^T: 16 keys x 64 queries (8 tiles of 8)
-    float st[8][4], dpt[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      uint32_t bq[4][2], bd[4][2];
-      load_bt_frags(bq, Q, j * 8, lane);
-      load_bt_frags(bd, dO, j * 8, lane);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        mma16816(st[j], kf[kk], bq[kk]);
-        mma16816(dpt[j], vf[kk], bd[kk]);
-      }
-    }
-
-    const uint32_t mixmul = dropout ? block_mix(seed, b, q0 / mbq, k0 / mbk) : 0u;
-    // q tiles of 64 lie inside one mask q-block: row = h*mbq + q0 % mbq + qc
-    const uint32_t row_term = (uint32_t)(h * mbq + q0 % mbq + 2 * t) * ROW_MUL;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int qc = j * 8 + 2 * t + (e & 1);
-        const float p = (kval[r] && q0 + qc < Lq) ? ex2(st[j][e] * (scale * LOG2E) - L2[qc]) : 0.f;
-        float dp = dpt[j][e];
-        float p_drop = p;
-        if (dropout) {
-          const uint32_t x = mixmul ^ col_term[r] ^ (row_term + (uint32_t)(j * 8 + (e & 1)) * ROW_MUL);
-          const bool keep = keep_bit(x, thresh);
-          p_drop = keep ? p * keep_scale : 0.f;
-          dp = keep ? dp * keep_scale : 0.f;
+  if (wg == 0) {
+    // ---- producer: one warp (lane 0 issues the copies); the warpgroup gives up its registers
+    reg_dealloc<24>();
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      const bool dropout = rate > 0.f;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.kvbar, 4 * k2::TILE_BYTES);
+        for (int c = 0; c < 2; ++c) {
+          tma_load_3d(sm.k[c], &tk, &sm.kvbar, h * DH, k0 + 64 * c, b);
+          tma_load_3d(sm.v[c], &tv, &sm.kvbar, h * DH, k0 + 64 * c, b);
         }
-        st[j][e] = p_drop;
-        dpt[j][e] = p * (dp - D[qc]) * scale;  // ds
+      }
+      const float* stats_bh = stats + ((size_t)b * H + h) * nqt * BQ * 2;
+      for (int it = 0; it < nqt; ++it) {
+        const int s = it % k2::STAGES;
+        const int q0 = it * BQ;
+        mbar_wait(&sm.empty[s], ((it / k2::STAGES) & 1) ^ 1);
+        if (dropout) {  // a 64-query tile lies inside one mask q-block: row = h*mbq + q % mbq
+          const uint32_t r0 = (uint32_t)(h * mbq + q0 % mbq + lane);
+          sm.rowx[s][lane] = fold16(r0 * ROW_MUL);
+          sm.rowx[s][lane + 32] = fold16((r0 + 32) * ROW_MUL);
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sm.full[s], 2 * k2::TILE_BYTES + k2::STAT_BYTES);
+          tma_load_3d(sm.q[s], &tq, &sm.full[s], h * DH, q0, b);
+          tma_load_3d(sm.dout[s], &tdo, &sm.full[s], h * DH, q0, b);
+          bulk_load(sm.stats[s], stats_bh + (size_t)q0 * 2, k2::STAT_BYTES, &sm.full[s]);
+        } else {
+          mbar_arrive(&sm.full[s]);
+        }
       }
     }
-
-    // dv += p_drop^T do and dk += ds^T q: the [key][query] accumulators of
-    // query tiles 2kc, 2kc+1 are the A fragment of the 16-query chunk kc.
-    const int key0 = warp * 16 + g;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t ap[4] = {pack_f2(st[2 * kc][0], st[2 * kc][1]), pack_f2(st[2 * kc][2], st[2 * kc][3]),
-                        pack_f2(st[2 * kc + 1][0], st[2 * kc + 1][1]),
-                        pack_f2(st[2 * kc + 1][2], st[2 * kc + 1][3])};
-      uint32_t as[4] = {pack_f2(dpt[2 * kc][0], dpt[2 * kc][1]),
-                        pack_f2(dpt[2 * kc][2], dpt[2 * kc][3]),
-                        pack_f2(dpt[2 * kc + 1][0], dpt[2 * kc + 1][1]),
-                        pack_f2(dpt[2 * kc + 1][2], dpt[2 * kc + 1][3])};
-      uint32_t bd[8][2], bq[8][2];
-      load_b_frags(bd, dO, kc * 16, lane);
-      load_b_frags(bq, Q, kc * 16, lane);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        mma16816(dv_acc[n], ap, bd[n]);
-        mma16816(dk_acc[n], as, bq[n]);
-      }
-      // ds^T (bf16) to shared memory for the dq product
-      *reinterpret_cast<uint32_t*>(sdS + key0 * SROW + kc * 16 + 2 * t) = as[0];
-      *reinterpret_cast<uint32_t*>(sdS + (key0 + 8) * SROW + kc * 16 + 2 * t) = as[1];
-      *reinterpret_cast<uint32_t*>(sdS + key0 * SROW + kc * 16 + 8 + 2 * t) = as[2];
-      *reinterpret_cast<uint32_t*>(sdS + (key0 + 8) * SROW + kc * 16 + 8 + 2 * t) = as[3];
-    }
-    __syncthreads();
-
-    // dq[64 queries x 64] += ds[query][key] k[key][:]; warp w owns queries
-    // w*16..w*16+15. A (query x key) is ds^T read transposed, B (key x d) is k.
-    float dq[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-    const bf16* pa = sdS + ((lane & 7) + (lane >> 4) * 8) * SROW + warp * 16 + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t a[4], bk[8][2];
-      ldsm_x4_t(a, pa + kc * 16 * SROW);
-      load_b_frags(bk, sK, kc * 16, lane);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) mma16816(dq[n], a, bk[n]);
-    }
-    // 16-byte atomics: lanes t and t^1 trade halves so that, for tile n,
-    // the lane with t % 2 == n % 2 adds four consecutive columns.
+  } else {
+    // ---- consumers: 64 keys each
+    reg_alloc<240>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int kc0 = k0 + 64 * c;
+    const int len = min(kv_len[b], Lk);
+    const bool dropout = rate > 0.f;
+    const int seed = dropout ? *seed_p : 0;
+    const float scale = 0.125f;  // 1/sqrt(64)
+    // keys owned by this thread: r = 0 -> kc0 + 16w + g, r = 1 -> + 8
+    const int krow[2] = {kc0 + warp * 16 + g, kc0 + warp * 16 + g + 8};
+    bool kval[2];
+    uint32_t col_term[2];  // hash column terms; a 64-key tile lies inside one mask k-block
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int qg = q0 + warp * 16 + g + 8 * r;
-      float* drow = dq_acc + ((size_t)b * Lq + qg) * ld + h * DH;
+      kval[r] = key_valid(kv_valid + (size_t)b * Lk, len, krow[r]);
+      col_term[r] = (uint32_t)(krow[r] % mbk) * COL_MUL;
+    }
+    float dk_acc[32], dv_acc[32], st[32], dpt[32], mult[32], dq[32];
+    uint32_t pp[16], pd[16];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float lo = dq[n][2 * r], hi = dq[n][2 * r + 1];
-        const float plo = __shfl_xor_sync(0xffffffffu, lo, 1);
-        const float phi = __shfl_xor_sync(0xffffffffu, hi, 1);
-        if (qg < Lq && (t & 1) == (n & 1)) {
-          const float4 val = (t & 1) ? make_float4(plo, phi, lo, hi) : make_float4(lo, hi, plo, phi);
-          atomicAdd(reinterpret_cast<float4*>(drow + n * 8 + 2 * (t & ~1)), val);
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    unsigned char* ds_tile = reinterpret_cast<unsigned char*>(sm.ds[c]);
+    float* dq_tile = &sm.dq[c][0][0];
+
+    mbar_wait(&sm.kvbar, 0);
+    const uint64_t dK = sw128_desc(sm.k[c]), dV = sw128_desc(sm.v[c]), dS = sw128_desc(sm.ds[c]);
+    for (int it = 0; it < nqt; ++it) {
+      const int s = it % k2::STAGES;
+      const int q0 = it * BQ;
+      mbar_wait(&sm.full[s], (it / k2::STAGES) & 1);
+      const uint64_t dQ = sw128_desc(sm.q[s]), dO = sw128_desc(sm.dout[s]);
+
+      // s^T = k q^T and dp^T = v do^T (64 keys x 64 queries), in flight while the hash runs
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(st, dK + 2 * kk, dQ + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(dpt, dV + 2 * kk, dO + 2 * kk, kk);
+      wgmma_commit();
+      if (dropout) {  // from the folded key terms and the producer's folded query terms
+        const uint32_t mixmul = block_mix(seed, b, q0 / mbq, kc0 / mbk);
+        const uint32_t a[2] = {fold16(mixmul ^ col_term[0]), fold16(mixmul ^ col_term[1])};
+        const uint32_t* rx = sm.rowx[s];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint2 rr = *reinterpret_cast<const uint2*>(rx + j * 8 + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mult[4 * j + e] = keep_bit_folded(a[e >> 1] ^ ((e & 1) ? rr.y : rr.x), thresh) ? keep_scale : 0.f;
         }
       }
-    }
-    __syncthreads();  // every warp is done with sdS and this Q/dO buffer
-  }
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
 
+      const float* L = sm.stats[s];
+      const int qlim = Lq - q0;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (krow[r] >= Lk) continue;
-    bf16* dkrow = dk + ((size_t)b * Lk + krow[r]) * ld + h * DH;
-    bf16* dvrow = dv + ((size_t)b * Lk + krow[r]) * ld + h * DH;
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkrow + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvrow + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, r = e >> 1;
+          const int qc = j * 8 + 2 * t + (e & 1);
+          const float2 ld = *reinterpret_cast<const float2*>(L + 2 * qc);  // (lse * log2 e, delta)
+          const float p = (kval[r] && qc < qlim) ? ex2(st[i] * (scale * LOG2E) - ld.x) : 0.f;
+          float dp = dpt[i];
+          float p_drop = p;
+          if (dropout) {
+            p_drop = p * mult[i];
+            dp = dp * mult[i];
+          }
+          st[i] = p_drop;
+          dpt[i] = p * (dp - ld.y) * scale;  // ds
+        }
+      }
+      hopper::pack_a(pp, st);
+      hopper::pack_a(pd, dpt);
+      // ds^T (bf16) to shared memory, 128-byte swizzled: row = key, chunk j ^ (row % 8)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = warp * 16 + g + 8 * r;
+          *reinterpret_cast<uint32_t*>(ds_tile + row * 128 + ((j ^ g) << 4) + 4 * t) = pd[2 * j + r];
+        }
+      }
+      fence_proxy_async();
+
+      // dv += p_drop^T do, dk += ds^T q: A from registers, do and q MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dv_acc, pp + 4 * kc, dO + 128 * kc, 1);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dk_acc, pd + 4 * kc, dQ + 128 * kc, 1);
+      wgmma_commit();
+      named_sync(1 + c, 128);  // the warpgroup's ds^T is in shared memory
+
+      // dq partial (64 queries x 64) = ds k: A = ds^T read MN-major, B = k MN-major
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) wgmma_ss<1, 1>(dq, dS + 128 * kc, dK + 128 * kc, kc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      mbar_arrive(&sm.empty[s]);
+
+      // the previous partial's reduce-add has read the staging tile
+      if (tid == 0) bulk_wait_read();
+      named_sync(1 + c, 128);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = warp * 16 + g + 8 * r;
+          const int chunk = 2 * (j & 3) + (t >> 1);
+          float* dst = dq_tile + (j >> 2) * 2048 + row * 32 + ((chunk ^ g) << 2) + 2 * (t & 1);
+          *reinterpret_cast<float2*>(dst) = make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+        }
+      }
+      fence_proxy_async();
+      named_sync(1 + c, 128);
+      if (tid == 0) {
+        tma_reduce_add_3d(&tdq, dq_tile, h * DH, q0, b);
+        tma_reduce_add_3d(&tdq, dq_tile + 2048, h * DH + 32, q0, b);
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait();  // the last reduce-adds are done before the block's shared memory goes
+
+    const int ld = H * DH;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (krow[r] >= Lk) continue;
+      bf16* dkrow = dk + ((size_t)b * Lk + krow[r]) * ld + h * DH;
+      bf16* dvrow = dv + ((size_t)b * Lk + krow[r]) * ld + h * DH;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dkrow + j * 8 + 2 * t) =
+            __floats2bfloat162_rn(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvrow + j * 8 + 2 * t) =
+            __floats2bfloat162_rn(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
     }
   }
 }
 
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, const void* kv_len,
-                                const void* kv_valid, const void* seed, const void* dout,
-                                const void* lse, const void* delta, void* dq_acc, void* dk, void* dv,
-                                int B, int H, int Lq, int Lk, int mbq, int mbk, float rate,
-                                float keep_scale, unsigned int thresh, void* stream) {
+                                const void* kv_valid, const void* seed, const void* dout, const void* stats,
+                                void* dq_acc, void* dk, void* dv, int B, int H, int Lq, int Lk, int mbq, int mbk,
+                                float rate, float keep_scale, unsigned int thresh, void* stream) {
+  CUtensorMap tq, tdo, tk, tv, tdq;
+  int err = hopper::make_map_bf16(&tq, q, B, Lq, H * DH, 64);
+  if (!err) err = hopper::make_map_bf16(&tdo, dout, B, Lq, H * DH, 64);
+  if (!err) err = hopper::make_map_bf16(&tk, k, B, Lk, H * DH, 64);
+  if (!err) err = hopper::make_map_bf16(&tv, v, B, Lk, H * DH, 64);
+  if (!err) err = hopper::make_map_f32(&tdq, dq_acc, B, Lq, H * DH, 64);
+  if (err) return err;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(flash_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t e =
+        cudaFuncSetAttribute(flash_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k2::SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  dim3 grid((Lk + BK - 1) / BK, H, B);
-  flash_bwd_kernel<<<grid, NT, BWD_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)kv_len, (const uint8_t*)kv_valid,
-      (const int*)seed, (const bf16*)dout, (const float*)lse, (const float*)delta, (float*)dq_acc,
+  dim3 grid((Lk + k2::KEYS - 1) / k2::KEYS, H, B);
+  flash_bwd_kernel<<<grid, k2::THREADS, k2::SMEM_BYTES, (cudaStream_t)stream>>>(
+      tq, tdo, tk, tv, tdq, (const int*)kv_len, (const uint8_t*)kv_valid, (const int*)seed, (const float*)stats,
       (bf16*)dk, (bf16*)dv, H, Lq, Lk, mbq, mbk, rate, keep_scale, thresh);
   return (int)cudaGetLastError();
 }

@@ -199,4 +199,18 @@ __device__ __forceinline__ bool keep_bit(uint32_t x, uint32_t thresh) {
   return x >= thresh;
 }
 
+// keep_bit split after its first step, for kernels that hoist that step too:
+// for x = a ^ c, x ^ (x >> 16) = fold16(a) ^ fold16(c), so the row and the
+// column terms are each folded once (K1, K2), and keep_bit(x) equals
+// keep_bit_folded(fold16(a) ^ fold16(c)).
+__device__ __forceinline__ uint32_t fold16(uint32_t x) { return x ^ (x >> 16); }
+
+__device__ __forceinline__ bool keep_bit_folded(uint32_t x, uint32_t thresh) {
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= thresh;
+}
+
 }  // namespace flash

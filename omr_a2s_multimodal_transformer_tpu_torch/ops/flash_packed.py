@@ -13,8 +13,9 @@ becomes -1e30), and M the dropout keep-mask, applied after the softmax
 Two routes, chosen by where the tensors lie, never by a switch:
 
 - CUDA tensors go through ``FlashAttention`` (a ``torch.autograd.Function``)
-  whose forward launches kernel K1 (non-causal) or K1c (causal, optionally
-  windowed; both ``csrc/flash_fwd.cu``) and whose backward launches K2
+  whose forward launches kernel K1 (non-causal: wgmma and TMA, its keys in
+  ``fwd_splits`` chunks merged by lse) or K1c (causal, optionally windowed;
+  both ``csrc/flash_fwd.cu``) and whose backward launches K2
   (``csrc/flash_bwd.cu``, the merged backward of a non-causal call) or K3a
   then K3b (``csrc/flash_dq.cu``, ``csrc/flash_dkv.cu``, the split backward
   of every other call), as the JAX backward chooses. ``export_keep_masks``
@@ -47,6 +48,7 @@ HEAD_DIM = 64
 KERNEL_TILE = 64  # rows per tile in the CUDA flash kernels
 MASK_BQ, MASK_BK = 128, 2048  # the decoder's JAX block sizes, which seed its keep-mask hash
 KEEP_MASK_KEYS = 16  # keys per thread (one 16-byte store) in K4
+LOG2E = 1.4426950408889634
 _U32 = 0xFFFFFFFF
 
 
@@ -196,25 +198,90 @@ def _dropout_args(rate: float):
     return float(rate), _keep_scale(rate), dropout_threshold(rate)
 
 
-def _launch_fwd(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk, causal, window):
+FWD_ROWS = 192  # queries per K1 block (three consumer warpgroups of 64)
+FWD_BLOCKS_PER_SM = 1  # K1's registers and shared memory hold one block on an SM
+# a K1 block's set-up, epilogue and share of the merge, in 64-key tile times: K1's times at 1-8 chunks
+# (chip_smoke.py, flagship cross shape, H100 SXM) fit 1.5-2.9 and are fastest at this model's choice
+FWD_BLOCK_OVERHEAD_TILES = 2
+MAX_FWD_SPLITS = 16
+
+
+def fwd_splits(batch: int, n_heads: int, lq: int, lk: int, n_sm: int) -> Tuple[int, int]:
+    """(n_split, per): K1 walks its ceil(lk / 64) key tiles in n_split
+    chunks of ``per`` tiles, each chunk a block of its own, merged by lse.
+    The split minimizes waves x block time, ceil(units * n_split / slots) x
+    (per + FWD_BLOCK_OVERHEAD_TILES), over the card's n_sm one-block slots;
+    ties go to the fewer chunks. At the flagship cross shape (224 blocks of
+    192 queries, 199 key tiles) on 132 SMs it picks 4: 896 blocks in 6.79
+    waves (7) instead of 224 in 1.70 (2)."""
+    units = -(-lq // FWD_ROWS) * n_heads * batch
+    n_tiles = -(-lk // KERNEL_TILE)
+    slots = max(1, n_sm * FWD_BLOCKS_PER_SM)
+    best = None
+    for n_split in range(1, min(MAX_FWD_SPLITS, n_tiles) + 1):
+        per = -(-n_tiles // n_split)
+        if -(-n_tiles // per) != n_split:
+            continue
+        cost = -(-units * n_split // slots) * (per + FWD_BLOCK_OVERHEAD_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, n_split, per)
+    return best[1], best[2]
+
+
+def _split_of(n_tiles: int, n_split: int) -> Tuple[int, int]:
+    """(n_split, per) for a given chunk count: ``per`` tiles a chunk, every
+    chunk holding at least one tile."""
+    per = -(-n_tiles // max(n_split, 1))
+    if not 1 <= n_split <= n_tiles or -(-n_tiles // per) != n_split:
+        raise ValueError(f"{n_tiles} key tiles do not split into {n_split} chunks")
+    return n_split, per
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _launch_fwd(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk, causal, window,
+                n_split=None):
     _check_cuda_inputs(q, k, v, kv_len, kv_valid, seed, n_heads, mask_bq, mask_bk)
-    b, lq, _ = q.shape
+    b, lq, pd = q.shape
     lk = k.shape[1]
     o = torch.empty_like(q)
     lse = torch.empty((b, n_heads, lq), device=q.device, dtype=torch.float32)
+    if causal:
+        n_split, per = 1, 1
+    elif n_split is None:
+        n_split, per = fwd_splits(b, n_heads, lq, lk, _sm_count(q.device))
+    else:
+        n_split, per = _split_of(-(-lk // KERNEL_TILE), n_split)
+    o_part = lse_part = None
+    if n_split > 1:  # scratch of K1's key chunks
+        o_part = torch.empty((n_split, b, lq, pd), device=q.device, dtype=torch.float32)
+        lse_part = torch.empty((n_split, b, n_heads, lq), device=q.device, dtype=torch.float32)
     fn = cuda_build.load("flash_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
-             seed.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk,
-             int(causal), band_window(causal, window), *_dropout_args(dropout_rate), stream)
+             seed.data_ptr(), o.data_ptr(), lse.data_ptr(), None if o_part is None else o_part.data_ptr(),
+             None if lse_part is None else lse_part.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk,
+             int(causal), band_window(causal, window), n_split, per, *_dropout_args(dropout_rate), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
     return o, lse
 
 
-def flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk):
-    """Launch K1 (non-causal). Returns (o bf16 [B, Lq, H*64], lse f32 [B, H, Lq])."""
-    out = _launch_fwd(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk, False, -1)
+def flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk, n_split=None):
+    """Launch K1 (non-causal): its key chunks and, for more than one, the
+    merge kernel. ``n_split`` chunks when given (chip_smoke.py times each
+    split), else ``fwd_splits``'s choice for the card. Returns (o bf16
+    [B, Lq, H*64], lse f32 [B, H, Lq])."""
+    out = _launch_fwd(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk, False, -1,
+                      n_split)
     flash_fwd_cuda.launches += 1
     return out
 
@@ -242,7 +309,9 @@ def attention_delta(do: torch.Tensor, o: torch.Tensor, n_heads: int) -> torch.Te
 
 
 def flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, dropout_rate, n_heads, mask_bq, mask_bk):
-    """Launch K2 (merged backward of a non-causal call). Returns (dq, dk, dv) bf16."""
+    """Launch K2 (merged backward of a non-causal call). Returns (dq, dk, dv)
+    bf16; dq is summed in float32 across key blocks by bulk reduce-adds
+    (not bitwise deterministic), dk and dv are written once."""
     _check_cuda_inputs(q, k, v, kv_len, kv_valid, seed, n_heads, mask_bq, mask_bk)
     b, lq, pd = q.shape
     lk = k.shape[1]
@@ -251,13 +320,15 @@ def flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, dropout_rate, n_
     do = do.to(torch.bfloat16).contiguous()
     delta = attention_delta(do, o, n_heads)
     _check_bwd_inputs(q, do, lse, delta, n_heads)
+    # K2 reads (lse * log2 e, delta) per query as pairs, 64 queries a bulk copy, zero past Lq
+    stats = torch.nn.functional.pad(torch.stack((lse * LOG2E, delta), -1), (0, 0, 0, _round_up(lq, KERNEL_TILE) - lq))
     dq_acc = torch.zeros((b, lq, pd), device=q.device, dtype=torch.float32)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     fn = cuda_build.load("flash_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
-             seed.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+             seed.data_ptr(), do.data_ptr(), stats.data_ptr(), dq_acc.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk,
              *_dropout_args(dropout_rate), stream)
     if err != 0:

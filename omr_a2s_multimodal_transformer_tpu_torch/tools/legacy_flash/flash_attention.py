@@ -12,11 +12,15 @@ kernels against; no model calls it.
 
 Two routes, chosen by where the tensors lie, never by a switch:
 
-- CUDA tensors launch L1 (``csrc/legacy_flash_fwd.cu``): bfloat16, any head
-  width D <= 128 (the kernel is built for 64 and 128 and zero-fills the
-  columns past D; a D that is not a multiple of 8 is zero-padded here).
-  There is no fallback: another dtype, a wider head, a non-contiguous or
-  misaligned tensor or mixed devices raise ``ValueError``.
+- CUDA tensors launch L1 (``csrc/legacy_flash_fwd.cu``, bf16 tensor cores)
+  for bfloat16 heads of width D <= 128 (the kernel is built for 64 and 128
+  and zero-fills the columns past D; a D that is not a multiple of 8 is
+  zero-padded here), and the any-dtype forward
+  (``csrc/legacy_flash_any_fwd.cu``, float32 on the CUDA cores) for
+  float16, float32, wider heads and misaligned rows, as the JAX kernels
+  take any float dtype and width. The wrappers raise ``ValueError`` for
+  another dtype, non-contiguous tensors or mixed devices;
+  ``flash_attention`` makes its inputs contiguous.
 - CPU tensors take ``flash_attention_plain``, dense masked softmax in
   float32.
 
@@ -41,7 +45,7 @@ from omr_a2s_multimodal_transformer_tpu_torch.ops import cuda_build
 from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import band_window
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # the widest head the CUDA kernels are built for
+MAX_HEAD_DIM = 128  # the widest head the bf16 tensor-core kernels are built for
 
 
 def visible_keys(lq: int, lk: int, kv_len: torch.Tensor, kv_valid: Optional[torch.Tensor], causal: bool,
@@ -96,26 +100,30 @@ def flash_attention_plain(q, k, v, kv_len=None, causal: bool = False, window: in
 # ------------------------------------------------------------------ kernels
 
 
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}  # the dtype codes of the any-dtype kernels
+
+
 def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"{name} lies on {t.device}, q on {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype} for the CUDA kernels, got {t.dtype}")
-    if not t.is_contiguous() or (dtype == torch.bfloat16 and t.data_ptr() % 16):
-        raise ValueError(f"{name} must be contiguous{' and 16-byte aligned' if dtype == torch.bfloat16 else ''}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def check_inputs(q, k, v, kv_len, kv_valid=None) -> None:
-    """What L1, L2a, L2b and L2c take: bf16 [B, H, L, D] CUDA tensors with
-    D <= 128, int32 kv_len [B], bool kv_valid [B, Lk], all on q's device."""
+    """What L1, L2a, L2b and L2c take: [B, H, L, D] CUDA tensors of one
+    float type (bfloat16, float16 or float32), any D, int32 kv_len [B], bool
+    kv_valid [B, Lk], all contiguous on q's device."""
     if q.device.type != "cuda":
         raise ValueError(f"the legacy flash kernels run on CUDA tensors, got {q.device}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the legacy flash kernels take bfloat16, float16 or float32, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_cuda(name, t, torch.bfloat16, q.device)
+        _check_cuda(name, t, q.dtype, q.device)
     if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} are not [B, H, L, D] alike")
-    if q.shape[3] > MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA kernels take heads of at most {MAX_HEAD_DIM}, got {q.shape[3]}")
     _check_cuda("kv_len", kv_len, torch.int32, q.device)
     if kv_len.shape != (q.shape[0],):
         raise ValueError(f"kv_len must be [B], got {tuple(kv_len.shape)}")
@@ -126,13 +134,22 @@ def check_inputs(q, k, v, kv_len, kv_valid=None) -> None:
 
 
 def check_backward_inputs(q, do, lse, delta) -> None:
-    _check_cuda("do", do, torch.bfloat16, q.device)
+    _check_cuda("do", do, q.dtype, q.device)
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
     for name, t in (("lse", lse), ("delta", delta)):
         _check_cuda(name, t, torch.float32, q.device)
         if t.shape != q.shape[:3]:
             raise ValueError(f"{name} must be [B, H, Lq], got {tuple(t.shape)}")
+
+
+def tensor_core_route(*tensors: torch.Tensor) -> bool:
+    """Whether the bf16 tensor-core kernels take these [B, H, L, D]
+    tensors (bf16, D <= 128, 16-byte aligned rows once the width is padded
+    to a multiple of 8); everything else goes to the any-dtype kernels."""
+    d = tensors[0].shape[-1]
+    return (tensors[0].dtype == torch.bfloat16 and d <= MAX_HEAD_DIM
+            and (d % 8 != 0 or all(t.data_ptr() % 16 == 0 for t in tensors)))
 
 
 def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
@@ -147,8 +164,9 @@ def unpad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def launch_fwd(q, k, v, kv_len, kv_valid, causal: bool, window: int, with_lse: bool):
-    """Run L1 (with_lse False, no kv_valid) or L2a on checked inputs.
-    Returns (o bf16 [B, H, Lq, D], lse f32 [B, H, Lq] or None)."""
+    """Run L1 (with_lse False, no kv_valid) or L2a on checked inputs that
+    ``tensor_core_route`` takes. Returns (o bf16 [B, H, Lq, D], lse f32
+    [B, H, Lq] or None)."""
     b, h, lq, d = q.shape
     qp, kp, vp = (pad_head_dim(t) for t in (q, k, v))
     o = torch.empty_like(qp)
@@ -164,9 +182,35 @@ def launch_fwd(q, k, v, kv_len, kv_valid, causal: bool, window: int, with_lse: b
     return unpad_head_dim(o, d), lse
 
 
+def legacy_any_fwd_cuda(q, k, v, kv_len, kv_valid, causal: bool, window: int, with_lse: bool):
+    """Launch the any-dtype forward (``csrc/legacy_flash_any_fwd.cu``): L1
+    (with_lse False; kv_valid ignored) or L2a for float16, float32, heads
+    wider than 128 or misaligned bf16 rows, on checked inputs. Returns (o in
+    q's dtype, lse f32 [B, H, Lq] or None)."""
+    b, h, lq, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32) if with_lse else None
+    fn = cuda_build.load("legacy_flash_any_fwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+             kv_valid.data_ptr() if with_lse else None, o.data_ptr(), None if lse is None else lse.data_ptr(),
+             KERNEL_DTYPES[q.dtype], b, h, lq, k.shape[2], d, int(causal), band_window(causal, window),
+             int(with_lse), 1.0 / d ** 0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"legacy_flash_any_fwd launch failed: cudaError {err}")
+    legacy_any_fwd_cuda.launches += 1
+    return o, lse
+
+
+legacy_any_fwd_cuda.launches = 0
+
+
 def legacy_fwd_cuda(q, k, v, kv_len, causal: bool = False, window: int = -1) -> torch.Tensor:
-    """Launch L1. Returns o (bf16 [B, H, Lq, D])."""
+    """Launch L1 (bf16, D <= 128) or, for what it does not take, the
+    any-dtype forward. Returns o ([B, H, Lq, D] in q's dtype)."""
     check_inputs(q, k, v, kv_len)
+    if not tensor_core_route(q, k, v):
+        return legacy_any_fwd_cuda(q, k, v, kv_len, None, causal, window, with_lse=False)[0]
     o, _ = launch_fwd(q, k, v, kv_len, None, causal, window, with_lse=False)
     legacy_fwd_cuda.launches += 1
     return o
@@ -189,4 +233,4 @@ def flash_attention(q, k, v, kv_len=None, causal: bool = False, window: int = -1
         return flash_attention_plain(q, k, v, kv_len, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, got {q.device}")
-    return legacy_fwd_cuda(q, k, v, kv_len, causal, window)
+    return legacy_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), kv_len, causal, window)

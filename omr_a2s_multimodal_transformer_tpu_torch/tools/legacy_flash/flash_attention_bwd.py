@@ -17,9 +17,12 @@ differentiated by autograd); CUDA tensors go through
 ``LegacyFlashAttention``, whose forward launches L2a
 (``csrc/legacy_flash_fwd.cu``) and whose backward launches L2b
 (``csrc/legacy_flash_dq.cu``) and then L2c (``csrc/legacy_flash_dkv.cu``).
-Both backward kernels write each row once: no atomics, deterministic. The
-kernels take what L1 takes (bf16, D <= 128, contiguous, one device) and
-raise on anything else.
+Both backward kernels write each row once: no atomics, deterministic. What
+the bf16 tensor-core kernels do not take (float16, float32, heads wider
+than 128, misaligned rows) goes to the any-dtype kernels
+(``csrc/legacy_flash_any_{fwd,dq,dkv}.cu``, float32 on the CUDA cores), as
+in L1; the wrappers raise for another dtype, non-contiguous tensors or
+mixed devices.
 """
 
 from __future__ import annotations
@@ -31,12 +34,17 @@ import torch
 from omr_a2s_multimodal_transformer_tpu_torch.ops import cuda_build
 from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import band_window
 from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash.flash_attention import (
-    attention_plain, check_backward_inputs, check_inputs, kv_len_tensor, launch_fwd, pad_head_dim, unpad_head_dim)
+    KERNEL_DTYPES, attention_plain, check_backward_inputs, check_inputs, kv_len_tensor, launch_fwd,
+    legacy_any_fwd_cuda, pad_head_dim, tensor_core_route, unpad_head_dim)
 
 
 def legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, causal: bool = False, window: int = -1):
-    """Launch L2a. Returns (o bf16 [B, H, Lq, D], lse f32 [B, H, Lq])."""
+    """Launch L2a (bf16, D <= 128) or, for what it does not take, the
+    any-dtype forward. Returns (o [B, H, Lq, D] in q's dtype, lse f32
+    [B, H, Lq])."""
     check_inputs(q, k, v, kv_len, kv_valid)
+    if not tensor_core_route(q, k, v):
+        return legacy_any_fwd_cuda(q, k, v, kv_len, kv_valid, causal, window, with_lse=True)
     out = launch_fwd(q, k, v, kv_len, kv_valid, causal, window, with_lse=True)
     legacy_fwd_lse_cuda.launches += 1
     return out
@@ -62,9 +70,51 @@ def _bwd_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window):
     return padded, ptrs, ints, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window):
+    b, h, lq, d = q.shape
+    ptrs = [t.data_ptr() for t in (q, k, v, kv_len, kv_valid, do, lse, delta)]
+    ints = [KERNEL_DTYPES[q.dtype], b, h, lq, k.shape[2], d, int(causal), band_window(causal, window)]
+    return ptrs, ints, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream
+
+
+def legacy_any_dq_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool = False, window: int = -1):
+    """Launch the any-dtype dq (``csrc/legacy_flash_any_dq.cu``) on checked
+    inputs: dq [B, H, Lq, D] in q's dtype. Deterministic."""
+    ptrs, ints, scale, stream = _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
+    dq = torch.empty_like(q)
+    err = cuda_build.load("legacy_flash_any_dq")(*ptrs, dq.data_ptr(), *ints, scale, stream)
+    if err != 0:
+        raise RuntimeError(f"legacy_flash_any_dq launch failed: cudaError {err}")
+    legacy_any_dq_cuda.launches += 1
+    return dq
+
+
+legacy_any_dq_cuda.launches = 0
+
+
+def legacy_any_dkv_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool = False, window: int = -1):
+    """Launch the any-dtype dk/dv (``csrc/legacy_flash_any_dkv.cu``) on
+    checked inputs: (dk, dv) [B, H, Lk, D] in q's dtype. Deterministic."""
+    ptrs, ints, scale, stream = _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = cuda_build.load("legacy_flash_any_dkv")(*ptrs, dk.data_ptr(), dv.data_ptr(), *ints, scale, stream)
+    if err != 0:
+        raise RuntimeError(f"legacy_flash_any_dkv launch failed: cudaError {err}")
+    legacy_any_dkv_cuda.launches += 1
+    return dk, dv
+
+
+legacy_any_dkv_cuda.launches = 0
+
+
 def legacy_dq_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool = False, window: int = -1):
-    """Launch L2b: dq (bf16 [B, H, Lq, D]) given L2a's lse and
+    """Launch L2b (bf16, D <= 128) or, for what it does not take, the
+    any-dtype dq: dq [B, H, Lq, D] in q's dtype, given L2a's lse and
     ``attention_delta``. Deterministic: each row is written once."""
+    if not tensor_core_route(q, k, v, do):
+        check_inputs(q, k, v, kv_len, kv_valid)
+        check_backward_inputs(q, do, lse, delta)
+        return legacy_any_dq_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
     padded, ptrs, ints, scale, stream = _bwd_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
     dq = torch.empty_like(padded[0])
     err = cuda_build.load("legacy_flash_dq")(*ptrs, dq.data_ptr(), *ints, scale, stream)
@@ -78,8 +128,13 @@ legacy_dq_cuda.launches = 0
 
 
 def legacy_dkv_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool = False, window: int = -1):
-    """Launch L2c: (dk, dv) (bf16 [B, H, Lk, D]) given L2a's lse and
-    ``attention_delta``. Deterministic: each row is written once."""
+    """Launch L2c (bf16, D <= 128) or, for what it does not take, the
+    any-dtype dk/dv: (dk, dv) [B, H, Lk, D] in q's dtype, given L2a's lse
+    and ``attention_delta``. Deterministic: each row is written once."""
+    if not tensor_core_route(q, k, v, do):
+        check_inputs(q, k, v, kv_len, kv_valid)
+        check_backward_inputs(q, do, lse, delta)
+        return legacy_any_dkv_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
     padded, ptrs, ints, scale, stream = _bwd_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
     dk, dv = torch.empty_like(padded[1]), torch.empty_like(padded[1])
     err = cuda_build.load("legacy_flash_dkv")(*ptrs, dk.data_ptr(), dv.data_ptr(), *ints, scale, stream)
@@ -108,7 +163,7 @@ class LegacyFlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, kv_len, kv_valid, o, lse = ctx.saved_tensors
-        do = do.to(torch.bfloat16).contiguous()
+        do = do.to(q.dtype).contiguous()
         args = (q, k, v, kv_len, kv_valid, do, lse, attention_delta(do, o), *ctx.band)
         dq = legacy_dq_cuda(*args)
         dk, dv = legacy_dkv_cuda(*args)
@@ -137,7 +192,8 @@ def make_flash_attention(causal: bool = False, window: int = -1, block_q: int = 
             return attention_plain(q, k, v, kv_len, kv_valid, causal, window)[0]
         if q.device.type != "cuda":
             raise ValueError(f"flash attention runs on CPU or CUDA tensors, got {q.device}")
-        return LegacyFlashAttention.apply(q, k, v, kv_len, kv_valid, causal, window)
+        return LegacyFlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), kv_len, kv_valid,
+                                          causal, window)
 
     return flash
 

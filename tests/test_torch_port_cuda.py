@@ -5,8 +5,12 @@ K4 (``export_keep_masks``), K5a/K5b (the fused stem block, against
 ``plain_k1``, ``plain_k2`` and ``reference_block``: 2e-2 x max |plain| in
 bf16, 1e-4 in float32 with TF32 off) and the per-head legacy flash L1,
 L2a, L2b and L2c (``tools/legacy_flash``, against ``attention_plain`` and
-its autograd, heads of 36 to 128; rows with no key must give o = 0 and
-lse = 0 in both).
+its autograd: bf16 heads of 36 to 128 on the tensor-core kernels; float32
+and float16 heads and heads of 192 on the any-dtype kernels, float32 to
+1e-4 x max |plain|; rows with no key must give o = 0 and lse = 0 in both).
+The K1/K2 cases include the edges of their Hopper design: lengths off the
+TMA box and the key chunks, a row whose only key is in the last chunk,
+grids smaller than the SM count, and dK/dV bit-equal across runs.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels are
 built with nvcc on first use) and skip elsewhere. They import nothing of
@@ -36,6 +40,17 @@ CASES = [
     dict(b=2, lq=150, lk=700, rate=0.0),
     dict(b=2, lq=150, lk=700, rate=0.1),
     dict(b=1, lq=70, lk=4200, rate=0.1),  # three 2048-key mask blocks, ragged tiles
+    # Lq and Lk off the 64-row TMA box, the 128-query block and the key chunks of K1's split
+    dict(b=1, lq=130, lk=2100, rate=0.0),
+    # batch row 1 sees one key, in the last of K1's key chunks (dropout 0: with one key, ds = p (dp -
+    # delta) cancels to rounding, and delta from the bf16-rounded o = v / (1 - rate) would dominate dq)
+    dict(b=2, lq=150, lk=700, rate=0.0, last_only=True),
+    # grids smaller than the SM count: one key tile (no split), and one tile per chunk
+    dict(b=2, lq=150, lk=60, rate=0.1),
+    dict(b=1, lq=64, lk=256, rate=0.0),
+    # dropout 0.3 at the decoder's 128/2048 mask geometry and at the factory's default 128/512
+    dict(b=2, lq=150, lk=700, rate=0.3),
+    dict(b=2, lq=150, lk=700, rate=0.3, block_k=512),
 ]
 
 
@@ -51,7 +66,7 @@ def _assert_close(name, got, ref):
     assert scale > 0 and err <= REL_TOL * scale, f"{name}: max_abs_err {err:.3e} > {REL_TOL} x max |plain| {scale:.3e}"
 
 
-def _inputs(b, lq, lk, dev, seed=0):
+def _inputs(b, lq, lk, dev, seed=0, last_only=False):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.normal(size=(b, n, H * 64)).astype(np.float32)).to(dev, torch.bfloat16)
                for n in (lq, lk, lk))
@@ -62,20 +77,32 @@ def _inputs(b, lq, lk, dev, seed=0):
         kv_valid[1, 5:40] = False
     kv_len = np.full((b,), lk, np.int32)
     kv_len[-1] = lk - 11
+    if last_only:  # the last row's one valid key: below its kv_len, in the last 64-key tile
+        kv_valid[-1] = False
+        kv_valid[-1, lk - 20] = True
     return q, k, v, w, torch.from_numpy(kv_len).to(dev), torch.from_numpy(kv_valid).to(dev)
 
 
+def _case_id(c):
+    extra = ("_last" if c.get("last_only") else "") + (f"_bk{c['block_k']}" if "block_k" in c else "")
+    return f"b{c['b']}_q{c['lq']}_k{c['lk']}_r{c['rate']}{extra}"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"b{c['b']}_q{c['lq']}_k{c['lk']}_r{c['rate']}")
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_flash_kernels_match_plain_on_gpu(case):
     dev = _cuda()
-    q, k, v, w, kv_len, kv_valid = _inputs(case["b"], case["lq"], case["lk"], dev)
+    q, k, v, w, kv_len, kv_valid = _inputs(case["b"], case["lq"], case["lk"], dev, last_only=case.get("last_only"))
     seed = torch.tensor([77], dtype=torch.int32, device=dev)
+    block_k = case.get("block_k", fp.MASK_BK)
+    bq, bk = fp.mask_geometry(case["lq"], case["lk"], fp.MASK_BQ, block_k)
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
     n1, n2 = fp.flash_fwd_cuda.launches, fp.flash_bwd_cuda.launches
-    o = fp.flash_attention_packed(*ins, kv_len, kv_valid, seed, dropout_rate=case["rate"], n_heads=H)
-    o_ref, lse_ref = fp.flash_attention_plain(*ref_ins, kv_len, kv_valid, seed, case["rate"], H)
+    flash = fp.make_flash_attention_packed(H, block_q=fp.MASK_BQ, block_k=block_k, dropout_rate=case["rate"])
+    o = flash(*ins, kv_len, kv_valid, seed)
+    o_ref, lse_ref = fp.flash_attention_plain(*ref_ins, kv_len, kv_valid, seed, case["rate"], H, block_q=bq,
+                                              block_k=bk)
     (o.float() * w).sum().backward()
     (o_ref.float() * w).sum().backward()
     torch.cuda.synchronize()
@@ -83,9 +110,23 @@ def test_flash_kernels_match_plain_on_gpu(case):
     _assert_close("o", o, o_ref)
     for name, a, r in zip(("dq", "dk", "dv"), ins, ref_ins):
         _assert_close(name, a.grad, r.grad)
-    bq, bk = fp.mask_geometry(case["lq"], case["lk"])
     _, lse = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, case["rate"], H, bq, bk)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.detach().cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_merged_backward_dk_dv_are_deterministic_on_gpu():
+    """K2 writes each dk and dv row once: two runs give the same bits (dq is
+    summed by bulk reduce-adds in an order that may change)."""
+    dev = _cuda()
+    q, k, v, _, kv_len, kv_valid = _inputs(2, 150, 700, dev)
+    do = torch.from_numpy(np.random.default_rng(4).normal(size=q.shape).astype(np.float32)).to(dev, torch.bfloat16)
+    seed = torch.tensor([3], dtype=torch.int32, device=dev)
+    bq, bk = fp.mask_geometry(150, 700)
+    o, lse = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, 0.1, H, bq, bk)
+    first = fp.flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, 0.1, H, bq, bk)
+    second = fp.flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, 0.1, H, bq, bk)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
 
 
 SPLIT_CASES = [
@@ -356,18 +397,26 @@ def test_fused_stem_tile_height_on_gpu(dtype):
 
 # ------------------------------------------- per-head legacy flash L1, L2a-c
 
-# head widths 36 (padded to 40 by the wrapper), 40 and 64 (the 64 template)
-# and 128; non-causal with Lq != Lk, full causal, and causal with window 30,
-# where the short kv_len (L1) or target (L2's kv_valid) leaves rows with no key
-LEGACY_CASES = [dict(d=d, causal=c, window=w) for d in (40, 64, 128) for c, w in ((False, -1), (True, -1), (True, 30))]
-LEGACY_CASES.append(dict(d=36, causal=True, window=30))
+# bf16 on the tensor-core kernels: head widths 36 (padded to 40 by the
+# wrapper), 40 and 64 (the 64 template) and 128; non-causal with Lq != Lk,
+# full causal, and causal with window 30, where the short kv_len (L1) or
+# target (L2's kv_valid) leaves rows with no key. On the any-dtype kernels:
+# float32 and float16 at D 64, bf16 and float32 at D 192, causal and windowed.
+LEGACY_CASES = [dict(d=d, causal=c, window=w, dtype=torch.bfloat16)
+                for d in (40, 64, 128) for c, w in ((False, -1), (True, -1), (True, 30))]
+LEGACY_CASES.append(dict(d=36, causal=True, window=30, dtype=torch.bfloat16))
+LEGACY_CASES += [dict(d=d, causal=True, window=w, dtype=dt)
+                 for d, dt in ((64, torch.float32), (64, torch.float16), (192, torch.bfloat16), (192, torch.float32))
+                 for w in (-1, 30)]
+LEGACY_TOL = {torch.bfloat16: REL_TOL, torch.float16: REL_TOL, torch.float32: 1e-4}  # x max |plain|
 
 
 def _legacy_inputs(case, dev, seed=2):
     rng = np.random.default_rng(seed)
     b, h, d = 2, 3, case["d"]
     lq, lk = (150, 150) if case["causal"] else (90, 200)
-    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    dtype = case.get("dtype", torch.bfloat16)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).to(dev, dtype)
                    for n in (lq, lk, lk, lq))
     kv_len = torch.tensor([lk, 100 if case["causal"] else lk - 23], dtype=torch.int32, device=dev)
     kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
@@ -376,32 +425,49 @@ def _legacy_inputs(case, dev, seed=2):
     return q, k, v, do, kv_len, kv_valid
 
 
+def _legacy_id(c):
+    dt = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}[c["dtype"]]
+    return f"d{c['d']}_c{int(c['causal'])}_w{c['window']}" + ("" if dt == "bf16" and c["d"] <= 128 else f"_{dt}")
+
+
+def _legacy_close(name, got, ref, dtype):
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    tol = LEGACY_TOL[dtype]
+    assert scale > 0 and err <= tol * scale, f"{name}: max_abs_err {err:.3e} > {tol} x max |plain| {scale:.3e}"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", LEGACY_CASES, ids=lambda c: f"d{c['d']}_c{int(c['causal'])}_w{c['window']}")
+@pytest.mark.parametrize("case", LEGACY_CASES, ids=_legacy_id)
 def test_legacy_flash_kernels_match_plain_on_gpu(case):
     from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention as l1
     from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention_bwd as l2
 
     dev = _cuda()
     q, k, v, do, kv_len, kv_valid = _legacy_inputs(case, dev)
+    dtype = case["dtype"]
     band = dict(causal=case["causal"], window=case["window"])
-    wrappers = (l1.legacy_fwd_cuda, l2.legacy_fwd_lse_cuda, l2.legacy_dq_cuda, l2.legacy_dkv_cuda)
+    wrappers = (l1.legacy_fwd_cuda, l2.legacy_fwd_lse_cuda, l2.legacy_dq_cuda, l2.legacy_dkv_cuda,
+                l1.legacy_any_fwd_cuda, l2.legacy_any_dq_cuda, l2.legacy_any_dkv_cuda)
     before = [f.launches for f in wrappers]
     o1 = l1.flash_attention(q, k, v, kv_len, **band)
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     o2 = l2.make_flash_attention(**band)(*ins, kv_len, kv_valid)
     o2.backward(do)
     torch.cuda.synchronize()
-    assert [f.launches - n for f, n in zip(wrappers, before)] == [1, 1, 1, 1]
+    tensor_cores = dtype == torch.bfloat16 and case["d"] <= 128
+    want = [1, 1, 1, 1, 0, 0, 0] if tensor_cores else [0, 0, 0, 0, 2, 1, 1]
+    assert [f.launches - n for f, n in zip(wrappers, before)] == want
+    assert o1.dtype == o2.dtype == ins[0].grad.dtype == dtype
 
     o1_ref, lse1_ref = l1.attention_plain(q, k, v, kv_len, None, **band)
-    _assert_close("L1 o", o1, o1_ref)
+    _legacy_close("L1 o", o1, o1_ref, dtype)
     ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
     o2_ref, lse_ref = l1.attention_plain(*ref_ins, kv_len, kv_valid, **band)
     o2_ref.backward(do)
-    _assert_close("L2a o", o2, o2_ref)
+    _legacy_close("L2a o", o2, o2_ref, dtype)
     for name, a, r in zip(("L2b dq", "L2c dk", "L2c dv"), ins, ref_ins):
-        _assert_close(name, a.grad, r.grad)
+        _legacy_close(name, a.grad, r.grad, dtype)
     _, lse = l2.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, **band)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.detach().cpu().numpy(), rtol=1e-4, atol=1e-4)
     # rows with no key to see: o = 0 and lse = 0 exactly, in the kernels as in the plain version
@@ -433,11 +499,10 @@ def test_legacy_wrappers_reject_what_the_kernels_do_not_take():
 
     dev = _cuda()
     q, k, v, do, kv_len, kv_valid = _legacy_inputs(dict(d=64, causal=False, window=-1), dev)
-    wide = torch.zeros((2, 3, 90, 136), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="bfloat16"):
-        l1.legacy_fwd_cuda(q.float(), k.float(), v.float(), kv_len)
-    with pytest.raises(ValueError, match="at most 128"):
-        l1.legacy_fwd_cuda(wide, wide, wide, kv_len)
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        l1.legacy_fwd_cuda(q.double(), k.double(), v.double(), kv_len)
+    with pytest.raises(ValueError, match="must be torch.float32"):
+        l1.legacy_fwd_cuda(q.float(), k, v.float(), kv_len)
     with pytest.raises(ValueError, match="contiguous"):
         l2.legacy_fwd_lse_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, kv_len, kv_valid)
     with pytest.raises(ValueError, match="lies on"):

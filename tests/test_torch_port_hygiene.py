@@ -111,8 +111,13 @@ def test_chip_smoke_tells_every_kernel_apart_in_a_trace():
     symbols = [entry[3] for entry in cs.KERNELS.values()]
     assert len(set(symbols)) == len(symbols)
     assert not [(a, b) for a in symbols for b in symbols if a != b and a in b]
-    names = {"void flash_fwd_kernel<false>(bf16 const*)": "K1 flash fwd",
-             "void flash_fwd_kernel<true>(bf16 const*)": "K1c flash fwd causal",
+    names = {"void flash_fwd_tma_kernel(CUtensorMap_st, CUtensorMap_st, int const*)": "K1 flash fwd",
+             "void flash_fwd_tma_merge_kernel(float const*, float const*)": "K1 flash fwd",
+             "void flash_fwd_causal_kernel(__nv_bfloat16 const*)": "K1c flash fwd causal",
+             "void flash_bwd_kernel(CUtensorMap_st, CUtensorMap_st)": "K2 flash bwd",
+             "void lfany_fwd_kernel<float, true>(float const*, int)": "LA legacy flash fwd, any dtype",
+             "void lfany_dq_kernel<__half>(__half const*)": "LA legacy flash dq, any dtype",
+             "void lfany_dkv_kernel<__nv_bfloat16>(__nv_bfloat16 const*)": "LA legacy flash dk/dv, any dtype",
              "void lf_fwd_kernel<64, false>(__nv_bfloat16 const*, int)": "L1 legacy flash fwd",
              "void lf_fwd_kernel<128, true>(__nv_bfloat16 const*, int)": "L1 legacy flash fwd",
              "void lf_fwd_lse_kernel<64, false>(__nv_bfloat16 const*, float*)": "L2a legacy flash fwd lse",

@@ -199,3 +199,72 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         tflash.flash_bwd_cuda(*args, args[0], lse, args[0], 0.0, H, 128, 128)
     assert tflash.flash_bwd_cuda.launches == 0
+
+
+def _merge_partials(o_parts, lse_parts, n_heads):
+    """What K1's merge kernel computes: partial (o_i [S, B, Lq, H*Dh] f32,
+    normalized over key chunk i, and lse_i [S, B, H, Lq]) to (o, lse) with
+    lse = log sum_i exp(lse_i) and o = sum_i exp(lse_i - lse) o_i."""
+    mx = lse_parts.max(0).values
+    w = torch.exp(lse_parts - mx)                                       # [S, B, H, Lq]
+    tot = w.sum(0)
+    s, b, lq, pd = o_parts.shape
+    wc = (w / tot).transpose(2, 3)[..., None].expand(s, b, lq, n_heads, pd // n_heads).reshape(s, b, lq, pd)
+    return (o_parts * wc).sum(0), mx + torch.log(tot)
+
+
+def _flash_plain_split(q, k, v, kv_len, kv_valid, seed, rate, n_heads, per_keys):
+    """K1 as it runs with split keys, in plain PyTorch: the non-causal
+    ``flash_attention_plain`` over chunks of ``per_keys`` keys (each with
+    the keys outside it masked), merged by lse. Returns (o f32, lse)."""
+    kpos = torch.arange(k.shape[1])
+    parts = []
+    for k0 in range(0, k.shape[1], per_keys):
+        chunk = kv_valid.bool() & (kpos >= k0) & (kpos < k0 + per_keys)
+        parts.append(tflash.flash_attention_plain(q.float(), k.float(), v.float(), kv_len, chunk, seed, rate,
+                                                  n_heads))
+    return _merge_partials(torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]), n_heads)
+
+
+@pytest.mark.parametrize("case", [dict(rate=0.0, per_keys=64), dict(rate=0.1, per_keys=64), dict(rate=0.1, per_keys=192)],
+                         ids=lambda c: f"r{c['rate']}_chunk{c['per_keys']}")
+def test_flash_plain_over_key_chunks_merged_by_lse_equals_unsplit(case):
+    """The plain version of K1 as it runs on the card with split keys: each
+    chunk's normalized o and lse (every key outside it masked), merged by
+    lse, equal the unsplit plain version to 1e-6 (float32), including a
+    row whose only valid key is in the last chunk and chunks a row sees
+    nothing of."""
+    q, k, v, _, kv_valid, kv_len = _flash_inputs(dict(b=2, lq=37, lk=300))
+    kv_len[:] = 300
+    kv_valid[1] = False
+    kv_valid[1, 290] = True  # row 1's only valid key, in the last chunk
+    args = (_t(q), _t(k), _t(v), _t(kv_len), _t(kv_valid), torch.tensor([5]))
+    o, lse = tflash.flash_attention_plain(*args, case["rate"], H)
+    o_s, lse_s = _flash_plain_split(*args, case["rate"], H, case["per_keys"])
+    np.testing.assert_allclose(o_s.numpy(), o.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(lse_s.numpy(), lse.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_fwd_splits_fill_the_card():
+    """K1's key split: 4 chunks of 50 tiles at the flagship cross shape on
+    132 SMs (896 blocks of 192 queries in 6.79 waves), none where there is
+    one key tile, and always chunks that cover the tiles exactly."""
+    assert tflash.fwd_splits(8, 4, 1268, 12696, 132) == (4, 50)
+    assert tflash.fwd_splits(2, 4, 150, 60, 132) == (1, 1)
+    for shape in [(1, 4, 70, 4200), (2, 4, 150, 700), (2, 4, 1280, 12696), (64, 8, 2048, 512)]:
+        n_split, per = tflash.fwd_splits(*shape, 132)
+        n_tiles = -(-shape[3] // 64)
+        assert 1 <= n_split <= tflash.MAX_FWD_SPLITS and (n_split - 1) * per < n_tiles <= n_split * per
+
+
+def test_given_split_covers_the_tiles_or_raises():
+    """A chunk count given to K1 (chip_smoke.py times 1-8 at the cross
+    shape's 199 key tiles) gives chunks that cover the tiles exactly; one
+    that would leave a chunk empty raises."""
+    for n_split in range(1, 9):
+        n, per = tflash._split_of(199, n_split)
+        assert n == n_split and (n_split - 1) * per < 199 <= n_split * per
+    assert tflash._split_of(10, 4) == (4, 3)  # chunks of 3, 3, 3, 1
+    for n_tiles, n_split in [(9, 4), (3, 4), (5, 0)]:  # 9 tiles in chunks of 3 are 3 chunks, not 4
+        with pytest.raises(ValueError):
+            tflash._split_of(n_tiles, n_split)
