@@ -33,6 +33,12 @@ Phases, each of which raises on failure (exit code 1):
        rows see no key and must give o = 0, lse = 0): L1, L2a, L2b, L2c
        against the plain version, with plain and SDPA times, beside the
        head-packed K1, K3a, K3b and K2 at dropout 0;
+     - the any-dtype legacy kernels (LA: float16, float32, heads over 128)
+       at B 2, H 4, 256 x 1,024: float32 D 64 and 192 to 1e-4 x max |plain|,
+       float16 D 64 and bf16 D 192 to 2e-2, with times of the float32 call;
+       then LA dq and LA dk/dv at the legacy cross shape in float32 D 64,
+       float16 D 64 and bf16 D 192, each against the plain version, with
+       its bound, plain time and SDPA's backward (event and device time);
   3. five paths, each with every kernel's launch count set to 0 just
      before it and read just after:
      - stem path: fused_packed_block forward and backward at the three
@@ -95,7 +101,9 @@ from omr_a2s_multimodal_transformer_tpu_torch.training.train_state import TrainS
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit.
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12  # float32 on the CUDA cores
+# float32 bounds: the cheapest tensor-core scheme whose float32 products meet ANY_TOL, bf16x3 (three bf16
+# passes; one TF32 pass fails it: probe_legacy_any.py)
+PEAK_F32_ACCURATE_FLOPS = PEAK_BF16_FLOPS / 3
 PEAK_BYTES = 3.35e12
 
 B, LQ, IMG_H, IMG_W = 8, 1268, 361, 4416
@@ -186,32 +194,42 @@ def time_ms(fn, reps=5, warmup=2):
 KERNEL_INFO = {}  # name -> the launch record of its longest device kernel in its last timing trace
 
 
-def kernel_times(name, fn, reps=10, per_launch=None, record=True):
-    """(device ms, call ms) of a kernel's wrapper fn: the device time of
-    one launch (its kernels' durations that a profiler trace of reps calls
-    recorded, over the launches they make up, KERNELS' count unless
-    per_launch is given; the tracer may miss one as it starts), and the
-    CUDA-event median of one call, which holds the wrapper's host work and
-    its other device work too (for a kernel of tens of microseconds, mostly
-    host). With record, the longest kernel's launch record as the trace
-    gives it (registers, shared memory, block and grid) goes to
-    KERNEL_INFO."""
+TRACE_TRIES = 3  # a profiler trace now and then records none of a call's kernels: trace again
+
+
+def traced_kernels(fn, reps, path):
+    """The kernel events of a profiler trace of reps calls of fn."""
     from torch.profiler import ProfilerActivity, profile
 
-    call = time_ms(fn)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    trace = OUT_DIR / "kernel_timing_trace.json"
-    prof.export_chrome_trace(str(trace))
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"] if e.get("cat") == "kernel"]
+
+
+def kernel_times(name, fn, reps=10, per_launch=None, record=True):
+    """(device ms, call ms) of a kernel's wrapper fn: the device time of
+    one launch (its kernels' durations that a profiler trace of reps calls
+    recorded, over the launches they make up, KERNELS' count unless
+    per_launch is given; the tracer may miss one as it starts, and a trace
+    that holds fewer than half of them is taken again, up to TRACE_TRIES
+    times), and the CUDA-event median of one call, which holds the
+    wrapper's host work and its other device work too (for a kernel of tens
+    of microseconds, mostly host). With record, the longest kernel's launch
+    record as the trace gives it (registers, shared memory, block and grid)
+    goes to KERNEL_INFO."""
+    call = time_ms(fn)
     _, _, _, symbol, n_kernels = KERNELS[name]
     per_launch = per_launch or n_kernels
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("cat") == "kernel" and symbol in e["name"]]
+    for _ in range(TRACE_TRIES):
+        events = [e for e in traced_kernels(fn, reps, OUT_DIR / "kernel_timing_trace.json") if symbol in e["name"]]
+        if reps // 2 * per_launch <= len(events) <= reps * per_launch:
+            break
+    else:
+        raise AssertionError(f"{name}: {len(events)} kernels named {symbol} in the trace of {reps} calls")
     durs = [e["dur"] for e in events]
-    if not reps // 2 * per_launch <= len(durs) <= reps * per_launch:
-        raise AssertionError(f"{name}: {len(durs)} kernels named {symbol} in the trace of {reps} calls")
     args = max(events, key=lambda e: e["dur"])["args"]
     if record and "registers per thread" in args:
         KERNEL_INFO[name] = dict(registers=args["registers per thread"], smem_bytes=args.get("shared memory"),
@@ -1028,17 +1046,115 @@ def any_inputs(dev, dtype, d=64, causal=False):
     return q, k, v, do, kv_valid.sum(1).to(torch.int32), kv_valid
 
 
+def any_work(b, h, lq, lk, d, n_keys, pairs, elem):
+    """(operations, bytes) of the any-dtype forward, dq and dk/dv for
+    `pairs` (head, query, key) triples that a query sees and `n_keys` valid
+    keys over the batch, at head width d and `elem` bytes an element: the
+    products of those pairs; q, o, do, dq once, k and v at the valid keys,
+    lse and delta (f32), and dk and dv written whole."""
+    qb, kvb, stats = b * h * lq * d * elem, n_keys * h * d * elem, b * h * lq * 4
+    return {"LA legacy flash fwd, any dtype": (4 * d * pairs, 2 * qb + 2 * kvb + stats),
+            "LA legacy flash dq, any dtype": (6 * d * pairs, 3 * qb + 2 * kvb + 2 * stats),
+            "LA legacy flash dk/dv, any dtype": (8 * d * pairs, 2 * qb + 2 * kvb + 2 * stats
+                                                 + 2 * b * h * lk * d * elem)}
+
+
+def device_ms(fn, reps=5):
+    """Device time of one call of fn: the durations of every device kernel
+    that a profiler trace of reps calls recorded, over reps (a library
+    call's own kernels, without its host work); a trace that recorded no
+    kernel is taken again, up to TRACE_TRIES times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(TRACE_TRIES):
+        events = traced_kernels(fn, reps, OUT_DIR / "library_timing_trace.json")
+        if events:
+            return sum(e["dur"] for e in events) / reps / 1e3
+    raise AssertionError(f"no device kernel in {TRACE_TRIES} traces of {reps} calls")
+
+
+# the any-dtype backward at the legacy cross shape (the images' kv_valid): the three cases it exists for
+ANY_CROSS = ((torch.float32, 64), (torch.float16, 64), (torch.bfloat16, 192))
+
+
+def any_cross(dev):
+    """LA dq and LA dk/dv at the legacy cross shape (B 8, H 4, Lq 1268, Lk
+    12,696, the images' kv_valid) in float32 D 64, float16 D 64 and bf16
+    D 192: each against the plain version (ANY_TOL in float32, KERNEL_TOL
+    else), device time with the launch record, bound (float32 at
+    PEAK_F32_ACCURATE_FLOPS, else the 16-bit tensor-core peak), plain time
+    and SDPA's backward with the same boolean mask (CUDA-event and device
+    time)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    kv_valid = memory_valid_from_hw(ragged_hw(B, dev), GRID_H, GRID_W).contiguous()
+    kv_len = torch.full((B,), LK, dtype=torch.int32, device=dev)
+    n_keys = int(kv_valid.sum())
+    pairs = HEADS * LQ * n_keys
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = kv_valid[:, None, None, :]
+    out = {name: {} for name in LEGACY_ANY[1:]}
+    for dtype, d in ANY_CROSS:
+        tag = f"{str(dtype)[6:]} D {d}"
+        tol = ANY_TOL if dtype == torch.float32 else KERNEL_TOL
+        peak = PEAK_F32_ACCURATE_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        q, k, v, do = (torch.randn((B, HEADS, n, d), generator=g, device=dev).to(dtype) for n in (LQ, LK, LK, LQ))
+        o, lse = fb.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid)
+        bargs = (q, k, v, kv_len, kv_valid, do, lse, fb.attention_delta(do, o), False, -1)
+        dq = fb.legacy_any_dq_cuda(*bargs)
+        dk, dv = fb.legacy_any_dkv_cuda(*bargs)
+        torch.cuda.synchronize()
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o_p, _ = fl.attention_plain(qr, kr, vr, kv_len, kv_valid)
+        grads_p = torch.autograd.grad(o_p, (qr, kr, vr), do, retain_graph=True)
+        log(f"[legacy any cross] B {B} H {HEADS} Lq {LQ} Lk {LK} {tag}, {n_keys} of {B * LK} keys valid")
+        errs = {"LA legacy flash dq, any dtype": check(f"LA dq ({tag})", max_err(dq, grads_p[0]),
+                                                       float(grads_p[0].abs().max()), tol),
+                "LA legacy flash dk/dv, any dtype": max(
+                    check(f"LA {n} ({tag})", max_err(a, r), float(r.abs().max()), tol)
+                    for n, a, r in (("dk", dk, grads_p[1]), ("dv", dv, grads_p[2])))}
+        del dq, dk, dv
+        plain_bwd = time_ms(lambda: torch.autograd.grad(o_p, (qr, kr, vr), do, retain_graph=True), reps=3, warmup=1)
+        del o_p, grads_p
+        o_s = sdpa(qr, kr, vr, attn_mask=mask)
+        sdpa_bwd = lambda: torch.autograd.grad(o_s, (qr, kr, vr), do, retain_graph=True)  # noqa: E731
+        lib_bwd, lib_dev = time_ms(sdpa_bwd), device_ms(sdpa_bwd)
+        lib_names = library_kernels(sdpa_bwd)
+        work = any_work(B, HEADS, LQ, LK, d, n_keys, pairs, q.element_size())
+        timed = {"LA legacy flash dq, any dtype": lambda: fb.legacy_any_dq_cuda(*bargs),
+                 "LA legacy flash dk/dv, any dtype": lambda: fb.legacy_any_dkv_cuda(*bargs)}
+        for name, fn in timed.items():
+            ms, call = kernel_times(name, fn)
+            ops, nbytes = work[name]
+            t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+            out[name][tag] = dict(max_abs_err=errs[name], ms=ms, call_ms=call, plain_ms=plain_bwd,
+                                  library_ms=lib_bwd, library_device_ms=lib_dev, library_kernels=lib_names,
+                                  bound_ms=max(t_ops, t_bytes) * 1e3,
+                                  bound_by="operations" if t_ops >= t_bytes else "bytes",
+                                  **KERNEL_INFO.pop(name, {}))
+        pair_ms = sum(out[name][tag]["ms"] for name in timed)
+        log(f"  dq {out[LEGACY_ANY[1]][tag]['ms']:.4f} ms (bound {out[LEGACY_ANY[1]][tag]['bound_ms']:.4f}), dk/dv "
+            f"{out[LEGACY_ANY[2]][tag]['ms']:.4f} ms (bound {out[LEGACY_ANY[2]][tag]['bound_ms']:.4f}), pair "
+            f"{pair_ms:.4f} ms; plain bwd {plain_bwd:.3f} ms; SDPA bwd {lib_bwd:.3f} ms (device {lib_dev:.4f} ms: "
+            f"{lib_names[:2]})")
+        del q, k, v, do, o, lse, bargs, qr, kr, vr, o_s, timed
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_legacy_any(dev):
     """The any-dtype legacy kernels (what the bf16 tensor-core kernels do
     not take) against the plain version: float32 at ANY_SHAPE, non-causal
-    and causal with window 100, within ANY_TOL x max |plain| (lse 1e-4);
-    float16 at D 64 and bf16 at D 192 within KERNEL_TOL; device, plain and
-    SDPA (float32, same boolean mask) times of the float32 non-causal call."""
+    and causal with window 100, and float32 at D 192, within ANY_TOL x max
+    |plain| (lse 1e-4); float16 at D 64 and bf16 at D 192 within
+    KERNEL_TOL; device, plain and SDPA (float32, same boolean mask) times of
+    the float32 non-causal call; then LA dq and dk/dv at the legacy cross
+    shape (any_cross)."""
     from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash.flash_attention_bwd import make_flash_attention
 
     errs = {name: 0.0 for name in LEGACY_ANY}
     for dtype, d, causal, tol in ((torch.float32, 64, False, ANY_TOL), (torch.float32, 64, True, ANY_TOL),
-                                  (torch.float16, 64, True, KERNEL_TOL), (torch.bfloat16, 192, False, KERNEL_TOL)):
+                                  (torch.float16, 64, True, KERNEL_TOL), (torch.bfloat16, 192, False, KERNEL_TOL),
+                                  (torch.float32, 192, False, ANY_TOL)):
         band = dict(causal=causal, window=WINDOW if causal else -1)
         q, k, v, do, kv_len1, kv_valid = any_inputs(dev, dtype, d, causal)
         kv_len2 = torch.full_like(kv_len1, k.shape[2])
@@ -1079,12 +1195,8 @@ def phase_legacy_any(dev):
                                                                                with_lse=True),
              "LA legacy flash dq, any dtype": lambda: fb.legacy_any_dq_cuda(*bargs),
              "LA legacy flash dk/dv, any dtype": lambda: fb.legacy_any_dkv_cuda(*bargs)}
-    pairs = h * lq * int(kv_valid.sum())
     n_keys = int(kv_valid.sum())
-    qb, kvb, stats = b * h * lq * d * 4, n_keys * h * d * 4, b * h * lq * 4
-    work = {"LA legacy flash fwd, any dtype": (4 * d * pairs, 2 * qb + 2 * kvb + stats),
-            "LA legacy flash dq, any dtype": (6 * d * pairs, 3 * qb + 2 * kvb + 2 * stats),
-            "LA legacy flash dk/dv, any dtype": (8 * d * pairs, 2 * qb + 2 * kvb + 2 * stats + 2 * b * h * lk * d * 4)}
+    work = any_work(b, h, lq, lk, d, n_keys, h * lq * n_keys, 4)
     qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
     o_p, _ = fl.attention_plain(qr, kr, vr, kv_len, kv_valid)
     plain_fwd = time_ms(lambda: fl.attention_plain(q, k, v, kv_len, kv_valid), reps=3, warmup=1)
@@ -1094,17 +1206,23 @@ def phase_legacy_any(dev):
     lib_fwd = time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
     o_s = sdpa(qr, kr, vr, attn_mask=mask)
     lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qr, kr, vr), do, retain_graph=True))
+    lib_bwd_dev = device_ms(lambda: torch.autograd.grad(o_s, (qr, kr, vr), do, retain_graph=True))
     out = {}
     for name, fn in timed.items():
         ms, call = kernel_times(name, fn)
         is_fwd = "fwd" in name
         out[name] = kernel_row(name, errs[name], ms, plain_fwd if is_fwd else plain_bwd, *work[name],
-                               lib_fwd if is_fwd else lib_bwd, peak=PEAK_F32_FLOPS, call_ms=call,
-                               shape="B 2, H 4, Lq 256, Lk 1024, D 64, float32")
+                               lib_fwd if is_fwd else lib_bwd, peak=PEAK_F32_ACCURATE_FLOPS,
+                               call_ms=call, shape="B 2, H 4, Lq 256, Lk 1024, D 64, float32",
+                               **({} if is_fwd else dict(library_device_ms=lib_bwd_dev)))
+        out[name].update(KERNEL_INFO.get(name, {}))  # the launch record at ANY_SHAPE; any_cross keeps its own
     log("  " + ", ".join(f"{n.split(',')[0]} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})" for n, r in out.items())
-        + f"; plain fwd {plain_fwd:.3f} / bwd {plain_bwd:.3f} ms; SDPA f32 fwd {lib_fwd:.3f} / bwd {lib_bwd:.3f} ms")
+        + f"; plain fwd {plain_fwd:.3f} / bwd {plain_bwd:.3f} ms; SDPA f32 fwd {lib_fwd:.3f} / bwd {lib_bwd:.3f} ms "
+        f"(device {lib_bwd_dev:.4f} ms)")
     del q, k, v, do, o, lse, bargs, qr, kr, vr, o_p, o_s
     torch.cuda.empty_cache()
+    for name, cases in any_cross(dev).items():
+        out[name]["cross"] = cases
     return out
 
 

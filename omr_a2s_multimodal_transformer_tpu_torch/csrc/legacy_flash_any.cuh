@@ -1,18 +1,19 @@
 // Shared pieces of the legacy flash kernels for any float type and head
-// width (legacy_flash_any_fwd.cu, legacy_flash_any_dq.cu,
-// legacy_flash_any_dkv.cu): the route of tools/legacy_flash that the bf16
+// width (legacy_flash_any_fwd.cu; the backward's dq and dk/dv add
+// legacy_flash_any_bwd.cuh): the route of tools/legacy_flash that the bf16
 // tensor-core templates (legacy_flash_*.cu, D <= 128) do not take, that is
-// float16, float32, and heads of any width.
+// float16, float32, and heads of any width. The element conversions and the
+// dtype dispatch serve all three.
 //
 // Layout as there: q/o/do [B, H, Lq, D], k/v/dk/dv [B, H, Lk, D] of one type
-// T (bf16, f16 or f32), contiguous; lse and delta [B, H, Lq] f32. One warp
-// owns one row (a query, or a key for dk/dv) and computes in float32 on the
-// CUDA cores: each lane scores one of 32 keys (or queries) at a time, then
-// the warp accumulates its D-wide output in shared memory, lane d owning
-// columns d, d + 32, ... So D is a runtime width: a warp keeps a few rows of
-// D floats in shared memory, and a block runs as many warps (up to 4) as
-// those fit. These kernels exist for completeness (no caller of the port
-// runs float32 or wide heads); they favour simplicity over speed.
+// T (bf16, f16 or f32), contiguous; lse and delta [B, H, Lq] f32. In the
+// forward one warp owns one query row and computes in float32 on the CUDA
+// cores: each lane scores one of 32 keys at a time, then the warp
+// accumulates its D-wide output in shared memory, lane d owning columns d,
+// d + 32, ... So D is a runtime width: a warp keeps a few rows of D floats
+// in shared memory, and a block runs as many warps (up to 4) as those fit.
+// No caller of the port runs float32 or wide heads; the forward favours
+// simplicity over speed.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -13,10 +13,18 @@ def build_model(hparams: Dict, device: DeviceLike = None, seed: int = 0) -> Tupl
     ``device`` defaults to ``cuda`` and raises when no GPU is present.
     Weights are random from ``seed``; ``training/jax_import.py`` loads a
     JAX param tree. Only unimodal models are ported.
+
+    ``conv_mode`` is accepted and read nowhere: it only picks the JAX
+    package's TPU layout of the same convolutions. ``remat=True`` and a set
+    ``memory_partition`` raise ``NotImplementedError``: neither is ported.
     """
     dev = resolve_device(device)
     if hparams["input_modality"] == "both":
         raise NotImplementedError("multimodal models are not ported yet")
+    if hparams.get("remat", False):
+        raise NotImplementedError("remat (rematerialized encoder and decoder blocks) is not ported yet")
+    if hparams.get("memory_partition") is not None:
+        raise NotImplementedError("memory_partition (sharded cross-attention memories) is not ported yet")
     set_float32_precision()
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

@@ -20,8 +20,9 @@ differentiated by autograd); CUDA tensors go through
 Both backward kernels write each row once: no atomics, deterministic. What
 the bf16 tensor-core kernels do not take (float16, float32, heads wider
 than 128, misaligned rows) goes to the any-dtype kernels
-(``csrc/legacy_flash_any_{fwd,dq,dkv}.cu``, float32 on the CUDA cores), as
-in L1; the wrappers raise for another dtype, non-contiguous tensors or
+(``csrc/legacy_flash_any_{fwd,dq,dkv}.cu``: the forward float32 on the CUDA
+cores, as in L1; dq and dk/dv on the tensor cores, float32 as three TF32
+passes); the wrappers raise for another dtype, non-contiguous tensors or
 mixed devices.
 """
 
@@ -70,38 +71,53 @@ def _bwd_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window):
     return padded, ptrs, ints, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _any_operands(q, k, v, do):
+    """q, k, v, do for the any-dtype backward, whose cp.async copies move 16
+    bytes: rows that are not a multiple of 16 bytes are zero-padded to a
+    multiple of 8 columns in fresh tensors (padded columns add 0 to every
+    product and are cut from the gradients), and an operand whose address
+    is not 16-byte aligned is copied."""
+    if q.shape[-1] * q.element_size() % 16:
+        return [pad_head_dim(t) for t in (q, k, v, do)]
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, do)]
+
+
 def _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window):
     b, h, lq, d = q.shape
-    ptrs = [t.data_ptr() for t in (q, k, v, kv_len, kv_valid, do, lse, delta)]
-    ints = [KERNEL_DTYPES[q.dtype], b, h, lq, k.shape[2], d, int(causal), band_window(causal, window)]
-    return ptrs, ints, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream
+    padded = _any_operands(q, k, v, do)  # the caller keeps them alive until the launch
+    qp, kp, vp, dop = padded
+    ptrs = [t.data_ptr() for t in (qp, kp, vp, kv_len, kv_valid, dop, lse, delta)]
+    ints = [KERNEL_DTYPES[q.dtype], b, h, lq, k.shape[2], qp.shape[3], int(causal), band_window(causal, window)]
+    return padded, ptrs, ints, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream
 
 
 def legacy_any_dq_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool = False, window: int = -1):
-    """Launch the any-dtype dq (``csrc/legacy_flash_any_dq.cu``) on checked
-    inputs: dq [B, H, Lq, D] in q's dtype. Deterministic."""
-    ptrs, ints, scale, stream = _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
-    dq = torch.empty_like(q)
+    """Launch the any-dtype dq (``csrc/legacy_flash_any_dq.cu``, tensor
+    cores) on checked inputs: dq [B, H, Lq, D] in q's dtype. Deterministic."""
+    padded, ptrs, ints, scale, stream = _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
+    dq = torch.empty_like(padded[0])
     err = cuda_build.load("legacy_flash_any_dq")(*ptrs, dq.data_ptr(), *ints, scale, stream)
     if err != 0:
         raise RuntimeError(f"legacy_flash_any_dq launch failed: cudaError {err}")
     legacy_any_dq_cuda.launches += 1
-    return dq
+    return unpad_head_dim(dq, q.shape[3])
 
 
 legacy_any_dq_cuda.launches = 0
 
 
 def legacy_any_dkv_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool = False, window: int = -1):
-    """Launch the any-dtype dk/dv (``csrc/legacy_flash_any_dkv.cu``) on
-    checked inputs: (dk, dv) [B, H, Lk, D] in q's dtype. Deterministic."""
-    ptrs, ints, scale, stream = _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    """Launch the any-dtype dk/dv (``csrc/legacy_flash_any_dkv.cu``, tensor
+    cores) on checked inputs: (dk, dv) [B, H, Lk, D] in q's dtype.
+    Deterministic."""
+    padded, ptrs, ints, scale, stream = _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
+    dk, dv = torch.empty_like(padded[1]), torch.empty_like(padded[1])
     err = cuda_build.load("legacy_flash_any_dkv")(*ptrs, dk.data_ptr(), dv.data_ptr(), *ints, scale, stream)
     if err != 0:
         raise RuntimeError(f"legacy_flash_any_dkv launch failed: cudaError {err}")
     legacy_any_dkv_cuda.launches += 1
-    return dk, dv
+    d = k.shape[3]
+    return unpad_head_dim(dk, d), unpad_head_dim(dv, d)
 
 
 legacy_any_dkv_cuda.launches = 0

@@ -6,8 +6,10 @@ K4 (``export_keep_masks``), K5a/K5b (the fused stem block, against
 bf16, 1e-4 in float32 with TF32 off) and the per-head legacy flash L1,
 L2a, L2b and L2c (``tools/legacy_flash``, against ``attention_plain`` and
 its autograd: bf16 heads of 36 to 128 on the tensor-core kernels; float32
-and float16 heads and heads of 192 on the any-dtype kernels, float32 to
-1e-4 x max |plain|; rows with no key must give o = 0 and lse = 0 in both).
+and float16 heads and heads of 192 and 256 on the any-dtype kernels, rows
+off 16-byte alignment and float16 rows of odd width among them, float32 to
+1e-4 x max |plain|; rows with no key must give o = 0 and lse = 0 in both;
+both backward routes bit-equal across two calls).
 The K1/K2 cases include the edges of their Hopper design: lengths off the
 TMA box and the key chunks, a row whose only key is in the last chunk,
 grids smaller than the SM count, and dK/dV bit-equal across runs.
@@ -401,13 +403,22 @@ def test_fused_stem_tile_height_on_gpu(dtype):
 # wrapper), 40 and 64 (the 64 template) and 128; non-causal with Lq != Lk,
 # full causal, and causal with window 30, where the short kv_len (L1) or
 # target (L2's kv_valid) leaves rows with no key. On the any-dtype kernels:
-# float32 and float16 at D 64, bf16 and float32 at D 192, causal and windowed.
+# float32 and float16 at D 64, bf16 and float32 at D 192, causal and windowed;
+# float32 at D 36 one element into its buffer (rows off 16-byte boundaries:
+# the backward's wrapper copies them) and at D 256 (four 64-column chunks);
+# float16 non-causal with Lq 90 != Lk 200, neither a multiple of 64, at D 64
+# and at D 37 (rows aligned to 2 bytes only: the wrapper pads them to 40
+# columns).
 LEGACY_CASES = [dict(d=d, causal=c, window=w, dtype=torch.bfloat16)
                 for d in (40, 64, 128) for c, w in ((False, -1), (True, -1), (True, 30))]
 LEGACY_CASES.append(dict(d=36, causal=True, window=30, dtype=torch.bfloat16))
 LEGACY_CASES += [dict(d=d, causal=True, window=w, dtype=dt)
                  for d, dt in ((64, torch.float32), (64, torch.float16), (192, torch.bfloat16), (192, torch.float32))
                  for w in (-1, 30)]
+LEGACY_CASES += [dict(d=36, causal=True, window=30, dtype=torch.float32, offset=True),
+                 dict(d=256, causal=True, window=30, dtype=torch.float32),
+                 dict(d=64, causal=False, window=-1, dtype=torch.float16),
+                 dict(d=37, causal=False, window=-1, dtype=torch.float16)]
 LEGACY_TOL = {torch.bfloat16: REL_TOL, torch.float16: REL_TOL, torch.float32: 1e-4}  # x max |plain|
 
 
@@ -427,7 +438,23 @@ def _legacy_inputs(case, dev, seed=2):
 
 def _legacy_id(c):
     dt = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}[c["dtype"]]
-    return f"d{c['d']}_c{int(c['causal'])}_w{c['window']}" + ("" if dt == "bf16" and c["d"] <= 128 else f"_{dt}")
+    return (f"d{c['d']}_c{int(c['causal'])}_w{c['window']}" + ("" if dt == "bf16" and c["d"] <= 128 else f"_{dt}")
+            + ("_offset" if c.get("offset") else ""))
+
+
+def _leaves(tensors, offset=False):
+    """(leaves, kernel inputs): fresh copies that take gradients; with
+    offset, the inputs are views one element into their leaf buffers, so
+    their rows start off 16-byte boundaries."""
+    if not offset:
+        leaves = [t.clone().requires_grad_() for t in tensors]
+        return leaves, leaves
+    leaves = [torch.cat([t.new_zeros(1), t.flatten()]).requires_grad_() for t in tensors]
+    return leaves, [b[1:].view(t.shape) for b, t in zip(leaves, tensors)]
+
+
+def _grads(leaves, tensors):
+    return [b.grad if b.shape == t.shape else b.grad[1:].view(t.shape) for b, t in zip(leaves, tensors)]
 
 
 def _legacy_close(name, got, ref, dtype):
@@ -451,14 +478,17 @@ def test_legacy_flash_kernels_match_plain_on_gpu(case):
                 l1.legacy_any_fwd_cuda, l2.legacy_any_dq_cuda, l2.legacy_any_dkv_cuda)
     before = [f.launches for f in wrappers]
     o1 = l1.flash_attention(q, k, v, kv_len, **band)
-    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    leaves, ins = _leaves((q, k, v), case.get("offset", False))
+    if case.get("offset"):
+        assert all(t.data_ptr() % 16 for t in ins)
     o2 = l2.make_flash_attention(**band)(*ins, kv_len, kv_valid)
     o2.backward(do)
     torch.cuda.synchronize()
     tensor_cores = dtype == torch.bfloat16 and case["d"] <= 128
     want = [1, 1, 1, 1, 0, 0, 0] if tensor_cores else [0, 0, 0, 0, 2, 1, 1]
     assert [f.launches - n for f, n in zip(wrappers, before)] == want
-    assert o1.dtype == o2.dtype == ins[0].grad.dtype == dtype
+    grads = _grads(leaves, (q, k, v))
+    assert o1.dtype == o2.dtype == grads[0].dtype == dtype
 
     o1_ref, lse1_ref = l1.attention_plain(q, k, v, kv_len, None, **band)
     _legacy_close("L1 o", o1, o1_ref, dtype)
@@ -466,8 +496,8 @@ def test_legacy_flash_kernels_match_plain_on_gpu(case):
     o2_ref, lse_ref = l1.attention_plain(*ref_ins, kv_len, kv_valid, **band)
     o2_ref.backward(do)
     _legacy_close("L2a o", o2, o2_ref, dtype)
-    for name, a, r in zip(("L2b dq", "L2c dk", "L2c dv"), ins, ref_ins):
-        _legacy_close(name, a.grad, r.grad, dtype)
+    for name, a, r in zip(("L2b dq", "L2c dk", "L2c dv"), grads, ref_ins):
+        _legacy_close(name, a, r.grad, dtype)
     _, lse = l2.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, **band)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.detach().cpu().numpy(), rtol=1e-4, atol=1e-4)
     # rows with no key to see: o = 0 and lse = 0 exactly, in the kernels as in the plain version
@@ -479,17 +509,30 @@ def test_legacy_flash_kernels_match_plain_on_gpu(case):
 
 
 @pytest.mark.cuda
-def test_legacy_backward_is_deterministic_on_gpu():
+@pytest.mark.parametrize("case", [dict(d=64, causal=True, window=30, dtype=torch.bfloat16),
+                                  dict(d=64, causal=False, window=-1, dtype=torch.float32),
+                                  dict(d=64, causal=False, window=-1, dtype=torch.float16),
+                                  dict(d=192, causal=False, window=-1, dtype=torch.float32)], ids=_legacy_id)
+def test_legacy_backward_is_deterministic_on_gpu(case):
+    """Both backward routes write each row once: two calls give bit-equal
+    dq, dk and dv (bf16 D 64 on the tensor-core kernels; float32, float16
+    and D 192, three 64-column chunks of the output, on the any-dtype
+    kernels)."""
     from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention_bwd as l2
 
     dev = _cuda()
-    q, k, v, do, kv_len, kv_valid = _legacy_inputs(dict(d=64, causal=True, window=30), dev)
-    o, lse = l2.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, True, 30)
-    args = (q, k, v, kv_len, kv_valid, do, lse, l2.attention_delta(do, o), True, 30)
+    q, k, v, do, kv_len, kv_valid = _legacy_inputs(case, dev)
+    band = (case["causal"], case["window"])
+    o, lse = l2.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, *band)
+    args = (q, k, v, kv_len, kv_valid, do, lse, l2.attention_delta(do, o), *band)
+    before = (l2.legacy_any_dq_cuda.launches, l2.legacy_any_dkv_cuda.launches)
     first = (l2.legacy_dq_cuda(*args), *l2.legacy_dkv_cuda(*args))
     second = (l2.legacy_dq_cuda(*args), *l2.legacy_dkv_cuda(*args))
+    any_route = not (case["dtype"] == torch.bfloat16 and case["d"] <= 128)
+    launched = (l2.legacy_any_dq_cuda.launches - before[0], l2.legacy_any_dkv_cuda.launches - before[1])
+    assert launched == ((2, 2) if any_route else (0, 0))
     for a, b in zip(first, second):
-        assert torch.equal(a, b)
+        assert torch.equal(a, b) and a.abs().max() > 0
 
 
 @pytest.mark.cuda

@@ -76,9 +76,13 @@ def test_unported_options_raise():
     from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
 
     base = dict(vocab_size=11, max_seq_len=4, input_modality="image")
-    for over in (dict(input_modality="both"), dict(cache_dtype="int8"), dict(cache_dtype="int4")):
+    for over in (dict(input_modality="both"), dict(cache_dtype="int8"), dict(cache_dtype="int4"), dict(remat=True),
+                 dict(memory_partition=("data", "model", None))):
         with pytest.raises(NotImplementedError):
             build_model({**base, **over}, device="cpu")
+    for mode in ("widened", "patched", "auto"):  # a TPU layout of the same convolutions: accepted, read nowhere
+        build_model({**base, "packed_stem": True, "conv_mode": mode, "remat": False, "memory_partition": None},
+                    device="cpu")
 
 
 def test_bench_flash_packed_defaults_to_cuda_and_runs_on_the_cpu():
@@ -129,3 +133,20 @@ def test_chip_smoke_tells_every_kernel_apart_in_a_trace():
     for name, (_, _, _, symbol, _) in cs.KERNELS.items():
         for demangled, kind in names.items():
             assert (symbol in demangled) == (kind == name), (symbol, demangled)
+
+
+def test_probe_legacy_any_changes_only_the_float32_split(tmp_path):
+    """probe_legacy_any.py imports no JAX, and each scheme it writes differs
+    from the port's LA backward in split_tf32 / mma_3xtf32 and nowhere
+    else."""
+    path = PORT_DIR.parent / "probe_legacy_any.py"
+    assert not {name.split(".")[0] for name in _imported_roots(path)} & set(FORBIDDEN)
+    spec = importlib.util.spec_from_file_location("probe_legacy_any", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    header = Path("csrc") / "legacy_flash_any_bwd.cuh"
+    own = (PORT_DIR / header).read_text()
+    rest = probe.MMA3.sub("", probe.SPLIT.sub("", own))
+    for name in probe.SCHEMES:
+        text = (probe.write_scheme(name, tmp_path) / probe.PORT / header).read_text()
+        assert text != own and probe.MMA3.sub("", probe.SPLIT.sub("", text)) == rest, name

@@ -17,7 +17,10 @@ mask p before its products, so a row with no key adds nothing.
 Tolerance: float32 at 1e-5 relative and absolute (the same float32
 formulas, the JAX kernel's online softmax against the dense softmax, in
 another summation order; the conftest sets JAX's matmuls to full float32);
-bf16 inputs at 3e-2 (outputs rounded to bf16 at other points).
+bf16 and float16 inputs at 3e-2 (outputs rounded at other points). Besides
+the bf16 and float32 heads of 40 to 128, a float16 head of 64 and a float32
+head of 192 are cases of their own: on the card both take the any-dtype
+kernels (float16 on its tensor-core path, D 192 in 64-column chunks).
 """
 
 import importlib.util
@@ -45,7 +48,8 @@ def _load(name):
 jl1 = _load("flash_attention")
 jl2 = _load("flash_attention_bwd")
 
-TOL = {np.float32: dict(rtol=1e-5, atol=1e-5), jnp.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+TOL = {np.float32: dict(rtol=1e-5, atol=1e-5), jnp.bfloat16: dict(rtol=3e-2, atol=3e-2),
+       np.float16: dict(rtol=3e-2, atol=3e-2)}
 
 CASES = {
     # non-causal, Lq != Lk, ragged kv_len; L2 adds non-prefix kv_valid holes (the concat mixer's fused memories)
@@ -58,12 +62,19 @@ CASES = {
     # windowed with holes: a short target as kv_valid, so the last rows of batch 0 see no key
     "window20_holes_d128": dict(b=2, h=1, lq=130, lk=130, d=128, causal=True, window=20, kv_len=(130, 130),
                                 holes=((0, 60, 130), (1, 5, 9))),
+    # float16 inputs (float32 softmax and products in both, outputs rounded to float16)
+    "cross_ragged_f16_d64": dict(b=2, h=2, lq=70, lk=200, d=64, causal=False, window=-1, kv_len=(200, 137),
+                                 holes=((0, 10, 50), (1, 90, 120)), dtype=np.float16),
+    # a head wider than 128 (JAX pads it to 256 lanes), windowed, with a short target
+    "window30_holes_d192": dict(b=2, h=1, lq=100, lk=100, d=192, causal=True, window=30, kv_len=(100, 100),
+                                holes=((1, 70, 100),)),
 }
 # two JAX block geometries per case (the L1 defaults, and 128/128): the function must not depend on them
 BLOCKS = {"blocks_default": None, "blocks_128": (128, 128)}
 
 
-def _inputs(case, dtype=np.float32, seed=0):
+def _inputs(case, dtype=None, seed=0):
+    dtype = dtype or case.get("dtype", np.float32)
     rng = np.random.default_rng(seed)
     b, h, lq, lk, d = case["b"], case["h"], case["lq"], case["lk"], case["d"]
     q, w = (rng.normal(size=(b, h, lq, d)).astype(dtype) for _ in range(2))
@@ -104,8 +115,10 @@ def test_l1_plain_matches_jax_interpret(name, blocks):
     kw = dict(causal=case["causal"], window=case["window"], **_block_kw(blocks))
     oj = np.asarray(jl1.flash_attention(q, k, v, jnp.asarray(kv_len), interpret=True, **kw))
     ot = tl1.flash_attention(*_torch(q, k, v, kv_len), **kw).numpy()
-    assert ot.shape == oj.shape and ot.dtype == np.float32
-    np.testing.assert_allclose(ot.transpose(0, 2, 1, 3)[rows], oj.transpose(0, 2, 1, 3)[rows], **TOL[np.float32])
+    dtype = case.get("dtype", np.float32)
+    assert ot.shape == oj.shape and ot.dtype == dtype
+    ot, oj = ot.astype(np.float32), oj.astype(np.float32)
+    np.testing.assert_allclose(ot.transpose(0, 2, 1, 3)[rows], oj.transpose(0, 2, 1, 3)[rows], **TOL[dtype])
     assert not ot.transpose(0, 2, 1, 3)[~rows].any(), "a row with no key to see must give o = 0"
 
 
@@ -130,13 +143,16 @@ def test_l2_plain_matches_jax_interpret_forward_lse_and_grads(name, blocks):
     o_plain, lse_t = tl1.attention_plain(qt, kt, vt, lent, validt, case["causal"], case["window"])
     np.testing.assert_array_equal(ot.detach().numpy(), o_plain.detach().numpy())
 
-    o_rows = ot.detach().numpy().transpose(0, 2, 1, 3)
+    dtype = case.get("dtype", np.float32)
+    tol = TOL[dtype]
+    assert ot.dtype == qt.grad.dtype == torch.from_numpy(q).dtype
+    o_rows = ot.detach().float().numpy().transpose(0, 2, 1, 3)
     lse_t = lse_t.detach().numpy().transpose(0, 2, 1)
-    np.testing.assert_allclose(o_rows[rows], np.asarray(oj).transpose(0, 2, 1, 3)[rows], **TOL[np.float32])
-    np.testing.assert_allclose(lse_t[rows], lse_j.transpose(0, 2, 1)[rows], **TOL[np.float32], err_msg="lse")
+    np.testing.assert_allclose(o_rows[rows], np.asarray(oj, np.float32).transpose(0, 2, 1, 3)[rows], **tol)
+    np.testing.assert_allclose(lse_t[rows], lse_j.astype(np.float32).transpose(0, 2, 1)[rows], **tol, err_msg="lse")
     assert not o_rows[~rows].any() and not lse_t[~rows].any(), "a row with no key must give o = 0, lse = 0"
     for label, got, ref in (("dq", qt, gj[0]), ("dk", kt, gj[1]), ("dv", vt, gj[2])):
-        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref), **TOL[np.float32], err_msg=label)
+        np.testing.assert_allclose(got.grad.float().numpy(), np.asarray(ref, np.float32), **tol, err_msg=label)
 
 
 def test_l2_plain_matches_jax_interpret_in_bf16():
