@@ -35,10 +35,11 @@ Phases, each of which raises on failure (exit code 1):
        head-packed K1, K3a, K3b and K2 at dropout 0;
      - the any-dtype legacy kernels (LA: float16, float32, heads over 128)
        at B 2, H 4, 256 x 1,024: float32 D 64 and 192 to 1e-4 x max |plain|,
-       float16 D 64 and bf16 D 192 to 2e-2, with times of the float32 call;
-       then LA dq and LA dk/dv at the legacy cross shape in float32 D 64,
-       float16 D 64 and bf16 D 192, each against the plain version, with
-       its bound, plain time and SDPA's backward (event and device time);
+       float16 D 64 and bf16 D 192 to 2e-2 (lse 1e-4), with times of the
+       float32 call; then LA fwd (L1's o, L2a's o and lse), LA dq and LA
+       dk/dv at the legacy cross shape in float32 D 64, float16 D 64 and
+       bf16 D 192, each against the plain version, with its bound, plain
+       time and SDPA's forward or backward (event and device time);
   3. five paths, each with every kernel's launch count set to 0 just
      before it and read just after:
      - stem path: fused_packed_block forward and backward at the three
@@ -154,6 +155,7 @@ KERNELS = {
 LEGACY_BF16 = ("L1 legacy flash fwd", "L2a legacy flash fwd lse", "L2b legacy flash dq", "L2c legacy flash dk/dv")
 LEGACY_ANY = ("LA legacy flash fwd, any dtype", "LA legacy flash dq, any dtype", "LA legacy flash dk/dv, any dtype")
 ANY_TOL = 1e-4  # float32 any-dtype kernels: max |kernel - plain| <= ANY_TOL * max |plain| (f32 sums, other order)
+ANY_LSE_TOL = 1e-4  # LA's lse: f32 scores of the same inputs, l from unrounded p
 LEGACY_ITERS = 2  # timed calls of each forward + backward in the legacy path's bench run
 # the fused stem block at b8 and the flagship width: (f_in, f_out, stride, ci, co, H, Wp) of
 # tools/bench_fused_block.py:24-29 (blocks 0-2 of the packed stem on 361x4416 images)
@@ -292,10 +294,10 @@ def check_vs(name, got, ref):
     return check(name, max_err(got, ref), float(ref.detach().float().abs().max()), KERNEL_TOL)
 
 
-def check_lse(name, got, ref):
+def check_lse(name, got, ref, tol=LSE_TOL):
     err = max_err(got, ref)
-    log(f"  {name}: max_abs_err {err:.3e} (tolerance {LSE_TOL:g}) {'ok' if err <= LSE_TOL else 'FAIL'}")
-    if err > LSE_TOL:
+    log(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:g}) {'ok' if err <= tol else 'FAIL'}")
+    if err > tol:
         raise AssertionError(f"{name} disagrees with its plain version")
     return err
 
@@ -1073,18 +1075,54 @@ def device_ms(fn, reps=5):
     raise AssertionError(f"no device kernel in {TRACE_TRIES} traces of {reps} calls")
 
 
-# the any-dtype backward at the legacy cross shape (the images' kv_valid): the three cases it exists for
+# the any-dtype kernels at the legacy cross shape (the images' kv_valid): the three cases they exist for
 ANY_CROSS = ((torch.float32, 64), (torch.float16, 64), (torch.bfloat16, 192))
 
 
+def any_cross_fwd(q, k, v, kv_valid, tag, tol, peak, work):
+    """LA fwd at the legacy cross shape on q, k, v: L2a's o and lse (the
+    images' kv_valid) and L1's o (kv_len = each row's count of valid keys)
+    against the plain version, then its device time with the launch record
+    (the L2a call), bound, plain time and SDPA's forward with the same
+    boolean mask (CUDA-event and device time)."""
+    name = LEGACY_ANY[0]
+    kv_len = torch.full((B,), LK, dtype=torch.int32, device=q.device)
+    kv_len1 = kv_valid.sum(1).to(torch.int32)
+    o2, lse2 = fb.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid)
+    o2_p, lse2_p = fl.attention_plain(q, k, v, kv_len, kv_valid)
+    err = max(check(f"LA L2a o ({tag})", max_err(o2, o2_p), float(o2_p.float().abs().max()), tol),
+              check_lse(f"LA L2a lse ({tag})", lse2, lse2_p, ANY_LSE_TOL))
+    del o2, o2_p, lse2, lse2_p
+    o1 = fl.legacy_fwd_cuda(q, k, v, kv_len1)
+    o1_p = fl.flash_attention_plain(q, k, v, kv_len1)
+    err = max(err, check(f"LA L1 o ({tag})", max_err(o1, o1_p), float(o1_p.float().abs().max()), tol))
+    del o1, o1_p
+    torch.cuda.empty_cache()
+    plain = time_ms(lambda: fl.attention_plain(q, k, v, kv_len, kv_valid), reps=3, warmup=1)
+    sdpa_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=kv_valid[:, None, None, :])
+    lib, lib_dev = time_ms(sdpa_fwd), device_ms(sdpa_fwd)
+    lib_names = library_kernels(sdpa_fwd)
+    ms, call = kernel_times(name, lambda: fl.legacy_any_fwd_cuda(q, k, v, kv_len, kv_valid, False, -1,
+                                                                 with_lse=True))
+    ops, nbytes = work[name]
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    row = dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+               library_kernels=lib_names, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes", **KERNEL_INFO.pop(name, {}))
+    log(f"  fwd {ms:.4f} ms (bound {row['bound_ms']:.4f}); plain fwd {plain:.3f} ms; SDPA fwd {lib:.3f} ms "
+        f"(device {lib_dev:.4f} ms: {lib_names[:2]})")
+    return row
+
+
 def any_cross(dev):
-    """LA dq and LA dk/dv at the legacy cross shape (B 8, H 4, Lq 1268, Lk
-    12,696, the images' kv_valid) in float32 D 64, float16 D 64 and bf16
-    D 192: each against the plain version (ANY_TOL in float32, KERNEL_TOL
-    else), device time with the launch record, bound (float32 at
-    PEAK_F32_ACCURATE_FLOPS, else the 16-bit tensor-core peak), plain time
-    and SDPA's backward with the same boolean mask (CUDA-event and device
-    time)."""
+    """LA fwd (any_cross_fwd), LA dq and LA dk/dv at the legacy cross shape
+    (B 8, H 4, Lq 1268, Lk 12,696, the images' kv_valid) in float32 D 64,
+    float16 D 64 and bf16 D 192: each against the plain version (ANY_TOL in
+    float32, KERNEL_TOL else), device time with the launch record, bound
+    (float32 at PEAK_F32_ACCURATE_FLOPS, else the 16-bit tensor-core peak),
+    plain time and SDPA's forward or backward with the same boolean mask
+    (CUDA-event and device time)."""
     g = torch.Generator(device=dev).manual_seed(9)
     kv_valid = memory_valid_from_hw(ragged_hw(B, dev), GRID_H, GRID_W).contiguous()
     kv_len = torch.full((B,), LK, dtype=torch.int32, device=dev)
@@ -1092,12 +1130,15 @@ def any_cross(dev):
     pairs = HEADS * LQ * n_keys
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = kv_valid[:, None, None, :]
-    out = {name: {} for name in LEGACY_ANY[1:]}
+    out = {name: {} for name in LEGACY_ANY}
     for dtype, d in ANY_CROSS:
         tag = f"{str(dtype)[6:]} D {d}"
         tol = ANY_TOL if dtype == torch.float32 else KERNEL_TOL
         peak = PEAK_F32_ACCURATE_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
         q, k, v, do = (torch.randn((B, HEADS, n, d), generator=g, device=dev).to(dtype) for n in (LQ, LK, LK, LQ))
+        work = any_work(B, HEADS, LQ, LK, d, n_keys, pairs, q.element_size())
+        log(f"[legacy any cross] B {B} H {HEADS} Lq {LQ} Lk {LK} {tag}, {n_keys} of {B * LK} keys valid")
+        out[LEGACY_ANY[0]][tag] = any_cross_fwd(q, k, v, kv_valid, tag, tol, peak, work)
         o, lse = fb.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid)
         bargs = (q, k, v, kv_len, kv_valid, do, lse, fb.attention_delta(do, o), False, -1)
         dq = fb.legacy_any_dq_cuda(*bargs)
@@ -1106,7 +1147,6 @@ def any_cross(dev):
         qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
         o_p, _ = fl.attention_plain(qr, kr, vr, kv_len, kv_valid)
         grads_p = torch.autograd.grad(o_p, (qr, kr, vr), do, retain_graph=True)
-        log(f"[legacy any cross] B {B} H {HEADS} Lq {LQ} Lk {LK} {tag}, {n_keys} of {B * LK} keys valid")
         errs = {"LA legacy flash dq, any dtype": check(f"LA dq ({tag})", max_err(dq, grads_p[0]),
                                                        float(grads_p[0].abs().max()), tol),
                 "LA legacy flash dk/dv, any dtype": max(
@@ -1119,7 +1159,6 @@ def any_cross(dev):
         sdpa_bwd = lambda: torch.autograd.grad(o_s, (qr, kr, vr), do, retain_graph=True)  # noqa: E731
         lib_bwd, lib_dev = time_ms(sdpa_bwd), device_ms(sdpa_bwd)
         lib_names = library_kernels(sdpa_bwd)
-        work = any_work(B, HEADS, LQ, LK, d, n_keys, pairs, q.element_size())
         timed = {"LA legacy flash dq, any dtype": lambda: fb.legacy_any_dq_cuda(*bargs),
                  "LA legacy flash dk/dv, any dtype": lambda: fb.legacy_any_dkv_cuda(*bargs)}
         for name, fn in timed.items():
@@ -1145,10 +1184,10 @@ def phase_legacy_any(dev):
     """The any-dtype legacy kernels (what the bf16 tensor-core kernels do
     not take) against the plain version: float32 at ANY_SHAPE, non-causal
     and causal with window 100, and float32 at D 192, within ANY_TOL x max
-    |plain| (lse 1e-4); float16 at D 64 and bf16 at D 192 within
-    KERNEL_TOL; device, plain and SDPA (float32, same boolean mask) times of
-    the float32 non-causal call; then LA dq and dk/dv at the legacy cross
-    shape (any_cross)."""
+    |plain|; float16 at D 64 and bf16 at D 192 within KERNEL_TOL; lse
+    within ANY_LSE_TOL; device, plain and SDPA (float32, same boolean mask;
+    event and device time) times of the float32 non-causal call; then LA
+    fwd, dq and dk/dv at the legacy cross shape (any_cross)."""
     from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash.flash_attention_bwd import make_flash_attention
 
     errs = {name: 0.0 for name in LEGACY_ANY}
@@ -1176,7 +1215,7 @@ def phase_legacy_any(dev):
         o1_p = fl.flash_attention_plain(q, k, v, kv_len1, **band)
         e_fwd = max(check(f"LA L1 o ({tag})", max_err(o1, o1_p), float(o1_p.float().abs().max()), tol),
                     check(f"LA L2a o ({tag})", max_err(o2, o2_p), float(o2_p.detach().float().abs().max()), tol),
-                    check_lse(f"LA L2a lse ({tag})", lse2, lse2_p))
+                    check_lse(f"LA L2a lse ({tag})", lse2, lse2_p, ANY_LSE_TOL))
         e_dq = check(f"LA dq ({tag})", max_err(ins[0].grad, refs[0].grad), float(refs[0].grad.abs().max()), tol)
         e_dkv = max(check(f"LA {n_} ({tag})", max_err(a.grad, r.grad), float(r.grad.abs().max()), tol)
                     for n_, a, r in (("dk", ins[1], refs[1]), ("dv", ins[2], refs[2])))
@@ -1204,6 +1243,7 @@ def phase_legacy_any(dev):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = kv_valid[:, None, None, :]
     lib_fwd = time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+    lib_fwd_dev = device_ms(lambda: sdpa(q, k, v, attn_mask=mask))
     o_s = sdpa(qr, kr, vr, attn_mask=mask)
     lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qr, kr, vr), do, retain_graph=True))
     lib_bwd_dev = device_ms(lambda: torch.autograd.grad(o_s, (qr, kr, vr), do, retain_graph=True))
@@ -1214,11 +1254,11 @@ def phase_legacy_any(dev):
         out[name] = kernel_row(name, errs[name], ms, plain_fwd if is_fwd else plain_bwd, *work[name],
                                lib_fwd if is_fwd else lib_bwd, peak=PEAK_F32_ACCURATE_FLOPS,
                                call_ms=call, shape="B 2, H 4, Lq 256, Lk 1024, D 64, float32",
-                               **({} if is_fwd else dict(library_device_ms=lib_bwd_dev)))
+                               library_device_ms=lib_fwd_dev if is_fwd else lib_bwd_dev)
         out[name].update(KERNEL_INFO.get(name, {}))  # the launch record at ANY_SHAPE; any_cross keeps its own
     log("  " + ", ".join(f"{n.split(',')[0]} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})" for n, r in out.items())
         + f"; plain fwd {plain_fwd:.3f} / bwd {plain_bwd:.3f} ms; SDPA f32 fwd {lib_fwd:.3f} / bwd {lib_bwd:.3f} ms "
-        f"(device {lib_bwd_dev:.4f} ms)")
+        f"(device {lib_fwd_dev:.4f} / {lib_bwd_dev:.4f} ms)")
     del q, k, v, do, o, lse, bargs, qr, kr, vr, o_p, o_s
     torch.cuda.empty_cache()
     for name, cases in any_cross(dev).items():

@@ -1,29 +1,27 @@
-// Shared pieces of the any-dtype legacy flash backward on the tensor cores
-// (legacy_flash_any_dq.cu: dq; legacy_flash_any_dkv.cu: dk and dv): the
-// route of tools/legacy_flash that the bf16 templates (legacy_flash_dq.cu,
-// legacy_flash_dkv.cu: bf16, D <= 128, 16-byte rows) do not take, that is
-// float16, float32, heads of any width and rows that are not 16-byte
-// aligned.
+// The tensor-core pieces of the any-dtype legacy flash kernels
+// (legacy_flash_any_fwd.cu: L1 / L2a; legacy_flash_any_dq.cu: dq;
+// legacy_flash_any_dkv.cu: dk and dv; the header is named for the backward,
+// which it served first): the route of tools/legacy_flash that the bf16
+// templates (legacy_flash_{fwd,dq,dkv}.cu: bf16, D <= 128, 16-byte rows) do
+// not take, that is float16, float32, heads of any width and rows that are
+// not 16-byte aligned.
 //
-// Layout as there: q/do/dq [B, H, Lq, D] and k/v/dk/dv [B, H, Lk, D] of one
+// Layout as there: q/o/do/dq [B, H, Lq, D] and k/v/dk/dv [B, H, Lk, D] of one
 // type T (bf16, f16 or f32), contiguous; lse and delta [B, H, Lq] f32. D is a
-// runtime width. A block owns a 64-row tile (queries for dq, keys for dk/dv)
-// and walks the 64-row tiles of the other side; every tile reaches shared
-// memory in chunks of 64 columns (CW), by cp.async copies of 16 bytes (the
-// wrapper pads or copies operands whose rows or addresses are not 16-byte
-// aligned). Columns past D and rows past the end are zero-filled, so they
-// add 0 to every product. A head of up to
-// 64 columns is one chunk (RESIDENT): the block's own tile stays resident
-// and the other side's tiles stream through two slots. A wider head streams
-// every operand chunk by chunk (scores accumulate over the chunks) and the
-// grid takes one 64-column chunk of the output per block, so a block
-// recomputes the scores once for each output chunk: the register file holds
-// one chunk's accumulators.
+// runtime width. A block owns a 64-row tile (queries for the forward and dq,
+// keys for dk/dv) and walks the 64-row tiles of the other side; every tile
+// reaches shared memory in chunks of 64 columns (CW), by cp.async copies of
+// 16 bytes (the wrappers pad or copy operands whose rows or addresses are
+// not 16-byte aligned). Columns past D and rows past the end are
+// zero-filled, so they add 0 to every product. How many chunks a block
+// keeps resident, and how the grid splits a wide output into 64-column
+// chunks (recomputing the scores for each), is each kernel's choice: the
+// register file holds a few chunks' accumulators.
 //
 // Products (each warp owns 16 rows of the block's tile; 16 x 64 scores):
 // - bf16, f16: mma.sync m16n8k16 with f32 accumulation, fragments by
 //   ldmatrix from rows of 72 elements (the bf16 templates' layout). p and
-//   ds are rounded to T before their products, as L2b/L2c round to bf16.
+//   ds are rounded to T before their products, as L2a-L2c round to bf16.
 // - f32: three TF32 passes of mma.sync m16n8k8 (a = big + small, a b =
 //   big big + big small + small big, as PyTorch's memory-efficient
 //   attention does for float32, with CUTLASS's split: big truncated, small
@@ -35,7 +33,7 @@
 //   rows to match, so p and ds feed the tensor cores from the registers
 //   they were computed in. The tensor cores do not round their f32 sums to
 //   nearest, so a tile's product is summed from zero and then added to the
-//   running gradient (summed straight into it over the 199 key tiles of the
+//   running sum (summed straight into it over the 199 key tiles of the
 //   cross shape, dq's error on an H100 reached 9.5e-5 x max |dq|, against a
 //   float32 tolerance of 1e-4).
 #pragma once
@@ -138,9 +136,63 @@ __device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ab, const u
 
 // ------------------------------------------------------------ the products
 
+// s[j] += A B^T over the 64 columns of a chunk (zero past D): A is the 16
+// rows from r0 of a chunk tile, B the 64 rows of another, in 8-row n tiles j.
+// The 16-bit s[j] += A B^T of chunk_score with A's four fragments given
+// (fa[kk]: columns kk*16 .. kk*16+15, legacy::a_frag), as a kernel that
+// keeps them in registers across key tiles calls it.
+template <typename T>
+__device__ __forceinline__ void chunk_score_frags(float (&s)[8][4], const uint32_t (&fa)[CW / 16][4], const T* B,
+                                                  int lane) {
+  const bf16* b = reinterpret_cast<const bf16*>(B);
+#pragma unroll
+  for (int c2 = 0; c2 < CW / 32; ++c2) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t fb[2][2];
+      legacy::bt_frags<CW>(fb, b, j * 8, c2 * 32, lane);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) mma_k16<T>(s[j], fa[2 * c2 + i], fb[i]);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void chunk_score(float (&s)[8][4], const T* A, const T* B, int r0, int lane) {
+  if constexpr (sizeof(T) == 2) {
+    uint32_t fa[CW / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < CW / 16; ++kk) legacy::a_frag<CW>(fa[kk], reinterpret_cast<const bf16*>(A), r0, kk, lane);
+    chunk_score_frags<T>(s, fa, B, lane);
+  } else {
+    constexpr int S = stride<float>();
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < CW / 8; ++kk) {
+      // A fragment (m16n8k8): (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+      const float* pa = A + (r0 + g) * S + kk * 8 + t;
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(pa[(e & 1) * 8 * S + (e >> 1) * 4], ab[e], as[e]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // B fragment of X^T: (k t, n g) and (k t + 4, n g) = X[j*8 + g][t], X[j*8 + g][t + 4]
+        const float* pb = B + (j * 8 + g) * S + kk * 8 + t;
+        uint32_t bb[2], bs[2];
+        split_tf32(pb[0], bb[0], bs[0]);
+        split_tf32(pb[4], bb[1], bs[1]);
+        mma_3xtf32(s[j], ab, as, bb, bs);
+      }
+    }
+  }
+}
+
 // s[j] += A1 B1^T and dp[j] += A2 B2^T over the 64 columns of a chunk
 // (zero past D): A1, A2 are the 16 rows from r0 of a chunk tile, B1, B2 the
-// 64 rows of another, in 8-row n tiles j.
+// 64 rows of another, in 8-row n tiles j. The backward's two score
+// products, interleaved; chunk_score is one of them (written as two
+// calls of it, ptxas spilled in two of dq's twelve instances and four of
+// dk/dv's twelve, against one of dq's interleaved).
 template <typename T>
 __device__ __forceinline__ void chunk_scores(float (&s)[8][4], float (&dp)[8][4], const T* A1, const T* A2,
                                              const T* B1, const T* B2, int r0, int lane) {
@@ -204,7 +256,7 @@ __device__ __forceinline__ void zero(float (&x)[8][4]) {
   for (int j = 0; j < 8; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
 }
 
-// acc += P X: P is 16 x 64 in the accumulator layout of chunk_scores (P[j]
+// acc += P X: P is 16 x 64 in the accumulator layout of chunk_score (P[j]
 // holds columns j*8 .. j*8+7), rounded to T (16-bit) or split for TF32
 // here; X is a 64-row chunk tile.
 template <typename T>

@@ -16,11 +16,14 @@ Two routes, chosen by where the tensors lie, never by a switch:
   for bfloat16 heads of width D <= 128 (the kernel is built for 64 and 128
   and zero-fills the columns past D; a D that is not a multiple of 8 is
   zero-padded here), and the any-dtype forward
-  (``csrc/legacy_flash_any_fwd.cu``, float32 on the CUDA cores) for
-  float16, float32, wider heads and misaligned rows, as the JAX kernels
-  take any float dtype and width. The wrappers raise ``ValueError`` for
-  another dtype, non-contiguous tensors or mixed devices;
-  ``flash_attention`` makes its inputs contiguous.
+  (``csrc/legacy_flash_any_fwd.cu``) for float16, float32, wider heads and
+  misaligned rows, as the JAX kernels take any float dtype and width. That
+  forward runs on the tensor cores too, in 64-column chunks (float16 on
+  m16n8k16, float32 as three TF32 passes); its 16-byte copies need rows of
+  a multiple of 16 bytes at 16-byte-aligned addresses, which
+  ``any_operands`` makes. The wrappers raise ``ValueError`` for another
+  dtype, non-contiguous tensors or mixed devices; ``flash_attention`` makes
+  its inputs contiguous.
 - CPU tensors take ``flash_attention_plain``, dense masked softmax in
   float32.
 
@@ -31,7 +34,8 @@ when such a block held no key for the row; its gradients do not depend on
 this (ROADMAP Queue 3).
 
 Also here, for the forward of L2 (``flash_attention_bwd.py``): the key
-mask, the dense plain version with lse, the input checks and the launch.
+mask, the dense plain version with lse, the input checks, the operands of
+the any-dtype kernels and the launches.
 """
 
 from __future__ import annotations
@@ -182,24 +186,37 @@ def launch_fwd(q, k, v, kv_len, kv_valid, causal: bool, window: int, with_lse: b
     return unpad_head_dim(o, d), lse
 
 
+def any_operands(*tensors: torch.Tensor) -> list:
+    """The operands of the any-dtype kernels, whose cp.async copies move 16
+    bytes: when the rows of the first are not a multiple of 16 bytes, all
+    are zero-padded to a multiple of 8 columns in fresh tensors (padded
+    columns add 0 to every product; the wrappers cut them from the
+    outputs); otherwise an operand whose address is not 16-byte aligned is
+    copied."""
+    if tensors[0].shape[-1] * tensors[0].element_size() % 16:
+        return [pad_head_dim(t) for t in tensors]
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
+
+
 def legacy_any_fwd_cuda(q, k, v, kv_len, kv_valid, causal: bool, window: int, with_lse: bool):
-    """Launch the any-dtype forward (``csrc/legacy_flash_any_fwd.cu``): L1
-    (with_lse False; kv_valid ignored) or L2a for float16, float32, heads
-    wider than 128 or misaligned bf16 rows, on checked inputs. Returns (o in
-    q's dtype, lse f32 [B, H, Lq] or None)."""
+    """Launch the any-dtype forward (``csrc/legacy_flash_any_fwd.cu``,
+    tensor cores): L1 (with_lse False; kv_valid ignored) or L2a for
+    float16, float32, heads wider than 128 or misaligned bf16 rows, on
+    checked inputs. Returns (o in q's dtype, lse f32 [B, H, Lq] or None)."""
     b, h, lq, d = q.shape
-    o = torch.empty_like(q)
+    qp, kp, vp = any_operands(q, k, v)
+    o = torch.empty_like(qp)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32) if with_lse else None
     fn = cuda_build.load("legacy_flash_any_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+    err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), kv_len.data_ptr(),
              kv_valid.data_ptr() if with_lse else None, o.data_ptr(), None if lse is None else lse.data_ptr(),
-             KERNEL_DTYPES[q.dtype], b, h, lq, k.shape[2], d, int(causal), band_window(causal, window),
+             KERNEL_DTYPES[q.dtype], b, h, lq, k.shape[2], qp.shape[3], int(causal), band_window(causal, window),
              int(with_lse), 1.0 / d ** 0.5, stream)
     if err != 0:
         raise RuntimeError(f"legacy_flash_any_fwd launch failed: cudaError {err}")
     legacy_any_fwd_cuda.launches += 1
-    return o, lse
+    return unpad_head_dim(o, d), lse
 
 
 legacy_any_fwd_cuda.launches = 0

@@ -20,10 +20,9 @@ differentiated by autograd); CUDA tensors go through
 Both backward kernels write each row once: no atomics, deterministic. What
 the bf16 tensor-core kernels do not take (float16, float32, heads wider
 than 128, misaligned rows) goes to the any-dtype kernels
-(``csrc/legacy_flash_any_{fwd,dq,dkv}.cu``: the forward float32 on the CUDA
-cores, as in L1; dq and dk/dv on the tensor cores, float32 as three TF32
-passes); the wrappers raise for another dtype, non-contiguous tensors or
-mixed devices.
+(``csrc/legacy_flash_any_{fwd,dq,dkv}.cu``: all three on the tensor cores,
+float32 as three TF32 passes, on ``any_operands``); the wrappers raise for
+another dtype, non-contiguous tensors or mixed devices.
 """
 
 from __future__ import annotations
@@ -35,8 +34,8 @@ import torch
 from omr_a2s_multimodal_transformer_tpu_torch.ops import cuda_build
 from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import band_window
 from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash.flash_attention import (
-    KERNEL_DTYPES, attention_plain, check_backward_inputs, check_inputs, kv_len_tensor, launch_fwd,
-    legacy_any_fwd_cuda, pad_head_dim, tensor_core_route, unpad_head_dim)
+    KERNEL_DTYPES, any_operands, attention_plain, check_backward_inputs, check_inputs, kv_len_tensor,
+    launch_fwd, legacy_any_fwd_cuda, pad_head_dim, tensor_core_route, unpad_head_dim)
 
 
 def legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, causal: bool = False, window: int = -1):
@@ -71,20 +70,9 @@ def _bwd_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window):
     return padded, ptrs, ints, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream
 
 
-def _any_operands(q, k, v, do):
-    """q, k, v, do for the any-dtype backward, whose cp.async copies move 16
-    bytes: rows that are not a multiple of 16 bytes are zero-padded to a
-    multiple of 8 columns in fresh tensors (padded columns add 0 to every
-    product and are cut from the gradients), and an operand whose address
-    is not 16-byte aligned is copied."""
-    if q.shape[-1] * q.element_size() % 16:
-        return [pad_head_dim(t) for t in (q, k, v, do)]
-    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, do)]
-
-
 def _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window):
     b, h, lq, d = q.shape
-    padded = _any_operands(q, k, v, do)  # the caller keeps them alive until the launch
+    padded = any_operands(q, k, v, do)  # the caller keeps them alive until the launch
     qp, kp, vp, dop = padded
     ptrs = [t.data_ptr() for t in (qp, kp, vp, kv_len, kv_valid, dop, lse, delta)]
     ints = [KERNEL_DTYPES[q.dtype], b, h, lq, k.shape[2], qp.shape[3], int(causal), band_window(causal, window)]

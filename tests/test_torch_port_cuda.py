@@ -9,7 +9,8 @@ its autograd: bf16 heads of 36 to 128 on the tensor-core kernels; float32
 and float16 heads and heads of 192 and 256 on the any-dtype kernels, rows
 off 16-byte alignment and float16 rows of odd width among them, float32 to
 1e-4 x max |plain|; rows with no key must give o = 0 and lse = 0 in both;
-both backward routes bit-equal across two calls).
+both backward routes and the any-dtype forward bit-equal across two calls;
+the any-dtype forward in float32 over 128 key tiles).
 The K1/K2 cases include the edges of their Hopper design: lengths off the
 TMA box and the key chunks, a row whose only key is in the last chunk,
 grids smaller than the SM count, and dK/dV bit-equal across runs.
@@ -408,7 +409,12 @@ def test_fused_stem_tile_height_on_gpu(dtype):
 # the backward's wrapper copies them) and at D 256 (four 64-column chunks);
 # float16 non-causal with Lq 90 != Lk 200, neither a multiple of 64, at D 64
 # and at D 37 (rows aligned to 2 bytes only: the wrapper pads them to 40
-# columns).
+# columns). At the any-dtype forward's width classes: float32 at D 72 (one
+# 64-column chunk and 8 columns), float32 at D 320 (past the columns it
+# keeps in registers, 128 in float32 and 192 in 16-bit types: o split over
+# the grid, as for float32 at D 192), float16 at D 72 one element
+# into its buffer; and a batch row whose kv_len is 0 (no key tile runs: o,
+# lse and its gradients must be 0).
 LEGACY_CASES = [dict(d=d, causal=c, window=w, dtype=torch.bfloat16)
                 for d in (40, 64, 128) for c, w in ((False, -1), (True, -1), (True, 30))]
 LEGACY_CASES.append(dict(d=36, causal=True, window=30, dtype=torch.bfloat16))
@@ -418,7 +424,11 @@ LEGACY_CASES += [dict(d=d, causal=True, window=w, dtype=dt)
 LEGACY_CASES += [dict(d=36, causal=True, window=30, dtype=torch.float32, offset=True),
                  dict(d=256, causal=True, window=30, dtype=torch.float32),
                  dict(d=64, causal=False, window=-1, dtype=torch.float16),
-                 dict(d=37, causal=False, window=-1, dtype=torch.float16)]
+                 dict(d=37, causal=False, window=-1, dtype=torch.float16),
+                 dict(d=72, causal=False, window=-1, dtype=torch.float32),
+                 dict(d=320, causal=True, window=30, dtype=torch.float32),
+                 dict(d=72, causal=False, window=-1, dtype=torch.float16, offset=True),
+                 dict(d=64, causal=False, window=-1, dtype=torch.float32, zero_len=True)]
 LEGACY_TOL = {torch.bfloat16: REL_TOL, torch.float16: REL_TOL, torch.float32: 1e-4}  # x max |plain|
 
 
@@ -429,7 +439,8 @@ def _legacy_inputs(case, dev, seed=2):
     dtype = case.get("dtype", torch.bfloat16)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).to(dev, dtype)
                    for n in (lq, lk, lk, lq))
-    kv_len = torch.tensor([lk, 100 if case["causal"] else lk - 23], dtype=torch.int32, device=dev)
+    kv_len = torch.tensor([lk, 0 if case.get("zero_len") else 100 if case["causal"] else lk - 23],
+                          dtype=torch.int32, device=dev)
     kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
     kv_valid[0, 40:70] = False  # a hole, as in the concat mixer's fused memories
     kv_valid[1, 90:] = False    # a short target
@@ -439,7 +450,7 @@ def _legacy_inputs(case, dev, seed=2):
 def _legacy_id(c):
     dt = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}[c["dtype"]]
     return (f"d{c['d']}_c{int(c['causal'])}_w{c['window']}" + ("" if dt == "bf16" and c["d"] <= 128 else f"_{dt}")
-            + ("_offset" if c.get("offset") else ""))
+            + ("_offset" if c.get("offset") else "") + ("_zero_len" if c.get("zero_len") else ""))
 
 
 def _leaves(tensors, offset=False):
@@ -505,7 +516,11 @@ def test_legacy_flash_kernels_match_plain_on_gpu(case):
         empty = lse_p.detach() == 0
         if case["window"] > 0:
             assert empty.any()
+        if case.get("zero_len"):
+            assert empty[1].all()
         assert not o[empty].any() and (lse_k is None or not lse_k[empty].any())
+    if case.get("zero_len"):
+        assert not any(g[1].any() for g in grads)
 
 
 @pytest.mark.cuda
@@ -533,6 +548,50 @@ def test_legacy_backward_is_deterministic_on_gpu(case):
     assert launched == ((2, 2) if any_route else (0, 0))
     for a, b in zip(first, second):
         assert torch.equal(a, b) and a.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [dict(d=64, causal=False, window=-1, dtype=torch.float32),
+                                  dict(d=64, causal=True, window=30, dtype=torch.float16),
+                                  dict(d=192, causal=False, window=-1, dtype=torch.bfloat16),
+                                  dict(d=320, causal=True, window=30, dtype=torch.float32)], ids=_legacy_id)
+def test_legacy_any_forward_is_deterministic_on_gpu(case):
+    """The any-dtype forward writes each row once: two calls give bit-equal
+    o and lse (D 64, bf16 D 192 in registers, float32 D 320 split over the
+    grid)."""
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention as l1
+
+    dev = _cuda()
+    q, k, v, _, kv_len, kv_valid = _legacy_inputs(case, dev)
+    band = (case["causal"], case["window"])
+    before = l1.legacy_any_fwd_cuda.launches
+    first, second = (l1.legacy_any_fwd_cuda(q, k, v, kv_len, kv_valid, *band, with_lse=True) for _ in range(2))
+    assert l1.legacy_any_fwd_cuda.launches - before == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b) and a.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_legacy_any_forward_float32_over_128_key_tiles_on_gpu():
+    """float32 o over 8,192 keys (128 key tiles) within 1e-4 x max |plain|:
+    the tensor cores do not round their f32 sums to nearest, so a forward
+    that summed p v straight into o over the tiles would drift; the kernel
+    sums each tile from zero and folds it into o."""
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention as l1
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    b, h, lq, lk, d = 2, 2, 128, 8192, 64
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).to(dev) for n in (lq, lk, lk))
+    kv_len = torch.full((b,), lk, dtype=torch.int32, device=dev)
+    kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
+    kv_valid[1, 3000:3500] = False
+    o, lse = l1.legacy_any_fwd_cuda(q, k, v, kv_len, kv_valid, False, -1, with_lse=True)
+    o_ref, lse_ref = l1.attention_plain(q, k, v, kv_len, kv_valid)
+    _legacy_close("L2a o, 128 key tiles", o, o_ref, torch.float32)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    o1 = l1.legacy_any_fwd_cuda(q, k, v, kv_len, None, False, -1, with_lse=False)[0]
+    _legacy_close("L1 o, 128 key tiles", o1, l1.attention_plain(q, k, v, kv_len)[0], torch.float32)
 
 
 @pytest.mark.cuda

@@ -18,9 +18,12 @@ Tolerance: float32 at 1e-5 relative and absolute (the same float32
 formulas, the JAX kernel's online softmax against the dense softmax, in
 another summation order; the conftest sets JAX's matmuls to full float32);
 bf16 and float16 inputs at 3e-2 (outputs rounded at other points). Besides
-the bf16 and float32 heads of 40 to 128, a float16 head of 64 and a float32
-head of 192 are cases of their own: on the card both take the any-dtype
-kernels (float16 on its tensor-core path, D 192 in 64-column chunks).
+the bf16 and float32 heads of 40 to 128, a float16 head of 64 and float32
+heads of 72, 192 and 320 are cases of their own: on the card they take the
+any-dtype kernels, which work in 64-column chunks. 72 is one chunk and 8
+columns; the forward keeps up to 128 columns of float32 output in registers
+(192 in 16-bit types) and splits wider ones over the grid, as at 192 and
+320.
 """
 
 import importlib.util
@@ -68,6 +71,13 @@ CASES = {
     # a head wider than 128 (JAX pads it to 256 lanes), windowed, with a short target
     "window30_holes_d192": dict(b=2, h=1, lq=100, lk=100, d=192, causal=True, window=30, kv_len=(100, 100),
                                 holes=((1, 70, 100),)),
+    # one 64-column chunk and 8 columns more (the any-dtype forward's second chunk is mostly zero-fill)
+    "cross_ragged_d72": dict(b=2, h=2, lq=70, lk=200, d=72, causal=False, window=-1, kv_len=(200, 137),
+                             holes=((0, 10, 50), (1, 90, 120))),
+    # past the any-dtype forward's register-resident widths (128 in float32, 192 in 16-bit types): o split
+    # into 64-column chunks over the grid
+    "window30_ragged_d320": dict(b=2, h=1, lq=100, lk=100, d=320, causal=True, window=30, kv_len=(100, 70),
+                                 holes=((0, 40, 60),)),
 }
 # two JAX block geometries per case (the L1 defaults, and 128/128): the function must not depend on them
 BLOCKS = {"blocks_default": None, "blocks_128": (128, 128)}
@@ -210,3 +220,25 @@ def test_legacy_kernels_refuse_cpu_tensors_without_launching():
     with pytest.raises(ValueError):
         tl2.legacy_dkv_cuda(q, q, q, kv_len, kv_valid, q, stats, stats)
     assert counts == [f.launches for f in wrappers]
+
+
+def test_any_operands_pads_short_rows_and_copies_misaligned_views():
+    """The any-dtype kernels copy 16 bytes at a time: rows that are not a
+    multiple of 16 bytes are zero-padded to a multiple of 8 columns, and an
+    operand whose rows are whole 16-byte copies but whose address is off a
+    16-byte boundary is copied, values unchanged."""
+    rng = np.random.default_rng(3)
+    short = [torch.from_numpy(rng.normal(size=(1, 2, 5, 37)).astype(np.float32)) for _ in range(3)]
+    padded = tl1.any_operands(*short)
+    for p, t in zip(padded, short):
+        assert p.shape == (1, 2, 5, 40) and p.is_contiguous() and p.data_ptr() % 16 == 0
+        assert torch.equal(p[..., :37], t) and not p[..., 37:].any()
+    # a 36-wide float32 row is 144 bytes, nine 16-byte copies: not padded, but a view one element into its
+    # buffer starts 4 bytes off a boundary and is copied; an aligned operand is passed as it is
+    buf = torch.from_numpy(rng.normal(size=1 + 2 * 5 * 36).astype(np.float32)).clone()  # torch's aligned buffer
+    view = buf[1:].view(1, 2, 5, 36)
+    aligned = torch.from_numpy(rng.normal(size=(1, 2, 5, 36)).astype(np.float32)).clone()
+    assert view.data_ptr() % 16 and aligned.data_ptr() % 16 == 0
+    got_view, got_aligned = tl1.any_operands(view, aligned)
+    assert got_view.shape == view.shape and got_view.data_ptr() % 16 == 0 and torch.equal(got_view, view)
+    assert got_aligned is aligned
