@@ -14,8 +14,10 @@ Phases, each of which raises on failure (exit code 1):
        bf16, ragged keys), dropout 0 and 0.1: K1 and K2, K1 also at each
        split of its key tiles into 1-8 chunks (the split the wrapper
        launched is read from the trace's grid); K3a and K3b as the
-       split backward of a merged_bwd=False call (both rates); K4, the
-       keep-mask probe at the decoder's 128/2048 blocks, bit for bit;
+       split backward of a merged_bwd=False call (both rates), K3a also at
+       each split of its key tiles into 1-8 chunks, and the pair against
+       SDPA's backward at the same rate; K4, the keep-mask probe at the
+       decoder's 128/2048 blocks, bit for bit;
      - at the paper's self-attention shape (B 8, L 1268, 4 x 64 heads,
        window 100, ragged target lengths, 128/512 blocks), dropout 0 and
        0.1: K1c, K3a and K3b, with the banded attention of the windowed
@@ -74,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -81,7 +84,12 @@ import time
 from collections import Counter
 from pathlib import Path
 
-import torch
+# keep CUPTI attached from one profiler trace to the next (PyTorch detaches it after each trace by default and
+# attaches it again for the next, a path with known faults, and sets this itself where it re-attaches often);
+# whether it spares the occasional trace that records none or part of a call's kernels is not known
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -129,7 +137,9 @@ KERNELS = {
     "K2 flash bwd": (fp.flash_bwd_cuda, "flash_bwd.cu", JAX_FLASH + "364", "flash_bwd_kernel", 1),
     "K1c flash fwd causal": (fp.flash_fwd_causal_cuda, "flash_fwd.cu", JAX_FLASH + "161", "flash_fwd_causal_kernel",
                              1),
-    "K3a flash dq": (fp.flash_dq_cuda, "flash_dq.cu", JAX_FLASH + "228", "flash_dq_kernel", 1),
+    # K3a launches the key-chunk kernel and the merge (four chunks at the cross shape, dq_splits); a causal
+    # call or a single chunk launches the first alone
+    "K3a flash dq": (fp.flash_dq_cuda, "flash_dq.cu", JAX_FLASH + "228", "flash_dq_", 2),
     "K3b flash dk/dv": (fp.flash_dkv_cuda, "flash_dkv.cu", JAX_FLASH + "283", "flash_dkv_kernel", 1),
     "K4 keep mask": (fp.keep_mask_cuda, "keep_mask.cu", JAX_FLASH + "747", "keep_mask_kernel", 1),
     # K5a launches the tile kernel and the fixed-order statistics sum
@@ -196,13 +206,17 @@ def time_ms(fn, reps=5, warmup=2):
 KERNEL_INFO = {}  # name -> the launch record of its longest device kernel in its last timing trace
 
 
-TRACE_TRIES = 3  # a profiler trace now and then records none of a call's kernels: trace again
+# a profiler trace that records too few of a call's kernels (the runtime's launches but no device activity)
+# is taken again after a pause, up to TRACE_TRIES times; TRACES counts the traces and the retaken ones
+TRACE_TRIES = 5
+TRACES = Counter()
 
 
 def traced_kernels(fn, reps, path):
     """The kernel events of a profiler trace of reps calls of fn."""
     from torch.profiler import ProfilerActivity, profile
 
+    TRACES["taken"] += 1
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -229,6 +243,9 @@ def kernel_times(name, fn, reps=10, per_launch=None, record=True):
         events = [e for e in traced_kernels(fn, reps, OUT_DIR / "kernel_timing_trace.json") if symbol in e["name"]]
         if reps // 2 * per_launch <= len(events) <= reps * per_launch:
             break
+        TRACES["retaken"] += 1
+        log(f"  {name}: {len(events)} kernels named {symbol} in the trace of {reps} calls; tracing again")
+        time.sleep(2.0)
     else:
         raise AssertionError(f"{name}: {len(events)} kernels named {symbol} in the trace of {reps} calls")
     durs = [e["dur"] for e in events]
@@ -325,6 +342,7 @@ def phase_cross(dev):
     flops2, bytes2 = 10 * 64 * pairs, 3 * qb + 2 * stats + 2 * kv_bytes + small + 2 * k.numel() * 2
     flops3a, bytes3a = 6 * 64 * pairs, 3 * qb + 2 * stats + 2 * kv_bytes + small  # s, dp, dq
     flops3b, bytes3b = 8 * 64 * pairs, 2 * qb + 2 * stats + 2 * kv_bytes + small + 2 * k.numel() * 2  # s, dp, dv, dk
+    bound3 = sum(max(f / PEAK_BF16_FLOPS, n / PEAK_BYTES) for f, n in ((flops3a, bytes3a), (flops3b, bytes3b)))
     rows = {}
     for rate in (0.0, 0.1):
         o_k, lse_k = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, rate, HEADS, bq, bk)
@@ -375,10 +393,23 @@ def phase_cross(dev):
         torch.cuda.synchronize()
         r["err3a"] = check_vs("K3a dq", dq3, dq_p)
         r["err3b"] = max(check_vs("K3b dk", dk3, dk_p), check_vs("K3b dv", dv3, dv_p))
-        r["ms3a"], r["call3a"] = kernel_times("K3a flash dq", lambda: fp.flash_dq_cuda(*args))
+        r["n_split3a"] = fp.dq_splits(B, HEADS, LQ, LK, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
+        r["ms3a"], r["call3a"] = kernel_times("K3a flash dq", lambda: fp.flash_dq_cuda(*args),
+                                              per_launch=1 if r["n_split3a"] == 1 else 2)
         r["ms3b"], r["call3b"] = kernel_times("K3b flash dk/dv", lambda: fp.flash_dkv_cuda(*args))
-        log(f"  K3a {r['ms3a']:.3f} ms (call {r['call3a']:.3f}), K3b {r['ms3b']:.3f} ms (call {r['call3b']:.3f}) "
-            "(split backward, non-causal)")
+        r["info3a"], r["info3b"] = KERNEL_INFO.get("K3a flash dq"), KERNEL_INFO.get("K3b flash dk/dv")
+        # K3a at each split of its key tiles into 1-8 chunks (chunk kernel + merge), against the plain version
+        r["split_ms3a"], split_errs = {}, []
+        for n_split in range(1, 9):
+            split_errs.append(max_err(fp.flash_dq_cuda(*args, n_split=n_split), dq_p))
+            r["split_ms3a"][n_split] = kernel_times("K3a flash dq", lambda: fp.flash_dq_cuda(*args, n_split=n_split),
+                                                    reps=20, per_launch=1 if n_split == 1 else 2, record=False)[0]
+        r["err3a"] = max(r["err3a"], check("K3a dq, 1-8 key chunks", max(split_errs),
+                                           float(dq_p.detach().float().abs().max()), KERNEL_TOL))
+        fastest = min(r["split_ms3a"], key=r["split_ms3a"].get)
+        log(f"  K3a {r['ms3a']:.3f} ms at dq_splits' {r['n_split3a']} key chunks (call {r['call3a']:.3f}), K3b "
+            f"{r['ms3b']:.3f} ms (call {r['call3b']:.3f}) (split backward, non-causal); K3a device ms by chunks: "
+            + ", ".join(f"{n} {ms:.4f}" for n, ms in r["split_ms3a"].items()) + f"; fastest {fastest}")
         del dq3, dk3, dv3, delta, args
         rows[rate] = r
         del o_p, lse_p, dq_p, dk_p, dv_p, qr, kr, vr
@@ -411,8 +442,13 @@ def phase_cross(dev):
         lib2 = time_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True))
         backend = library_kernels(lambda: torch.autograd.grad(sdpa(qs, ks, vs, attn_mask=mask, dropout_p=rate),
                                                               (qs, ks, vs), do_s))
-        lib[rate] = (lib1, lib2, backend)
-        log(f"[cross] library: SDPA fwd {lib1:.3f} ms, SDPA bwd {lib2:.3f} ms (dropout {rate}; kernels {backend})")
+        lib2_dev = device_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True))
+        lib[rate] = (lib1, lib2, backend, lib2_dev)
+        log(f"[cross] library: SDPA fwd {lib1:.3f} ms, SDPA bwd {lib2:.3f} ms (device {lib2_dev:.3f}) "
+            f"(dropout {rate}; kernels {backend})")
+        pair = rows[rate]["ms3a"] + rows[rate]["ms3b"]
+        log(f"[cross] dropout {rate}: K3a + K3b {pair:.3f} ms (bound {bound3 * 1e3:.4f}), {pair / lib2:.3f} x SDPA's "
+            f"backward ({pair / lib2_dev:.3f} x its device time); K2 {rows[rate]['ms2']:.3f} ms")
         del o_s
     lib1, lib2 = lib[0.1][0], lib[0.1][1]
     del q, k, v, do
@@ -430,16 +466,22 @@ def phase_cross(dev):
                                    flops2, bytes2, lib2, call_ms=main["call2"], ms_dropout0=r0["ms2"],
                                    plain_ms_dropout0=r0["plain2"], library_ms_dropout0=lib[0.0][1],
                                    library_kernels=lib[0.1][2]),
+        # SDPA's backward computes dq, dk and dv together: the library time of the pair K3a + K3b
         "cross3a": dict(max_abs_err_cross=max(main["err3a"], r0["err3a"]), ms_cross=main["ms3a"],
                         call_ms_cross=main["call3a"], ms_cross_dropout0=r0["ms3a"],
                         plain_ms_cross=main["plain2"],
                         bound_ms_cross=max(flops3a / PEAK_BF16_FLOPS, bytes3a / PEAK_BYTES) * 1e3,
-                        library_ms_cross=lib2),
+                        library_ms_cross=lib2, library_ms_cross_dropout0=lib[0.0][1],
+                        library_device_ms_cross=lib[0.1][3], library_device_ms_cross_dropout0=lib[0.0][3],
+                        n_split_cross=main["n_split3a"], split_ms_cross=main["split_ms3a"],
+                        split_ms_cross_dropout0=r0["split_ms3a"], launch_record_cross=main["info3a"]),
         "cross3b": dict(max_abs_err_cross=max(main["err3b"], r0["err3b"]), ms_cross=main["ms3b"],
                         call_ms_cross=main["call3b"], ms_cross_dropout0=r0["ms3b"],
                         plain_ms_cross=main["plain2"],
                         bound_ms_cross=max(flops3b / PEAK_BF16_FLOPS, bytes3b / PEAK_BYTES) * 1e3,
-                        library_ms_cross=lib2),
+                        library_ms_cross=lib2, library_ms_cross_dropout0=lib[0.0][1],
+                        library_device_ms_cross=lib[0.1][3], library_device_ms_cross_dropout0=lib[0.0][3],
+                        launch_record_cross=main["info3b"]),
         # K4 reads nothing and writes the mask; its hash is integer work, which the bf16 peak does not rate
         "K4 keep mask": kernel_row("K4 keep mask", 0.0, ms4, plain4, 0, B * HEADS * lq_p * lk_p + 4, None,
                                    call_ms=call4),
@@ -513,7 +555,7 @@ def phase_self(dev):
                 del o_b, o_bg, hb, heads
             r["ms1c"], r["call1c"] = kernel_times("K1c flash fwd causal", lambda: fp.flash_fwd_causal_cuda(
                 q, k, v, kv_len, kv_valid, seed, rate, HEADS, bq, bk, window))
-            r["ms3a"], r["call3a"] = kernel_times("K3a flash dq", lambda: fp.flash_dq_cuda(*args))
+            r["ms3a"], r["call3a"] = kernel_times("K3a flash dq", lambda: fp.flash_dq_cuda(*args), per_launch=1)
             r["ms3b"], r["call3b"] = kernel_times("K3b flash dk/dv", lambda: fp.flash_dkv_cuda(*args))
             r["plain_fwd"] = time_ms(lambda: fp.flash_attention_plain(q, k, v, kv_len, kv_valid, seed, rate, HEADS,
                                                                       True, window, bq, bk), reps=3, warmup=1)
@@ -1064,15 +1106,23 @@ def any_work(b, h, lq, lk, d, n_keys, pairs, elem):
 def device_ms(fn, reps=5):
     """Device time of one call of fn: the durations of every device kernel
     that a profiler trace of reps calls recorded, over reps (a library
-    call's own kernels, without its host work); a trace that recorded no
-    kernel is taken again, up to TRACE_TRIES times."""
+    call's own kernels, without its host work). Every call runs the same
+    kernels, so a trace in which some kernel's count is not a multiple of
+    reps (or that holds none) missed some and is taken again, up to
+    TRACE_TRIES times."""
     fn()
     torch.cuda.synchronize()
     for _ in range(TRACE_TRIES):
         events = traced_kernels(fn, reps, OUT_DIR / "library_timing_trace.json")
-        if events:
+        counts = Counter(e["name"] for e in events)
+        if counts and all(n % reps == 0 for n in counts.values()):
             return sum(e["dur"] for e in events) / reps / 1e3
-    raise AssertionError(f"no device kernel in {TRACE_TRIES} traces of {reps} calls")
+        TRACES["retaken"] += 1
+        log(f"  {len(events)} device kernels ({len(counts)} names) in the trace of {reps} library calls; "
+            "tracing again")
+        time.sleep(2.0)
+    raise AssertionError(f"{len(events)} device kernels in the last of {TRACE_TRIES} traces of {reps} calls, "
+                         f"some not once a call: {dict(counts)}")
 
 
 # the any-dtype kernels at the legacy cross shape (the images' kv_valid): the three cases they exist for
@@ -1332,7 +1382,7 @@ def main(argv=None):
     log(f"[build] {sorted(p.name for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
     for name in paths:
         for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"[build] {name}: {line.strip()}")
     args.out_dir.mkdir(parents=True, exist_ok=True)
     OUT_DIR = args.out_dir
@@ -1365,8 +1415,11 @@ def main(argv=None):
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
 
+    log(f"[trace] {TRACES['taken']} profiler traces, {TRACES['retaken']} taken again "
+        f"(TEARDOWN_CUPTI={os.environ.get('TEARDOWN_CUPTI')})")
     result = dict(card=card, kernels=kernels, flagship=flagship, paper=paper, op_path=ops,
-                  stem_path=dict(launches=stem_launches, max_abs_err=stem_errs), legacy_path=legacy)
+                  stem_path=dict(launches=stem_launches, max_abs_err=stem_errs), legacy_path=legacy,
+                  traces=dict(TRACES))
     (args.out_dir / "chip_smoke_result.json").write_text(json.dumps(result, indent=1))
     log(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

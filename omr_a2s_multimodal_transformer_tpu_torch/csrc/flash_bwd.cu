@@ -11,65 +11,18 @@
 // What bounds it on the H100: five products, 10*B*H*Lq*Lk*64 FLOP (0.29 ms
 // at the flagship cross shape), then the CUDA cores (an exp, ds and, with
 // dropout, the keep-mask hash per score, as in the forward) and the dq
-// sums across key blocks. The design, for Hopper:
-// - a block of three warpgroups per (128-key block, head, batch row): a
-//   producer (one warp: a thread issues TMA loads, the block's K and V tiles
-//   once, then a 3-stage ring of 64-query Q and dO tiles, 128-byte-swizzled,
-//   and a bulk copy of each tile's (lse * log2 e, delta) pairs; the lanes
-//   write the tile's folded hash row terms), and two
-//   consumer warpgroups of 64 keys each that share the ring (half the L2
-//   traffic of 64-key blocks); setmaxnreg moves the producer's registers
-//   to them;
-// - all five products on wgmma, in the transposed frame: s^T = k q^T and
-//   dp^T = v do^T from shared memory (no K/V fragments held in registers),
-//   dv += p_drop^T do and dk += ds^T q with A from registers and do, q read
-//   MN-major, and dq = ds k with ds^T staged in shared memory (MN-major A);
-// - the keep-mask hash of a tile runs while s^T and dp^T are in flight, its
-//   first step folded into per-key and per-query terms (fold16);
-// - dq without per-thread atomics: each warpgroup stages its 64 x 64 f32
-//   partial in shared memory (128-byte swizzled) and adds it into a f32
-//   [B, Lq, H*64] buffer with two bulk tensor reduce-adds per query tile.
-//   The order of those adds across key blocks changes from run to run, so
-//   dq is not bitwise deterministic (an f32 sum over ceil(Lk / 64)
-//   partials); dk and dv are written once and are.
-// The accumulator layout gives each thread keys 16w + g and + 8 and query
-// pairs 8j + 2t, the layout of the mma.sync kernels, so the hoisted hash
-// terms, and the keep-mask, are the same as the forward's.
-#include "flash_common.cuh"
-#include "hopper_common.cuh"
+// sums across key blocks. The design (flash_bwd.cuh, whose block K3b
+// shares without dq): a producer warp feeding a ring of 64-query Q and dO
+// tiles by TMA to two consumer warpgroups of 64 keys each, all five
+// products on wgmma in the transposed frame, the keep-mask hash in flight
+// with s^T and dp^T, and dq without per-thread atomics: each warpgroup's
+// 64 x 64 f32 partial is added into a f32 [B, Lq, H*64] buffer by bulk
+// tensor reduce-adds. The order of those adds across key blocks changes
+// from run to run, so dq is not bitwise deterministic (an f32 sum over
+// ceil(Lk / 64) partials); dk and dv are written once and are.
+#include "flash_bwd.cuh"
 
 using namespace flash;
-
-namespace k2 {
-
-constexpr int STAGES = 3;
-constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int KEYS = 128;     // keys per block, 64 per consumer warpgroup
-constexpr int TILE_BYTES = 64 * 64 * 2;
-constexpr int STAT_BYTES = 64 * 2 * 4;  // (lse * log2 e, delta) of 64 queries
-
-struct Smem {
-  bf16 k[2][64 * 64];  // every tile 1024-byte aligned (the struct is placed at a 1024-byte boundary)
-  bf16 v[2][64 * 64];
-  bf16 q[STAGES][64 * 64];
-  bf16 dout[STAGES][64 * 64];
-  bf16 ds[2][64 * 64];       // ds^T of each warpgroup: [key][query], the MN-major A of dq = ds k
-  float dq[2][2][64 * 32];   // dq partial of each warpgroup: two 32-column halves of 128-byte rows
-  float stats[STAGES][64 * 2];
-  uint32_t rowx[STAGES][64];  // fold16 of each query's hash row term (dropout only)
-  uint64_t full[STAGES];
-  uint64_t empty[STAGES];
-  uint64_t kvbar;
-};
-
-constexpr int SMEM_BYTES = (int)sizeof(Smem) + 1024;  // + room to align the base
-
-__device__ __forceinline__ Smem& smem() {
-  extern __shared__ unsigned char smem_raw[];
-  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-}
-
-}  // namespace k2
 
 // grid (ceil(Lk / 128), H, B). stats is [B, H, ceil(Lq / 64) * 64, 2] f32:
 // (lse * log2 e, delta), zero past Lq. dq_acc is the zeroed f32 [B, Lq, H*64]
@@ -81,207 +34,8 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  const uint8_t* __restrict__ kv_valid, const int* __restrict__ seed_p,
                  const float* __restrict__ stats, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Lq,
                  int Lk, int mbq, int mbk, float rate, float keep_scale, uint32_t thresh) {
-  using namespace hopper;
-  k2::Smem& sm = k2::smem();
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * k2::KEYS;
-  const int nqt = (Lq + BQ - 1) / BQ;
-  const int wg = threadIdx.x >> 7;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < k2::STAGES; ++s) {
-      mbar_init(&sm.full[s], 32);    // the producer warp's lanes (lane 0 also expects the copies' bytes)
-      mbar_init(&sm.empty[s], 256);  // every consumer thread
-    }
-    mbar_init(&sm.kvbar, 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    // ---- producer: one warp (lane 0 issues the copies); the warpgroup gives up its registers
-    reg_dealloc<24>();
-    const int lane = threadIdx.x;
-    if (lane < 32) {
-      const bool dropout = rate > 0.f;
-      if (lane == 0) {
-        mbar_arrive_expect_tx(&sm.kvbar, 4 * k2::TILE_BYTES);
-        for (int c = 0; c < 2; ++c) {
-          tma_load_3d(sm.k[c], &tk, &sm.kvbar, h * DH, k0 + 64 * c, b);
-          tma_load_3d(sm.v[c], &tv, &sm.kvbar, h * DH, k0 + 64 * c, b);
-        }
-      }
-      const float* stats_bh = stats + ((size_t)b * H + h) * nqt * BQ * 2;
-      for (int it = 0; it < nqt; ++it) {
-        const int s = it % k2::STAGES;
-        const int q0 = it * BQ;
-        mbar_wait(&sm.empty[s], ((it / k2::STAGES) & 1) ^ 1);
-        if (dropout) {  // a 64-query tile lies inside one mask q-block: row = h*mbq + q % mbq
-          const uint32_t r0 = (uint32_t)(h * mbq + q0 % mbq + lane);
-          sm.rowx[s][lane] = fold16(r0 * ROW_MUL);
-          sm.rowx[s][lane + 32] = fold16((r0 + 32) * ROW_MUL);
-        }
-        if (lane == 0) {
-          mbar_arrive_expect_tx(&sm.full[s], 2 * k2::TILE_BYTES + k2::STAT_BYTES);
-          tma_load_3d(sm.q[s], &tq, &sm.full[s], h * DH, q0, b);
-          tma_load_3d(sm.dout[s], &tdo, &sm.full[s], h * DH, q0, b);
-          bulk_load(sm.stats[s], stats_bh + (size_t)q0 * 2, k2::STAT_BYTES, &sm.full[s]);
-        } else {
-          mbar_arrive(&sm.full[s]);
-        }
-      }
-    }
-  } else {
-    // ---- consumers: 64 keys each
-    reg_alloc<240>();
-    const int c = wg - 1;
-    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const int kc0 = k0 + 64 * c;
-    const int len = min(kv_len[b], Lk);
-    const bool dropout = rate > 0.f;
-    const int seed = dropout ? *seed_p : 0;
-    const float scale = 0.125f;  // 1/sqrt(64)
-    // keys owned by this thread: r = 0 -> kc0 + 16w + g, r = 1 -> + 8
-    const int krow[2] = {kc0 + warp * 16 + g, kc0 + warp * 16 + g + 8};
-    bool kval[2];
-    uint32_t col_term[2];  // hash column terms; a 64-key tile lies inside one mask k-block
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      kval[r] = key_valid(kv_valid + (size_t)b * Lk, len, krow[r]);
-      col_term[r] = (uint32_t)(krow[r] % mbk) * COL_MUL;
-    }
-    float dk_acc[32], dv_acc[32], st[32], dpt[32], mult[32], dq[32];
-    uint32_t pp[16], pd[16];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-    unsigned char* ds_tile = reinterpret_cast<unsigned char*>(sm.ds[c]);
-    float* dq_tile = &sm.dq[c][0][0];
-
-    mbar_wait(&sm.kvbar, 0);
-    const uint64_t dK = sw128_desc(sm.k[c]), dV = sw128_desc(sm.v[c]), dS = sw128_desc(sm.ds[c]);
-    for (int it = 0; it < nqt; ++it) {
-      const int s = it % k2::STAGES;
-      const int q0 = it * BQ;
-      mbar_wait(&sm.full[s], (it / k2::STAGES) & 1);
-      const uint64_t dQ = sw128_desc(sm.q[s]), dO = sw128_desc(sm.dout[s]);
-
-      // s^T = k q^T and dp^T = v do^T (64 keys x 64 queries), in flight while the hash runs
-      fence_regs(st);
-      fence_regs(dpt);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(st, dK + 2 * kk, dQ + 2 * kk, kk);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(dpt, dV + 2 * kk, dO + 2 * kk, kk);
-      wgmma_commit();
-      if (dropout) {  // from the folded key terms and the producer's folded query terms
-        const uint32_t mixmul = block_mix(seed, b, q0 / mbq, kc0 / mbk);
-        const uint32_t a[2] = {fold16(mixmul ^ col_term[0]), fold16(mixmul ^ col_term[1])};
-        const uint32_t* rx = sm.rowx[s];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint2 rr = *reinterpret_cast<const uint2*>(rx + j * 8 + 2 * t);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            mult[4 * j + e] = keep_bit_folded(a[e >> 1] ^ ((e & 1) ? rr.y : rr.x), thresh) ? keep_scale : 0.f;
-        }
-      }
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-
-      const float* L = sm.stats[s];
-      const int qlim = Lq - q0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * j + e, r = e >> 1;
-          const int qc = j * 8 + 2 * t + (e & 1);
-          const float2 ld = *reinterpret_cast<const float2*>(L + 2 * qc);  // (lse * log2 e, delta)
-          const float p = (kval[r] && qc < qlim) ? ex2(st[i] * (scale * LOG2E) - ld.x) : 0.f;
-          float dp = dpt[i];
-          float p_drop = p;
-          if (dropout) {
-            p_drop = p * mult[i];
-            dp = dp * mult[i];
-          }
-          st[i] = p_drop;
-          dpt[i] = p * (dp - ld.y) * scale;  // ds
-        }
-      }
-      hopper::pack_a(pp, st);
-      hopper::pack_a(pd, dpt);
-      // ds^T (bf16) to shared memory, 128-byte swizzled: row = key, chunk j ^ (row % 8)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = warp * 16 + g + 8 * r;
-          *reinterpret_cast<uint32_t*>(ds_tile + row * 128 + ((j ^ g) << 4) + 4 * t) = pd[2 * j + r];
-        }
-      }
-      fence_proxy_async();
-
-      // dv += p_drop^T do, dk += ds^T q: A from registers, do and q MN-major
-      wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dv_acc, pp + 4 * kc, dO + 128 * kc, 1);
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dk_acc, pd + 4 * kc, dQ + 128 * kc, 1);
-      wgmma_commit();
-      named_sync(1 + c, 128);  // the warpgroup's ds^T is in shared memory
-
-      // dq partial (64 queries x 64) = ds k: A = ds^T read MN-major, B = k MN-major
-      fence_regs(dq);
-      wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) wgmma_ss<1, 1>(dq, dS + 128 * kc, dK + 128 * kc, kc);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dq);
-      fence_regs(dk_acc);
-      fence_regs(dv_acc);
-      mbar_arrive(&sm.empty[s]);
-
-      // the previous partial's reduce-add has read the staging tile
-      if (tid == 0) bulk_wait_read();
-      named_sync(1 + c, 128);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = warp * 16 + g + 8 * r;
-          const int chunk = 2 * (j & 3) + (t >> 1);
-          float* dst = dq_tile + (j >> 2) * 2048 + row * 32 + ((chunk ^ g) << 2) + 2 * (t & 1);
-          *reinterpret_cast<float2*>(dst) = make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
-        }
-      }
-      fence_proxy_async();
-      named_sync(1 + c, 128);
-      if (tid == 0) {
-        tma_reduce_add_3d(&tdq, dq_tile, h * DH, q0, b);
-        tma_reduce_add_3d(&tdq, dq_tile + 2048, h * DH + 32, q0, b);
-        bulk_commit();
-      }
-    }
-    if (tid == 0) bulk_wait();  // the last reduce-adds are done before the block's shared memory goes
-
-    const int ld = H * DH;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (krow[r] >= Lk) continue;
-      bf16* dkrow = dk + ((size_t)b * Lk + krow[r]) * ld + h * DH;
-      bf16* dvrow = dv + ((size_t)b * Lk + krow[r]) * ld + h * DH;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(dkrow + j * 8 + 2 * t) =
-            __floats2bfloat162_rn(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dvrow + j * 8 + 2 * t) =
-            __floats2bfloat162_rn(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
-      }
-    }
-  }
+  k2::bwd_block<true, false>(&tq, &tdo, &tk, &tv, &tdq, kv_len, kv_valid, seed_p, stats, dk, dv, H, Lq, Lk, mbq,
+                             mbk, -1, rate, keep_scale, thresh);
 }
 
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, const void* kv_len,
@@ -289,21 +43,18 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, con
                                 void* dq_acc, void* dk, void* dv, int B, int H, int Lq, int Lk, int mbq, int mbk,
                                 float rate, float keep_scale, unsigned int thresh, void* stream) {
   CUtensorMap tq, tdo, tk, tv, tdq;
-  int err = hopper::make_map_bf16(&tq, q, B, Lq, H * DH, 64);
-  if (!err) err = hopper::make_map_bf16(&tdo, dout, B, Lq, H * DH, 64);
-  if (!err) err = hopper::make_map_bf16(&tk, k, B, Lk, H * DH, 64);
-  if (!err) err = hopper::make_map_bf16(&tv, v, B, Lk, H * DH, 64);
+  int err = hopper::make_qkv_maps(&tq, &tdo, &tk, &tv, q, dout, k, v, B, Lq, Lk, H * DH);
   if (!err) err = hopper::make_map_f32(&tdq, dq_acc, B, Lq, H * DH, 64);
   if (err) return err;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e =
-        cudaFuncSetAttribute(flash_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k2::SMEM_BYTES);
+        cudaFuncSetAttribute(flash_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k2::smem_bytes<true>());
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   dim3 grid((Lk + k2::KEYS - 1) / k2::KEYS, H, B);
-  flash_bwd_kernel<<<grid, k2::THREADS, k2::SMEM_BYTES, (cudaStream_t)stream>>>(
+  flash_bwd_kernel<<<grid, k2::THREADS, k2::smem_bytes<true>(), (cudaStream_t)stream>>>(
       tq, tdo, tk, tv, tdq, (const int*)kv_len, (const uint8_t*)kv_valid, (const int*)seed, (const float*)stats,
       (bf16*)dk, (bf16*)dv, H, Lq, Lk, mbq, mbk, rate, keep_scale, thresh);
   return (int)cudaGetLastError();

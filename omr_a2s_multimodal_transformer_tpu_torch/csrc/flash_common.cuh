@@ -147,28 +147,28 @@ __device__ __forceinline__ bool in_band(int q, int k, int window) {
   return !CAUSAL || (k <= q && (window <= 0 || k >= q - window));
 }
 
-// Key tiles [lo, hi] that hold a key some query of [q0, q0 + BQ) may see
+// Key tiles [lo, hi] that hold a key some query of [q0, q0 + rows) may see
 // (empty when lo > hi). The skip is by 64-key tile; the key test above
 // still masks each score, so the result equals the JAX block skip's.
 template <bool CAUSAL>
-__device__ __forceinline__ void key_tiles(int q0, int n_tiles, int window, int& lo, int& hi) {
+__device__ __forceinline__ void key_tiles(int q0, int n_tiles, int window, int& lo, int& hi, int rows = BQ) {
   lo = 0;
   hi = n_tiles - 1;
   if (CAUSAL) {
-    hi = min(hi, (q0 + BQ - 1) / BK);
+    hi = min(hi, (q0 + rows - 1) / BK);
     if (window > 0) lo = max(0, q0 - window) / BK;
   }
 }
 
 // Query tiles [lo, hi] that hold a query which may see some key of
-// [k0, k0 + BK).
+// [k0, k0 + keys).
 template <bool CAUSAL>
-__device__ __forceinline__ void query_tiles(int k0, int n_tiles, int window, int& lo, int& hi) {
+__device__ __forceinline__ void query_tiles(int k0, int n_tiles, int window, int& lo, int& hi, int keys = BK) {
   lo = 0;
   hi = n_tiles - 1;
   if (CAUSAL) {
     lo = k0 / BQ;
-    if (window > 0) hi = min(hi, (k0 + BK - 1 + window) / BQ);
+    if (window > 0) hi = min(hi, (k0 + keys - 1 + window) / BQ);
   }
 }
 

@@ -1,9 +1,8 @@
 // Hopper building blocks of the redesigned flash kernels (flash_fwd.cu K1,
-// flash_bwd.cu K2): TMA tensor maps (host) and loads / reduce-adds
-// (device), the mbarrier ring, wgmma descriptors and instructions, fences
-// and register reallocation. Everything here is sm_90a PTX; what
-// flash_common.cuh gives K1c, K3a, K3b and K4 (their mma.sync bodies) is
-// unchanged.
+// flash_bwd.cu K2, flash_dq.cu K3a, flash_dkv.cu K3b): TMA tensor maps
+// (host) and loads / reduce-adds (device), the mbarrier ring, wgmma
+// descriptors and instructions, fences and register reallocation.
+// Everything here is sm_90a PTX.
 //
 // Shared-memory tiles are 64 rows x 128 bytes (64 bf16 or 32 f32), written
 // by TMA with the 128-byte swizzle: the 16-byte chunk c of row r lands at
@@ -62,6 +61,17 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, int B, int L, int W
 
 inline int make_map_f32(CUtensorMap* map, const void* base, int B, int L, int W, int rows) {
   return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, L, W, rows);
+}
+
+// The maps of a flash kernel's q and do ([B, Lq, W] bf16) and k and v
+// ([B, Lk, W] bf16), 64-row boxes.
+inline int make_qkv_maps(CUtensorMap* tq, CUtensorMap* tdo, CUtensorMap* tk, CUtensorMap* tv, const void* q,
+                         const void* dout, const void* k, const void* v, int B, int Lq, int Lk, int W) {
+  int err = make_map_bf16(tq, q, B, Lq, W, 64);
+  if (!err) err = make_map_bf16(tdo, dout, B, Lq, W, 64);
+  if (!err) err = make_map_bf16(tk, k, B, Lk, W, 64);
+  if (!err) err = make_map_bf16(tv, v, B, Lk, W, 64);
+  return err;
 }
 
 // ---------------------------------------------------------------- device
@@ -180,6 +190,23 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Whether x holds for any of the `threads` threads that meet at named barrier id.
+__device__ __forceinline__ bool named_any(int id, int threads, bool x) {
+  uint32_t r;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.u32 p, %1, 0;\n bar.red.or.pred q, %2, %3, p;\n selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"((uint32_t)x), "r"(id), "r"(threads)
+      : "memory");
+  return r != 0;
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], bf16 in, f32 accumulate; A and B

@@ -34,8 +34,8 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 SIGNATURES = {
     "flash_fwd": ("flash_fwd_launch", [_P] * 10 + [_I] * 10 + [_F, _F, _U, _P]),
     "flash_bwd": ("flash_bwd_launch", [_P] * 11 + [_I] * 6 + [_F, _F, _U, _P]),
-    "flash_dq": ("flash_dq_launch", [_P] * 10 + [_I] * 8 + [_F, _F, _U, _P]),
-    "flash_dkv": ("flash_dkv_launch", [_P] * 11 + [_I] * 8 + [_F, _F, _U, _P]),
+    "flash_dq": ("flash_dq_launch", [_P] * 10 + [_I] * 10 + [_F, _F, _U, _P]),
+    "flash_dkv": ("flash_dkv_launch", [_P] * 10 + [_I] * 8 + [_F, _F, _U, _P]),
     "keep_mask": ("keep_mask_launch", [_P] * 2 + [_I] * 6 + [_U, _P]),
     "fused_stem_k1": ("fused_stem_k1_launch", [_P] * 13 + [_I] * 10 + [_F, _P]),
     "fused_stem_k2": ("fused_stem_k2_launch", [_P] * 9 + [_I] * 13 + [_F, _P]),

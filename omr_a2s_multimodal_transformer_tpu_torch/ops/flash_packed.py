@@ -17,8 +17,9 @@ Two routes, chosen by where the tensors lie, never by a switch:
   ``fwd_splits`` chunks merged by lse) or K1c (causal, optionally windowed;
   both ``csrc/flash_fwd.cu``) and whose backward launches K2
   (``csrc/flash_bwd.cu``, the merged backward of a non-causal call) or K3a
-  then K3b (``csrc/flash_dq.cu``, ``csrc/flash_dkv.cu``, the split backward
-  of every other call), as the JAX backward chooses. ``export_keep_masks``
+  then K3b (``csrc/flash_dq.cu``, its keys in ``dq_splits`` chunks summed
+  in order, and ``csrc/flash_dkv.cu``, K2's block without dq: the split
+  backward of every other call), as the JAX backward chooses. ``export_keep_masks``
   launches K4 (``csrc/keep_mask.cu``). There is no fallback: a kernel that
   does not build or launch raises.
 - CPU tensors go through ``flash_attention_plain``, the same function as
@@ -204,28 +205,53 @@ FWD_BLOCKS_PER_SM = 1  # K1's registers and shared memory hold one block on an S
 # (chip_smoke.py, flagship cross shape, H100 SXM) fit 1.5-2.9 and are fastest at this model's choice
 FWD_BLOCK_OVERHEAD_TILES = 2
 MAX_FWD_SPLITS = 16
+# consumer warpgroups of 64 queries in a non-causal K3a block (one block an SM), fixed in csrc/flash_dq.cu:
+# three were 6-8% faster than two at the flagship cross shape and dropout 0.1 on the H100 (a causal block
+# holds two, 7-15% faster than three at the paper's self-attention shape)
+DQ_CONSUMERS = 3
+
+
+def _key_splits(units: int, n_tiles: int, slots: int, overhead: int, max_splits: int) -> Tuple[int, int]:
+    """(n_split, per) minimizing waves x block time, ceil(units * n_split /
+    slots) x (per + overhead), over splits of n_tiles key tiles into chunks
+    of ``per`` that each hold a tile; ties go to the fewer chunks."""
+    best = None
+    for n_split in range(1, min(max_splits, n_tiles) + 1):
+        per = -(-n_tiles // n_split)
+        if -(-n_tiles // per) != n_split:
+            continue
+        cost = -(-units * n_split // max(1, slots)) * (per + overhead)
+        if best is None or cost < best[0]:
+            best = (cost, n_split, per)
+    return best[1], best[2]
 
 
 def fwd_splits(batch: int, n_heads: int, lq: int, lk: int, n_sm: int) -> Tuple[int, int]:
     """(n_split, per): K1 walks its ceil(lk / 64) key tiles in n_split
     chunks of ``per`` tiles, each chunk a block of its own, merged by lse.
-    The split minimizes waves x block time, ceil(units * n_split / slots) x
-    (per + FWD_BLOCK_OVERHEAD_TILES), over the card's n_sm one-block slots;
-    ties go to the fewer chunks. At the flagship cross shape (224 blocks of
+    The split minimizes waves x block time over the card's n_sm one-block
+    slots (``_key_splits``). At the flagship cross shape (224 blocks of
     192 queries, 199 key tiles) on 132 SMs it picks 4: 896 blocks in 6.79
     waves (7) instead of 224 in 1.70 (2)."""
     units = -(-lq // FWD_ROWS) * n_heads * batch
-    n_tiles = -(-lk // KERNEL_TILE)
-    slots = max(1, n_sm * FWD_BLOCKS_PER_SM)
-    best = None
-    for n_split in range(1, min(MAX_FWD_SPLITS, n_tiles) + 1):
-        per = -(-n_tiles // n_split)
-        if -(-n_tiles // per) != n_split:
-            continue
-        cost = -(-units * n_split // slots) * (per + FWD_BLOCK_OVERHEAD_TILES)
-        if best is None or cost < best[0]:
-            best = (cost, n_split, per)
-    return best[1], best[2]
+    return _key_splits(units, -(-lk // KERNEL_TILE), n_sm * FWD_BLOCKS_PER_SM, FWD_BLOCK_OVERHEAD_TILES,
+                       MAX_FWD_SPLITS)
+
+
+def dq_splits(batch: int, n_heads: int, lq: int, lk: int, n_sm: int) -> Tuple[int, int]:
+    """(n_split, per): K3a walks its ceil(lk / 64) key tiles in n_split
+    chunks of ``per`` tiles, each chunk a block of its own writing an f32
+    dq partial, summed in chunk order by the merge kernel. The chooser is
+    K1's (``fwd_splits``, with K1's fitted set-up constant) for blocks of
+    DQ_CONSUMERS x 64 queries, one an SM; it is not fitted to K3a, whose
+    blocks differ in length because key tiles with no valid key are
+    skipped. At the flagship cross shape (224 blocks of 192 queries, 199
+    key tiles) on 132 SMs it picks 4, 896 blocks in 6.79 waves (7) instead
+    of 224 in 1.70 (2); there 3 chunks ran faster than 4 in every 1-8
+    chunk sweep of chip_smoke.py on the H100 (by 0-5%), so it is off by
+    one chunk."""
+    units = -(-lq // (64 * DQ_CONSUMERS)) * n_heads * batch
+    return _key_splits(units, -(-lk // KERNEL_TILE), n_sm, FWD_BLOCK_OVERHEAD_TILES, MAX_FWD_SPLITS)
 
 
 def _split_of(n_tiles: int, n_split: int) -> Tuple[int, int]:
@@ -308,6 +334,14 @@ def attention_delta(do: torch.Tensor, o: torch.Tensor, n_heads: int) -> torch.Te
     return (do.float() * o.float()).reshape(b, lq, n_heads, pd // n_heads).sum(-1).transpose(1, 2).contiguous()
 
 
+def bwd_stats(lse: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """(lse * log2 e, delta) per query as f32 pairs, [B, H, Lq_p, 2] with
+    Lq padded to the 64-query tile and zero past Lq: what K2, K3a and K3b
+    read (K2 and K3b a tile's pairs in one bulk copy)."""
+    lq = lse.shape[-1]
+    return torch.nn.functional.pad(torch.stack((lse * LOG2E, delta), -1), (0, 0, 0, _round_up(lq, KERNEL_TILE) - lq))
+
+
 def flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, dropout_rate, n_heads, mask_bq, mask_bk):
     """Launch K2 (merged backward of a non-causal call). Returns (dq, dk, dv)
     bf16; dq is summed in float32 across key blocks by bulk reduce-adds
@@ -320,8 +354,7 @@ def flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, dropout_rate, n_
     do = do.to(torch.bfloat16).contiguous()
     delta = attention_delta(do, o, n_heads)
     _check_bwd_inputs(q, do, lse, delta, n_heads)
-    # K2 reads (lse * log2 e, delta) per query as pairs, 64 queries a bulk copy, zero past Lq
-    stats = torch.nn.functional.pad(torch.stack((lse * LOG2E, delta), -1), (0, 0, 0, _round_up(lq, KERNEL_TILE) - lq))
+    stats = bwd_stats(lse, delta)
     dq_acc = torch.zeros((b, lq, pd), device=q.device, dtype=torch.float32)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -341,19 +374,32 @@ flash_bwd_cuda.launches = 0
 
 
 def flash_dq_cuda(q, k, v, kv_len, kv_valid, seed, do, lse, delta, dropout_rate, n_heads, mask_bq, mask_bk,
-                  causal=False, window=-1):
+                  causal=False, window=-1, n_split=None):
     """Launch K3a: dq (bf16) of the split backward, given the forward's lse
-    and ``attention_delta``. Deterministic: dq is written once."""
+    and ``attention_delta``. A non-causal call walks the keys in ``n_split``
+    chunks when given (chip_smoke.py times each split), else in
+    ``dq_splits``'s for the card, and for more than one also launches the
+    merge kernel; a causal call walks its band in one. Deterministic: the
+    chunks' f32 partials are summed in a fixed order."""
     _check_cuda_inputs(q, k, v, kv_len, kv_valid, seed, n_heads, mask_bq, mask_bk)
     _check_bwd_inputs(q, do, lse, delta, n_heads)
-    b, lq, _ = q.shape
+    b, lq, pd = q.shape
+    lk = k.shape[1]
+    if causal:
+        n_split, per = 1, 1
+    elif n_split is None:
+        n_split, per = dq_splits(b, n_heads, lq, lk, _sm_count(q.device))
+    else:
+        n_split, per = _split_of(-(-lk // KERNEL_TILE), n_split)
+    stats = bwd_stats(lse, delta)
     dq = torch.empty_like(q)
+    dq_part = torch.empty((n_split, b, lq, pd), device=q.device, dtype=torch.float32) if n_split > 1 else None
     fn = cuda_build.load("flash_dq")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
-             seed.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             b, n_heads, lq, k.shape[1], mask_bq, mask_bk, int(causal), band_window(causal, window),
-             *_dropout_args(dropout_rate), stream)
+             seed.data_ptr(), do.data_ptr(), stats.data_ptr(), dq.data_ptr(),
+             None if dq_part is None else dq_part.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk, int(causal),
+             band_window(causal, window), n_split, per, *_dropout_args(dropout_rate), stream)
     if err != 0:
         raise RuntimeError(f"flash_dq launch failed: cudaError {err}")
     flash_dq_cuda.launches += 1
@@ -370,12 +416,13 @@ def flash_dkv_cuda(q, k, v, kv_len, kv_valid, seed, do, lse, delta, dropout_rate
     _check_cuda_inputs(q, k, v, kv_len, kv_valid, seed, n_heads, mask_bq, mask_bk)
     _check_bwd_inputs(q, do, lse, delta, n_heads)
     b, lq, _ = q.shape
+    stats = bwd_stats(lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     fn = cuda_build.load("flash_dkv")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
-             seed.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             seed.data_ptr(), do.data_ptr(), stats.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              b, n_heads, lq, k.shape[1], mask_bq, mask_bk, int(causal), band_window(causal, window),
              *_dropout_args(dropout_rate), stream)
     if err != 0:

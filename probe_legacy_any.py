@@ -40,13 +40,13 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PORT = "omr_a2s_multimodal_transformer_tpu_torch"
+sys.path.insert(0, str(ROOT))
+from probe_turns import PORT, build, card, copy_port, run_in_turns  # noqa: E402
+
 LA_LIBS = ["legacy_flash_any_fwd", "legacy_flash_any_dq", "legacy_flash_any_dkv"]
 BF16_LIBS = ["legacy_flash_fwd", "legacy_flash_dq", "legacy_flash_dkv"]
 SPLIT = re.compile(r"(__device__ __forceinline__ void split_tf32\(float x, uint32_t& big, uint32_t& small\) \{\n)"
@@ -65,11 +65,7 @@ SCHEMES = {  # name -> (body of split_tf32, body of mma_3xtf32 or None to keep t
 def write_scheme(name: str, dest: Path) -> Path:
     """A copy of the port and of the scripts under dest/name whose float32
     split is scheme `name`."""
-    root = dest / name
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(ROOT / PORT, root / PORT, ignore=shutil.ignore_patterns("__pycache__"))
-    for script in ("chip_smoke.py", Path(__file__).name):
-        shutil.copy(ROOT / script, root)
+    root = copy_port(ROOT, dest / name, Path(__file__).name)
     header = root / PORT / "csrc" / "legacy_flash_any_bwd.cuh"
     split, mma = SCHEMES[name]
     text, n = SPLIT.subn(lambda m: m.group(1) + split + "\n}", header.read_text())
@@ -239,18 +235,6 @@ def child(mode: str, out_dir: Path) -> dict:
     return res
 
 
-def parent_root(parent: Path, dest: Path) -> Path:
-    """dest/parent: the port of the checkout at `parent` beside this
-    checkout's chip_smoke.py and probe (its any_cross_fwd drives the
-    parent's wrappers, which take the same arguments)."""
-    root = dest / "parent"
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(parent / PORT, root / PORT, ignore=shutil.ignore_patterns("__pycache__"))
-    for script in ("chip_smoke.py", Path(__file__).name):
-        shutil.copy(ROOT / script, root)
-    return root
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", type=Path, default=ROOT / "build" / "legacy_any_probe")
@@ -268,25 +252,14 @@ def main(argv=None) -> int:
         res = child(args.child, out_dir)
         (out_dir / f"{args.child}.json").write_text(json.dumps(res, indent=1))
         return 0
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(card, flush=True)
+    results = {"card": card()}
+    print(results["card"], flush=True)
     roots = {"tf32x3": ROOT, **{name: write_scheme(name, out_dir / "schemes") for name in SCHEMES}}
-    if args.parent:
-        roots["parent"] = parent_root(args.parent.resolve(), out_dir / "schemes")
-    build = f"import sys; from {PORT}.ops import cuda_build; cuda_build.build_all(sys.argv[1:])"
-    builds = [subprocess.Popen([sys.executable, "-c", build, *(LA_LIBS[:1] if name == "parent" else LA_LIBS),
-                                *(BF16_LIBS if name == "tf32x3" else [])], cwd=root)
-              for name, root in roots.items()]
-    if any(p.wait() for p in builds):
-        raise RuntimeError("a build failed")
-    results = {"card": card}
-    for name, root in roots.items():
-        proc = subprocess.run([sys.executable, str(root / Path(__file__).name), "--child", name,
-                               "--out-dir", str(out_dir)], cwd=root, timeout=900)
-        if proc.returncode:
-            raise RuntimeError(f"{name}: exit code {proc.returncode}")
-        results[name] = json.loads((out_dir / f"{name}.json").read_text())
+    if args.parent:  # the parent's port beside this checkout's chip_smoke.py, whose any_cross_fwd drives it
+        roots["parent"] = copy_port(args.parent.resolve(), out_dir / "schemes" / "parent", Path(__file__).name)
+    build({root: (LA_LIBS[:1] if name == "parent" else LA_LIBS) + (BF16_LIBS if name == "tf32x3" else [])
+           for name, root in roots.items()})
+    results |= zip(roots, run_in_turns(Path(__file__).name, list(roots), roots, out_dir))
     (out_dir / "legacy_any_probe.json").write_text(json.dumps(results, indent=1))
     print(json.dumps(results))
     return 0

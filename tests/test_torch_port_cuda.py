@@ -13,7 +13,10 @@ both backward routes and the any-dtype forward bit-equal across two calls;
 the any-dtype forward in float32 over 128 key tiles).
 The K1/K2 cases include the edges of their Hopper design: lengths off the
 TMA box and the key chunks, a row whose only key is in the last chunk,
-grids smaller than the SM count, and dK/dV bit-equal across runs.
+grids smaller than the SM count, and dK/dV bit-equal across runs; the
+K3a/K3b cases lengths off the 128-row blocks, four key chunks of K3a, a
+whole invalid 128-key block of K3b, a batch row with no valid key (finite,
+zero gradients) and dq, dk, dv bit-equal across runs.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels are
 built with nvcc on first use) and skip elsewhere. They import nothing of
@@ -140,6 +143,11 @@ SPLIT_CASES = [
     dict(b=2, h=2, lq=192, lk=192, causal=True, window=-1, rate=0.1, merged=True),
     # K1 + K3a + K3b: a non-causal call with merged_bwd=False, two mask k-blocks of 512
     dict(b=2, h=4, lq=150, lk=700, causal=False, window=-1, rate=0.1, merged=False),
+    # the same off the 64-row tiles and K3a's 192-query and K3b's 128-key blocks, over 16 key tiles (8 of
+    # K3a's key chunks on 132 SMs),
+    # with batch row 0's keys 256-383 (a whole K3b block) invalid, at both rates
+    dict(b=2, h=4, lq=300, lk=1000, causal=False, window=-1, rate=0.0, merged=False, hole=True),
+    dict(b=2, h=4, lq=300, lk=1000, causal=False, window=-1, rate=0.1, merged=False, hole=True),
 ]
 
 
@@ -152,6 +160,8 @@ def _split_inputs(case, dev):
             for _ in range(2))
     kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
     kv_valid[-1, lk // 2:] = False  # a short target, or a ragged memory
+    if case.get("hole"):
+        kv_valid[0, 256:384] = False
     kv_len = torch.full((b,), lk, dtype=torch.int32, device=dev)
     # rows without a key to see (pad queries past the window) get no cotangent
     qpos, kpos = torch.arange(lq, device=dev)[:, None], torch.arange(lk, device=dev)[None, :]
@@ -166,7 +176,7 @@ def _split_inputs(case, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: f"h{c['h']}_q{c['lq']}_c{int(c['causal'])}_w{c['window']}"
-                                                            f"_r{c['rate']}")
+                                                            f"_r{c['rate']}" + ("_hole" if c.get("hole") else ""))
 def test_causal_and_split_kernels_match_plain_on_gpu(case):
     dev = _cuda()
     q, k, v, do, kv_len, kv_valid, rows = _split_inputs(case, dev)
@@ -197,17 +207,45 @@ def test_causal_and_split_kernels_match_plain_on_gpu(case):
 
 
 @pytest.mark.cuda
-def test_split_backward_is_deterministic_on_gpu():
+@pytest.mark.parametrize("causal", [True, False], ids=["window100", "noncausal_4chunks"])
+def test_split_backward_is_deterministic_on_gpu(causal):
+    """dq, dk and dv bit-equal over two runs: the windowed call, and a
+    non-causal one whose dq is summed from 4 key chunks by the merge."""
     dev = _cuda()
-    q, k, v, do, kv_len, kv_valid, _ = _split_inputs(SPLIT_CASES[1], dev)
+    q, k, v, do, kv_len, kv_valid, _ = _split_inputs(SPLIT_CASES[1 if causal else -1], dev)
     seed = torch.tensor([5], dtype=torch.int32, device=dev)
-    o, lse = fp.flash_fwd_causal_cuda(q, k, v, kv_len, kv_valid, seed, 0.1, 4, 128, 512, 100)
+    bq, bk = fp.mask_geometry(q.shape[1], k.shape[1], 128, 512)
+    if causal:
+        o, lse = fp.flash_fwd_causal_cuda(q, k, v, kv_len, kv_valid, seed, 0.1, 4, bq, bk, 100)
+    else:
+        o, lse = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, 0.1, 4, bq, bk)
     delta = fp.attention_delta(do, o, 4)
-    args = (q, k, v, kv_len, kv_valid, seed, do, lse, delta, 0.1, 4, 128, 512, True, 100)
-    first = (fp.flash_dq_cuda(*args), *fp.flash_dkv_cuda(*args))
-    second = (fp.flash_dq_cuda(*args), *fp.flash_dkv_cuda(*args))
+    args = (q, k, v, kv_len, kv_valid, seed, do, lse, delta, 0.1, 4, bq, bk, causal, 100 if causal else -1)
+    dq_kw = {} if causal else dict(n_split=4)
+    first = (fp.flash_dq_cuda(*args, **dq_kw), *fp.flash_dkv_cuda(*args))
+    second = (fp.flash_dq_cuda(*args, **dq_kw), *fp.flash_dkv_cuda(*args))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_split_backward_row_without_valid_key_is_finite():
+    """A batch row with no valid key: K3a's dq and K3b's dk, dv are finite
+    (p is 0 on every key, so all three are 0 there), at 1 and 4 key chunks."""
+    dev = _cuda()
+    q, k, v, do, kv_len, kv_valid, _ = _split_inputs(SPLIT_CASES[-1], dev)
+    kv_valid[1] = False
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    bq, bk = fp.mask_geometry(q.shape[1], k.shape[1], 128, 512)
+    o, lse = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, 0.1, 4, bq, bk)
+    args = (q, k, v, kv_len, kv_valid, seed, do, lse, fp.attention_delta(do, o, 4), 0.1, 4, bq, bk)
+    dk, dv = fp.flash_dkv_cuda(*args)
+    for n_split in (1, 4):
+        dq = fp.flash_dq_cuda(*args, n_split=n_split)
+        torch.cuda.synchronize()
+        assert torch.isfinite(dq.float()).all() and not dq[1].any()
+    assert torch.isfinite(dk.float()).all() and torch.isfinite(dv.float()).all()
+    assert not dk[1].any() and not dv[1].any()
 
 
 @pytest.mark.cuda

@@ -119,6 +119,11 @@ def test_chip_smoke_tells_every_kernel_apart_in_a_trace():
              "void flash_fwd_tma_merge_kernel(float const*, float const*)": "K1 flash fwd",
              "void flash_fwd_causal_kernel(__nv_bfloat16 const*)": "K1c flash fwd causal",
              "void flash_bwd_kernel(CUtensorMap_st, CUtensorMap_st)": "K2 flash bwd",
+             "void flash_dq_kernel<3, false>(CUtensorMap_st, CUtensorMap_st, int const*)": "K3a flash dq",
+             "void flash_dq_kernel<2, true>(CUtensorMap_st, CUtensorMap_st, int const*)": "K3a flash dq",
+             "void flash_dq_merge_kernel(float const*, __nv_bfloat16*, unsigned long, int)": "K3a flash dq",
+             "void flash_dkv_kernel<false>(CUtensorMap_st, CUtensorMap_st, int const*)": "K3b flash dk/dv",
+             "void flash_dkv_kernel<true>(CUtensorMap_st, CUtensorMap_st, int const*)": "K3b flash dk/dv",
              "void lfany_fwd_kernel<float, true>(float const*, int)": "LA legacy flash fwd, any dtype",
              "void lfany_dq_kernel<__half>(__half const*)": "LA legacy flash dq, any dtype",
              "void lfany_dkv_kernel<__nv_bfloat16>(__nv_bfloat16 const*)": "LA legacy flash dk/dv, any dtype",
@@ -150,3 +155,36 @@ def test_probe_legacy_any_changes_only_the_float32_split(tmp_path):
     for name in probe.SCHEMES:
         text = (probe.write_scheme(name, tmp_path) / probe.PORT / header).read_text()
         assert text != own and probe.MMA3.sub("", probe.SPLIT.sub("", text)) == rest, name
+
+
+def test_probe_split_bwd_imports_no_jax_and_needs_a_gpu(tmp_path):
+    """probe_split_bwd.py and probe_turns.py import no JAX and, without a
+    GPU, the probe exits 2 and prints no result."""
+    path = PORT_DIR.parent / "probe_split_bwd.py"
+    for script in (path, PORT_DIR.parent / "probe_turns.py"):
+        assert not {name.split(".")[0] for name in _imported_roots(script)} & set(FORBIDDEN), script.name
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
+    out = subprocess.run([sys.executable, str(path), "--out-dir", str(tmp_path)], capture_output=True, text=True,
+                         timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 2 and out.stdout == ""
+
+
+def test_probe_turns_copies_a_port_beside_the_scripts(tmp_path):
+    """probe_turns.copy_port: the port of a checkout (without __pycache__)
+    beside this checkout's chip_smoke.py, probe_turns.py and the probe, in
+    a root of its own that a second copy replaces."""
+    spec = importlib.util.spec_from_file_location("probe_turns", PORT_DIR.parent / "probe_turns.py")
+    probe_turns = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe_turns)
+    src = tmp_path / "checkout"
+    (src / probe_turns.PORT / "__pycache__").mkdir(parents=True)
+    (src / probe_turns.PORT / "ops.py").write_text("X = 1\n")
+    (src / probe_turns.PORT / "__pycache__" / "ops.pyc").write_bytes(b"")
+    root = probe_turns.copy_port(src, tmp_path / "roots" / "parent", "probe_split_bwd.py")
+    (root / "stale").write_text("")
+    root = probe_turns.copy_port(src, tmp_path / "roots" / "parent", "probe_split_bwd.py")
+    assert sorted(p.name for p in root.iterdir()) == sorted(
+        ["chip_smoke.py", "probe_turns.py", "probe_split_bwd.py", probe_turns.PORT])
+    assert [p.name for p in (root / probe_turns.PORT).iterdir()] == ["ops.py"]
+    assert (root / "chip_smoke.py").read_text() == (PORT_DIR.parent / "chip_smoke.py").read_text()

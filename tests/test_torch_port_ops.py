@@ -268,3 +268,28 @@ def test_given_split_covers_the_tiles_or_raises():
     for n_tiles, n_split in [(9, 4), (3, 4), (5, 0)]:  # 9 tiles in chunks of 3 are 3 chunks, not 4
         with pytest.raises(ValueError):
             tflash._split_of(n_tiles, n_split)
+
+
+def test_dq_splits_fill_the_card():
+    """K3a's key split: 4 chunks of 50 tiles at the flagship cross shape on
+    132 SMs (896 blocks of 192 queries in 6.79 waves), none where there is
+    one key tile, and always chunks that cover the tiles exactly."""
+    assert tflash.dq_splits(8, 4, 1268, 12696, 132) == (4, 50)
+    assert tflash.dq_splits(2, 4, 150, 60, 132) == (1, 1)
+    assert tflash.dq_splits(2, 4, 300, 1000, 132) == (8, 2)  # the card tests' many-chunk case
+    for shape in [(1, 4, 70, 4200), (2, 4, 150, 700), (2, 4, 1280, 12696), (64, 8, 2048, 512)]:
+        n_split, per = tflash.dq_splits(*shape, 132)
+        n_tiles = -(-shape[3] // 64)
+        assert 1 <= n_split <= tflash.MAX_FWD_SPLITS and (n_split - 1) * per < n_tiles <= n_split * per
+
+
+def test_bwd_stats_pairs_lse_and_delta_padded_to_the_tile():
+    """What K2, K3a and K3b read per query: (lse * log2 e, delta) as f32
+    pairs, Lq padded to the 64-query tile with zeros."""
+    rng = np.random.default_rng(3)
+    lse, delta = (torch.from_numpy(rng.normal(size=(2, 4, 70)).astype(np.float32)) for _ in range(2))
+    stats = tflash.bwd_stats(lse, delta)
+    assert stats.shape == (2, 4, 128, 2) and stats.dtype == torch.float32 and stats.is_contiguous()
+    np.testing.assert_allclose(stats[:, :, :70, 0].numpy(), lse.numpy() * np.float32(np.log2(np.e)), rtol=1e-6)
+    np.testing.assert_array_equal(stats[:, :, :70, 1].numpy(), delta.numpy())
+    assert not stats[:, :, 70:].any()
