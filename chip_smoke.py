@@ -15,9 +15,10 @@ Phases, each of which raises on failure (exit code 1):
        split of its key tiles into 1-8 chunks (the split the wrapper
        launched is read from the trace's grid); K3a and K3b as the
        split backward of a merged_bwd=False call (both rates), K3a also at
-       each split of its key tiles into 1-8 chunks, and the pair against
-       SDPA's backward at the same rate; K4, the keep-mask probe at the
-       decoder's 128/2048 blocks, bit for bit;
+       each split of its key tiles into 1-8 chunks (at dropout 0 beside
+       L2b, per head, at the same splits), and the pair against SDPA's
+       backward at the same rate; K4, the keep-mask probe at the decoder's
+       128/2048 blocks, bit for bit;
      - at the paper's self-attention shape (B 8, L 1268, 4 x 64 heads,
        window 100, ragged target lengths, 128/512 blocks), dropout 0 and
        0.1: K1c, K3a and K3b, with the banded attention of the windowed
@@ -28,13 +29,14 @@ Phases, each of which raises on failure (exit code 1):
        whole block against reference_block; the plain block's forward, the
        cuDNN convolutions of the block alone (convs_ms), and forward +
        backward of fused_packed_block against plain autograd;
-     - the per-head legacy flash family of tools/legacy_flash ([B, H, L, 64]
-       bf16) at the cross shape (L2: the images' kv_valid; L1: kv_len of
-       the same counts) and at the paper's self-attention shape (causal,
-       window 100, the targets as kv_len for L1 and kv_valid for L2, so pad
-       rows see no key and must give o = 0, lse = 0): L1, L2a, L2b, L2c
-       against the plain version, with plain and SDPA times, beside the
-       head-packed K1, K3a, K3b and K2 at dropout 0;
+     - the per-head legacy flash family of tools/legacy_flash ([B, H, L, D]
+       bf16) at the cross shape with 4 x 64 heads and with 2 x 128 (L2: the
+       images' kv_valid; L1: kv_len of the same counts) and at the paper's
+       self-attention shape (4 x 64, causal, window 100, the targets as
+       kv_len for L1 and kv_valid for L2, so pad rows see no key and must
+       give o = 0, lse = 0): L1, L2a, L2b, L2c against the plain version,
+       with plain and SDPA times (SDPA's backward also in device time),
+       beside the head-packed K1, K3a, K3b and K2 at dropout 0;
      - the any-dtype legacy kernels (LA: float16, float32, heads over 128)
        at B 2, H 4, 256 x 1,024: float32 D 64 and 192 to 1e-4 x max |plain|,
        float16 D 64 and bf16 D 192 to 2e-2 (lse 1e-4), with times of the
@@ -150,8 +152,10 @@ KERNELS = {
                             "lf_fwd_kernel", 1),
     "L2a legacy flash fwd lse": (fb.legacy_fwd_lse_cuda, "legacy_flash_fwd.cu",
                                  JAX_LEGACY + "flash_attention_bwd.py:57", "lf_fwd_lse_kernel", 1),
+    # L2b, K3a's block per head, launches the key-chunk kernel and the merge (a non-causal call of more than one
+    # chunk, legacy_dq_splits) or the first alone
     "L2b legacy flash dq": (fb.legacy_dq_cuda, "legacy_flash_dq.cu", JAX_LEGACY + "flash_attention_bwd.py:109",
-                            "lf_dq_kernel", 1),
+                            "lf_dq_", 2),
     "L2c legacy flash dk/dv": (fb.legacy_dkv_cuda, "legacy_flash_dkv.cu", JAX_LEGACY + "flash_attention_bwd.py:150",
                                "lf_dkv_kernel", 1),
     # the same family for what the bf16 tensor-core kernels do not take (float16, float32, heads over 128)
@@ -289,6 +293,19 @@ def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms, peak=PEAK_BF1
                 bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=library_ms, **extra)
 
 
+def l2b_kernels(q, k, causal, n_split=None) -> int:
+    """Device kernels of one L2b launch on [B, H, L, D] q and k: the
+    key-chunk kernel and, for a non-causal call of more than one chunk
+    (n_split, or legacy_dq_splits' for the card), the merge."""
+    if causal:
+        return 1
+    if n_split is None:
+        b, h, lq, d = q.shape
+        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_split = fb.legacy_dq_splits(b, h, lq, k.shape[2], d, n_sm)[0]
+    return 1 if n_split == 1 else 2
+
+
 def ragged_hw(n, device):
     """Image sizes with invalid tails: full width first, then narrower."""
     hws = [[IMG_H, IMG_W], [IMG_H, 4100], [340, 3900], [IMG_H, 3600], [300, 4416], [IMG_H, 4000], [361, 2800], [330, 4300]]
@@ -410,6 +427,21 @@ def phase_cross(dev):
         log(f"  K3a {r['ms3a']:.3f} ms at dq_splits' {r['n_split3a']} key chunks (call {r['call3a']:.3f}), K3b "
             f"{r['ms3b']:.3f} ms (call {r['call3b']:.3f}) (split backward, non-causal); K3a device ms by chunks: "
             + ", ".join(f"{n} {ms:.4f}" for n, ms in r["split_ms3a"].items()) + f"; fastest {fastest}")
+        if rate == 0.0:  # L2b, K3a's block per head, on the same heads at the same splits (legacy flash: no dropout)
+            per_head = [t.view(B, t.shape[1], HEADS, 64).transpose(1, 2).contiguous() for t in (q, k, v, do, dq_p)]
+            largs = (*per_head[:3], kv_len, kv_valid, per_head[3], lse_k, delta, False, -1)
+            r["split_ms_l2b"], split_errs = {}, []
+            for n_split in range(1, 9):
+                split_errs.append(max_err(fb.legacy_dq_cuda(*largs, n_split=n_split), per_head[4]))
+                r["split_ms_l2b"][n_split] = kernel_times(
+                    "L2b legacy flash dq", lambda: fb.legacy_dq_cuda(*largs, n_split=n_split), reps=20,
+                    per_launch=l2b_kernels(per_head[0], per_head[1], False, n_split), record=False)[0]
+            r["err_l2b"] = check("L2b dq, 1-8 key chunks", max(split_errs), float(dq_p.detach().float().abs().max()),
+                                 KERNEL_TOL)
+            fastest = min(r["split_ms_l2b"], key=r["split_ms_l2b"].get)
+            log("  L2b device ms by chunks (per head, dropout 0): "
+                + ", ".join(f"{n} {ms:.4f}" for n, ms in r["split_ms_l2b"].items()) + f"; fastest {fastest}")
+            del per_head, largs
         del dq3, dk3, dv3, delta, args
         rows[rate] = r
         del o_p, lse_p, dq_p, dk_p, dv_p, qr, kr, vr
@@ -475,6 +507,8 @@ def phase_cross(dev):
                         library_device_ms_cross=lib[0.1][3], library_device_ms_cross_dropout0=lib[0.0][3],
                         n_split_cross=main["n_split3a"], split_ms_cross=main["split_ms3a"],
                         split_ms_cross_dropout0=r0["split_ms3a"], launch_record_cross=main["info3a"]),
+        # L2b at 1-8 key chunks on the per-head copies of the dropout-0 inputs
+        "l2b_sweep": dict(split_ms_cross=r0["split_ms_l2b"], max_abs_err_splits=r0["err_l2b"]),
         "cross3b": dict(max_abs_err_cross=max(main["err3b"], r0["err3b"]), ms_cross=main["ms3b"],
                         call_ms_cross=main["call3b"], ms_cross_dropout0=r0["ms3b"],
                         plain_ms_cross=main["plain2"],
@@ -812,7 +846,7 @@ def kernel_kind(name: str) -> str:
                       ("lfany_dq_kernel", "LA legacy flash dq, any dtype"),
                       ("lfany_dkv_kernel", "LA legacy flash dk/dv, any dtype"),
                       ("lf_fwd_lse_kernel", "L2a legacy flash fwd lse"), ("lf_fwd_kernel", "L1 legacy flash fwd"),
-                      ("lf_dq_kernel", "L2b legacy flash dq"), ("lf_dkv_kernel", "L2c legacy flash dk/dv"),
+                      ("lf_dq_", "L2b legacy flash dq"), ("lf_dkv_kernel", "L2c legacy flash dk/dv"),
                       ("flash_fwd", "K1 flash fwd"), ("flash_bwd", "K2 flash bwd"), ("flash_dq", "K3a flash dq"),
                       ("flash_dkv", "K3b flash dk/dv"), ("keep_mask", "K4 keep mask"),
                       ("fused_stem_k1", "K5a fused stem k1"), ("fused_stem_k2", "K5b fused stem k2")):
@@ -938,55 +972,59 @@ def op_path(dev):
     return launches
 
 
-def legacy_work(pairs, n_keys, lk, kv_valid):
-    """(operations, bytes) of L1, L2a, L2b and L2c at head width 64 for
-    `pairs` (head, query, key) triples that a query sees and `n_keys` valid
-    keys over the batch: the products of those pairs; q, o, do, dq once,
-    k and v at the valid keys, lse and delta (f32), the key masks, and dk
-    and dv written whole."""
-    qb = B * HEADS * LQ * 64 * 2
-    kv_bytes = n_keys * HEADS * 64 * 2
-    stats = B * HEADS * LQ * 4
+def legacy_work(pairs, n_keys, lk, kv_valid, heads=HEADS, d=64):
+    """(operations, bytes) of L1, L2a, L2b and L2c at `heads` heads of
+    width d for `pairs` (head, query, key) triples that a query sees and
+    `n_keys` valid keys over the batch: the products of those pairs; q, o,
+    do, dq once, k and v at the valid keys, lse and delta (f32), the key
+    masks, and dk and dv written whole."""
+    qb = B * heads * LQ * d * 2
+    kv_bytes = n_keys * heads * d * 2
+    stats = B * heads * LQ * 4
     small = B * 4 + kv_valid.numel()
-    return {"L1 legacy flash fwd": (4 * 64 * pairs, 2 * qb + 2 * kv_bytes + B * 4),
-            "L2a legacy flash fwd lse": (4 * 64 * pairs, 2 * qb + 2 * kv_bytes + stats + small),
-            "L2b legacy flash dq": (6 * 64 * pairs, 3 * qb + 2 * kv_bytes + 2 * stats + small),
-            "L2c legacy flash dk/dv": (8 * 64 * pairs, 2 * qb + 2 * kv_bytes + 2 * stats + small
-                                       + 2 * B * HEADS * lk * 64 * 2)}
+    return {"L1 legacy flash fwd": (4 * d * pairs, 2 * qb + 2 * kv_bytes + B * 4),
+            "L2a legacy flash fwd lse": (4 * d * pairs, 2 * qb + 2 * kv_bytes + stats + small),
+            "L2b legacy flash dq": (6 * d * pairs, 3 * qb + 2 * kv_bytes + 2 * stats + small),
+            "L2c legacy flash dk/dv": (8 * d * pairs, 2 * qb + 2 * kv_bytes + 2 * stats + small
+                                       + 2 * B * heads * lk * d * 2)}
 
 
 def phase_legacy(dev, cross):
-    """L1, L2a, L2b and L2c, per-head [B, H, L, 64] bf16, at the flagship
-    cross shape (L2: the images' kv_valid; L1: kv_len of the same counts)
-    and at the paper's self-attention shape (causal, window 100, the
+    """L1, L2a, L2b and L2c, per-head [B, H, L, D] bf16, at the flagship
+    cross shape with 4 x 64 heads and with 2 x 128 (the model's 256
+    columns; L2: the images' kv_valid; L1: kv_len of the same counts) and
+    at the paper's self-attention shape (4 x 64, causal, window 100, the
     targets as kv_len for L1 and as kv_valid for L2, so that the pad rows
     past a target see no key): each against its plain version (rows with no
-    key: o = 0 and lse = 0 in both), device time, plain time and SDPA with
-    the same boolean mask (forward beside L1 and L2a, backward beside L2b
-    and L2c). The head-packed kernels of the cross phase at dropout 0 stand
-    beside them: K1 beside L2a, K3a beside L2b, K3b beside L2c, K2 beside
-    L2b + L2c."""
+    key: o = 0 and lse = 0 in both), device time with its launch record,
+    plain time and SDPA with the same boolean mask (forward beside L1 and
+    L2a, backward beside L2b and L2c, the backward also in device time).
+    The head-packed kernels of the cross phase at dropout 0 stand beside
+    them: K1 beside L2a, K3a beside L2b (also at 1-8 key chunks), K3b
+    beside L2c, K2 beside L2b + L2c."""
     g = torch.Generator(device=dev).manual_seed(6)
     lengths = torch.tensor(TARGET_LENGTHS, dtype=torch.int32, device=dev)
     valid_cross = memory_valid_from_hw(ragged_hw(B, dev), GRID_H, GRID_W).contiguous()
-    shapes = {
-        "cross": dict(lk=LK, band=dict(causal=False, window=-1), kv_len1=valid_cross.sum(1).to(torch.int32),
-                      kv_valid=valid_cross),
-        "self": dict(lk=LQ, band=dict(causal=True, window=WINDOW), kv_len1=lengths,
+    cross_shape = dict(lk=LK, band=dict(causal=False, window=-1), kv_len1=valid_cross.sum(1).to(torch.int32),
+                       kv_valid=valid_cross)
+    shapes = {  # the cross shape at D 64 last: its launch records stay in KERNEL_INFO for the kernels line
+        "self": dict(lk=LQ, band=dict(causal=True, window=WINDOW), kv_len1=lengths, heads=HEADS, d=64,
                      kv_valid=(torch.arange(LQ, device=dev)[None, :] < lengths[:, None]).contiguous()),
+        "cross128": dict(cross_shape, heads=2, d=128),
+        "cross": dict(cross_shape, heads=HEADS, d=64),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {name: {} for name in LEGACY_BF16}
     for tag, s in shapes.items():
-        lk, band, kv_len1, kv_valid = s["lk"], s["band"], s["kv_len1"], s["kv_valid"]
+        lk, band, kv_len1, kv_valid, heads, d = s["lk"], s["band"], s["kv_len1"], s["kv_valid"], s["heads"], s["d"]
         kv_len2 = torch.full((B,), lk, dtype=torch.int32, device=dev)
-        q, k, v, do = (torch.randn((B, HEADS, n, 64), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v, do = (torch.randn((B, heads, n, d), generator=g, device=dev).to(torch.bfloat16)
                        for n in (LQ, lk, lk, LQ))
         see = fl.visible_keys(LQ, lk, kv_len2, kv_valid, band["causal"], band["window"])  # [B, 1, Lq or 1, Lk]
-        pairs = HEADS * int(see.sum()) * (LQ if see.shape[2] == 1 else 1)
-        work = legacy_work(pairs, int(kv_valid.sum()), lk, kv_valid)
-        log(f"[legacy {tag}] B {B} H {HEADS} Lq {LQ} Lk {lk} D 64 bf16, {band}, "
-            f"{pairs // HEADS} (query, key) pairs to see over the batch")
+        pairs = heads * int(see.sum()) * (LQ if see.shape[2] == 1 else 1)
+        work = legacy_work(pairs, int(kv_valid.sum()), lk, kv_valid, heads, d)
+        log(f"[legacy {tag}] B {B} H {heads} Lq {LQ} Lk {lk} D {d} bf16, {band}, "
+            f"{pairs // heads} (query, key) pairs to see over the batch")
 
         o1 = fl.legacy_fwd_cuda(q, k, v, kv_len1, **band)
         o2, lse2 = fb.legacy_fwd_lse_cuda(q, k, v, kv_len2, kv_valid, **band)
@@ -1008,16 +1046,21 @@ def phase_legacy(dev, cross):
             n_empty.append(int(empty.sum()))
             if o[empty].any() or (lse_k is not None and lse_k[empty].any()):
                 raise AssertionError(f"{name}: a row with no key to see must give o = 0 and lse = 0")
-        if band["causal"] and not all(n_empty):
-            raise AssertionError("the paper shape must have rows with no key to see")
+        if band["causal"]:
+            if not all(n_empty):
+                raise AssertionError("the paper shape must have rows with no key to see")
+            empty = (lse2_p.detach() == 0)[..., None]
+            if (dq * empty).any():
+                raise AssertionError("L2b: a row with no key to see must give dq = 0")
         log(f"  rows with no key (o = 0, lse = 0 in kernel and plain version): L1 {n_empty[0]}, L2a {n_empty[1]} "
-            f"of {B * HEADS * LQ}")
+            f"of {B * heads * LQ}")
         del o1_p, lse1_p, o1, dq, dk, dv
 
         timed = {"L1 legacy flash fwd": lambda: fl.legacy_fwd_cuda(q, k, v, kv_len1, **band),
                  "L2a legacy flash fwd lse": lambda: fb.legacy_fwd_lse_cuda(q, k, v, kv_len2, kv_valid, **band),
                  "L2b legacy flash dq": lambda: fb.legacy_dq_cuda(*bargs),
                  "L2c legacy flash dk/dv": lambda: fb.legacy_dkv_cuda(*bargs)}
+        per_launch = {"L2b legacy flash dq": l2b_kernels(q, k, band["causal"])}
         plain_fwd1 = time_ms(lambda: fl.attention_plain(q, k, v, kv_len1, None, **band), reps=3, warmup=1)
         plain_fwd2 = time_ms(lambda: fl.attention_plain(q, k, v, kv_len2, kv_valid, **band), reps=3, warmup=1)
         plain_bwd = time_ms(lambda: torch.autograd.grad(o2_p, (qr, kr, vr), do, retain_graph=True), reps=3, warmup=1)
@@ -1029,29 +1072,39 @@ def phase_legacy(dev, cross):
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
         o_s = sdpa(qs, ks, vs, attn_mask=see)
         lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do, retain_graph=True))
+        lib_bwd_dev = device_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do, retain_graph=True))
         del o_s, qs, ks, vs
         plain = {"L1 legacy flash fwd": plain_fwd1, "L2a legacy flash fwd lse": plain_fwd2,
                  "L2b legacy flash dq": plain_bwd, "L2c legacy flash dk/dv": plain_bwd}
         lib = {"L1 legacy flash fwd": lib_fwd1, "L2a legacy flash fwd lse": lib_fwd2,
                "L2b legacy flash dq": lib_bwd, "L2c legacy flash dk/dv": lib_bwd}
         for name, fn in timed.items():
-            ms, call = kernel_times(name, fn)
+            ms, call = kernel_times(name, fn, per_launch=per_launch.get(name))
             ops, nbytes = work[name]
             t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
             rows[name][tag] = dict(err=err[name], ms=ms, call_ms=call, plain_ms=plain[name], library_ms=lib[name],
                                    work=work[name], bound_ms=max(t_ops, t_bytes) * 1e3,
-                                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+                                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                                   launch_record=dict(KERNEL_INFO.get(name, {})))
+            if name in ("L2b legacy flash dq", "L2c legacy flash dk/dv"):
+                rows[name][tag]["library_device_ms"] = lib_bwd_dev
         log("  " + ", ".join(f"{n.split()[0]} {rows[n][tag]['ms']:.4f} ms (call {rows[n][tag]['call_ms']:.3f}, "
                                f"bound {rows[n][tag]['bound_ms']:.4f})" for n in timed))
+        pair = rows["L2b legacy flash dq"][tag]["ms"] + rows["L2c legacy flash dk/dv"][tag]["ms"]
         log(f"  plain fwd {plain_fwd1:.3f} (L1) / {plain_fwd2:.3f} (L2a) ms, plain autograd bwd {plain_bwd:.3f} ms; "
-            f"SDPA fwd {lib_fwd1:.3f} / {lib_fwd2:.3f} ms, bwd {lib_bwd:.3f} ms")
+            f"SDPA fwd {lib_fwd1:.3f} / {lib_fwd2:.3f} ms, bwd {lib_bwd:.3f} ms (device {lib_bwd_dev:.4f} ms); "
+            f"L2b + L2c {pair:.4f} ms, {pair / lib_bwd_dev:.3f} x SDPA's backward device time")
+        for name in ("L2b legacy flash dq", "L2c legacy flash dk/dv"):
+            log(f"  {name.split()[0]} launch record: {rows[name][tag]['launch_record']}")
         del q, k, v, do, o2, lse2, bargs, qr, kr, vr, see, mask1, timed
         torch.cuda.empty_cache()
 
     # the head-packed kernels of the same function at the cross shape, dropout 0
     packed = {"L2a legacy flash fwd lse": dict(k1_ms_dropout0=cross["K1 flash fwd"]["ms_dropout0"]),
               "L2b legacy flash dq": dict(k2_ms_dropout0=cross["K2 flash bwd"]["ms_dropout0"],
-                                          k3a_ms_dropout0=cross["cross3a"]["ms_cross_dropout0"]),
+                                          k3a_ms_dropout0=cross["cross3a"]["ms_cross_dropout0"],
+                                          k3a_split_ms_dropout0=cross["cross3a"]["split_ms_cross_dropout0"],
+                                          **cross["l2b_sweep"]),
               "L2c legacy flash dk/dv": dict(k2_ms_dropout0=cross["K2 flash bwd"]["ms_dropout0"],
                                              k3b_ms_dropout0=cross["cross3b"]["ms_cross_dropout0"])}
     ms = {name: r["cross"]["ms"] for name, r in rows.items()}
@@ -1063,12 +1116,21 @@ def phase_legacy(dev, cross):
         f"{cross['K2 flash bwd']['ms_dropout0']:.3f} ms")
     out = {}
     for name, r in rows.items():
-        c, sf = r["cross"], r["self"]
-        out[name] = kernel_row(name, max(c["err"], sf["err"]), c["ms"], c["plain_ms"], *c["work"], c["library_ms"],
-                               call_ms=c["call_ms"], max_abs_err_cross=c["err"], max_abs_err_self=sf["err"],
-                               ms_self=sf["ms"], call_ms_self=sf["call_ms"], plain_ms_self=sf["plain_ms"],
-                               bound_ms_self=sf["bound_ms"], bound_by_self=sf["bound_by"],
-                               library_ms_self=sf["library_ms"], **packed.get(name, {}))
+        c = r["cross"]
+        extra = {}
+        for tag in ("self", "cross128"):
+            x = r[tag]
+            extra |= {f"max_abs_err_{tag}": x["err"], f"ms_{tag}": x["ms"], f"call_ms_{tag}": x["call_ms"],
+                      f"plain_ms_{tag}": x["plain_ms"], f"bound_ms_{tag}": x["bound_ms"],
+                      f"bound_by_{tag}": x["bound_by"], f"library_ms_{tag}": x["library_ms"],
+                      f"launch_record_{tag}": x["launch_record"]}
+            if "library_device_ms" in x:
+                extra[f"library_device_ms_{tag}"] = x["library_device_ms"]
+        if "library_device_ms" in c:
+            extra["library_device_ms"] = c["library_device_ms"]
+        out[name] = kernel_row(name, max(x["err"] for x in r.values()), c["ms"], c["plain_ms"], *c["work"],
+                               c["library_ms"], call_ms=c["call_ms"], max_abs_err_cross=c["err"],
+                               **extra, **packed.get(name, {}))
     return out
 
 

@@ -1,13 +1,16 @@
-// The backward block of K2 (flash_bwd.cu: dq, dk and dv) and K3b
-// (flash_dkv.cu: dk and dv of the split backward, causal or not), shared.
+// The backward block of K2 (flash_bwd.cu: dq, dk and dv), K3b
+// (flash_dkv.cu: dk and dv of the split backward, causal or not) and L2c
+// (legacy_flash_dkv.cu: dk and dv of the per-head legacy backward, no
+// dropout, heads of 64 or 128 columns), shared.
 //
-// Per head h, with p = exp(s - lse) on the keys a query may see (0
+// Per head h, with p = exp(s * scale - lse) on the keys a query may see (0
 // elsewhere), M the dropout keep-mask regenerated from the same hash as the
-// forward and delta = rowsum(do * o) per (b, h, q) computed by the caller:
-//   dp = (do v^T) * M / (1 - rate),  ds = p * (dp - delta) / 8
+// forward (DROP only) and delta = rowsum(do * o) per (b, h, q) computed by
+// the caller:
+//   dp = (do v^T) * M / (1 - rate),  ds = p * (dp - delta) * scale
 //   dv = (p * M / (1 - rate))^T do,  dk = ds^T q,  dq = ds k (K2 only)
 // p_drop and ds are rounded to bf16 before their products, as in the TPU
-// kernel.
+// kernels.
 //
 // A block of three warpgroups per (128-key block, head, batch row): a
 // producer (one warp: a thread issues TMA loads, the block's K and V tiles
@@ -33,6 +36,10 @@
 // The accumulator layout gives each thread keys 16w + g and + 8 and query
 // pairs 8j + 2t, the layout of the mma.sync kernels, so the hoisted hash
 // terms, and the keep-mask, are the same as the forward's.
+// PER_HEAD (L2c) reads a per-head [B, H, L, D] tensor as a map of (D
+// columns, L rows, B*H) and writes dk and dv at row_offset, stopping at D;
+// a 128-wide head (NB = 2 boxes of 64 columns) holds dk and dv in two
+// 64 x 64 f32 accumulators each and runs every product as two halves.
 #pragma once
 
 #include "flash_common.cuh"
@@ -58,12 +65,13 @@ struct DqStage {
 template <>
 struct DqStage<false> {};
 
-template <bool DQ>
+// NB 64-column boxes per tile row (a head of 64 or 128 columns)
+template <bool DQ, int NB>
 struct Smem {
-  bf16 k[2][64 * 64];  // every tile 1024-byte aligned (the struct is placed at a 1024-byte boundary)
-  bf16 v[2][64 * 64];
-  bf16 q[STAGES][64 * 64];
-  bf16 dout[STAGES][64 * 64];
+  bf16 k[2][NB][64 * 64];  // every box 1024-byte aligned (the struct is placed at a 1024-byte boundary)
+  bf16 v[2][NB][64 * 64];
+  bf16 q[STAGES][NB][64 * 64];
+  bf16 dout[STAGES][NB][64 * 64];
   DqStage<DQ> stage;
   alignas(16) float stats[STAGES][64 * 2];
   uint32_t rowx[STAGES][64];  // fold16 of each query's hash row term (dropout only)
@@ -72,32 +80,36 @@ struct Smem {
   uint64_t kvbar;
 };
 
-template <bool DQ>
+template <bool DQ, int NB>
 constexpr int smem_bytes() {
-  return (int)sizeof(Smem<DQ>) + 1024;  // + room to align the base
+  return (int)sizeof(Smem<DQ, NB>) + 1024;  // + room to align the base
 }
 
-template <bool DQ>
-__device__ __forceinline__ Smem<DQ>& smem() {
+template <bool DQ, int NB>
+__device__ __forceinline__ Smem<DQ, NB>& smem() {
   extern __shared__ unsigned char smem_raw[];
-  return *reinterpret_cast<Smem<DQ>*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  return *reinterpret_cast<Smem<DQ, NB>*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 }
 
 // The block (blockIdx.x = 128-key block, y = head, z = batch row). stats is
 // [B, H, ceil(Lq / 64) * 64, 2] f32: (lse * log2 e, delta), zero past Lq.
 // tdq (DQ only) maps the zeroed f32 [B, Lq, H*64] that the bulk reductions
-// add into; window is the band's (CAUSAL only; <= 0: none).
-template <bool DQ, bool CAUSAL>
+// add into; window is the band's (CAUSAL only; <= 0: none). D is the
+// per-head width (PER_HEAD only).
+template <bool DQ, bool CAUSAL, bool PER_HEAD, int NB, bool DROP>
 __device__ __forceinline__ void bwd_block(const CUtensorMap* tq, const CUtensorMap* tdo, const CUtensorMap* tk,
                                           const CUtensorMap* tv, const CUtensorMap* tdq,
                                           const int* __restrict__ kv_len, const uint8_t* __restrict__ kv_valid,
                                           const int* __restrict__ seed_p, const float* __restrict__ stats,
-                                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Lq, int Lk,
-                                          int mbq, int mbk, int window, float rate, float keep_scale,
+                                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Lq, int Lk, int D,
+                                          int mbq, int mbk, int window, float scale, float rate, float keep_scale,
                                           uint32_t thresh) {
   using namespace hopper;
-  Smem<DQ>& sm = smem<DQ>();
+  static_assert(PER_HEAD || NB == 1, "a head-packed head is 64 columns");
+  static_assert(!DQ || (!PER_HEAD && DROP), "dq is K2's");
+  Smem<DQ, NB>& sm = smem<DQ, NB>();
   const int h = blockIdx.y, b = blockIdx.z;
+  const int2 at = tile_at<PER_HEAD>(b, h, H);
   const int k0 = blockIdx.x * KEYS;
   const int nqt = (Lq + BQ - 1) / BQ;
   int qt_lo, qt_hi;
@@ -120,12 +132,12 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* tq, const CUtensorM
     reg_dealloc<24>();
     const int lane = threadIdx.x;
     if (lane < 32) {
-      const bool dropout = rate > 0.f;
+      const bool dropout = DROP && rate > 0.f;
       if (lane == 0) {
-        mbar_arrive_expect_tx(&sm.kvbar, 4 * TILE_BYTES);
+        mbar_arrive_expect_tx(&sm.kvbar, 4 * NB * TILE_BYTES);
         for (int c = 0; c < 2; ++c) {
-          tma_load_3d(sm.k[c], tk, &sm.kvbar, h * DH, k0 + 64 * c, b);
-          tma_load_3d(sm.v[c], tv, &sm.kvbar, h * DH, k0 + 64 * c, b);
+          for (int x = 0; x < NB; ++x) tma_load_3d(sm.k[c][x], tk, &sm.kvbar, at.x + 64 * x, k0 + 64 * c, at.y);
+          for (int x = 0; x < NB; ++x) tma_load_3d(sm.v[c][x], tv, &sm.kvbar, at.x + 64 * x, k0 + 64 * c, at.y);
         }
       }
       const float* stats_bh = stats + ((size_t)b * H + h) * nqt * BQ * 2;
@@ -139,9 +151,9 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* tq, const CUtensorM
           sm.rowx[s][lane + 32] = fold16((r0 + 32) * ROW_MUL);
         }
         if (lane == 0) {
-          mbar_arrive_expect_tx(&sm.full[s], 2 * TILE_BYTES + STAT_BYTES);
-          tma_load_3d(sm.q[s], tq, &sm.full[s], h * DH, q0, b);
-          tma_load_3d(sm.dout[s], tdo, &sm.full[s], h * DH, q0, b);
+          mbar_arrive_expect_tx(&sm.full[s], 2 * NB * TILE_BYTES + STAT_BYTES);
+          for (int x = 0; x < NB; ++x) tma_load_3d(sm.q[s][x], tq, &sm.full[s], at.x + 64 * x, q0, at.y);
+          for (int x = 0; x < NB; ++x) tma_load_3d(sm.dout[s][x], tdo, &sm.full[s], at.x + 64 * x, q0, at.y);
           bulk_load(sm.stats[s], stats_bh + (size_t)q0 * 2, STAT_BYTES, &sm.full[s]);
         } else {
           mbar_arrive(&sm.full[s]);
@@ -155,9 +167,8 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* tq, const CUtensorM
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
     const int kc0 = k0 + 64 * c;
     const int len = min(kv_len[b], Lk);
-    const bool dropout = rate > 0.f;
+    const bool dropout = DROP && rate > 0.f;
     const int seed = dropout ? *seed_p : 0;
-    const float scale = 0.125f;  // 1/sqrt(64)
     // keys owned by this thread: r = 0 -> kc0 + 16w + g, r = 1 -> + 8
     const int krow[2] = {kc0 + warp * 16 + g, kc0 + warp * 16 + g + 8};
     bool kval[2];
@@ -165,18 +176,26 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* tq, const CUtensorM
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       kval[r] = key_valid(kv_valid + (size_t)b * Lk, len, krow[r]);
-      col_term[r] = (uint32_t)(krow[r] % mbk) * COL_MUL;
+      col_term[r] = DROP ? (uint32_t)(krow[r] % mbk) * COL_MUL : 0u;
     }
-    float dk_acc[32], dv_acc[32], st[32], dpt[32], mult[32];
+    float dk_acc[NB][32], dv_acc[NB][32], st[32], dpt[32], mult[32];
     uint32_t pp[16], pd[16];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int x = 0; x < NB; ++x) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[x][i] = dv_acc[x][i] = 0.f;
+    }
     // K3b: a warpgroup whose 64 keys are all invalid runs no product (dk = dv = 0)
     bool live = true;
     if constexpr (!DQ) live = named_any(1 + c, 128, kval[0] || kval[1]);
 
     mbar_wait(&sm.kvbar, 0);
-    const uint64_t dK = sw128_desc(sm.k[c]), dV = sw128_desc(sm.v[c]);
+    uint64_t dK[NB], dV[NB];
+#pragma unroll
+    for (int x = 0; x < NB; ++x) {
+      dK[x] = sw128_desc(sm.k[c][x]);
+      dV[x] = sw128_desc(sm.v[c][x]);
+    }
     for (int it = 0; it < n_iter; ++it) {
       const int s = it % STAGES;
       const int q0 = (qt_lo + it) * BQ;
@@ -185,16 +204,27 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* tq, const CUtensorM
         mbar_arrive(&sm.empty[s]);
         continue;
       }
-      const uint64_t dQ = sw128_desc(sm.q[s]), dO = sw128_desc(sm.dout[s]);
+      uint64_t dQ[NB], dO[NB];
+#pragma unroll
+      for (int x = 0; x < NB; ++x) {
+        dQ[x] = sw128_desc(sm.q[s][x]);
+        dO[x] = sw128_desc(sm.dout[s][x]);
+      }
 
       // s^T = k q^T and dp^T = v do^T (64 keys x 64 queries), in flight while the hash runs
       fence_regs(st);
       fence_regs(dpt);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(st, dK + 2 * kk, dQ + 2 * kk, kk);
+      for (int x = 0; x < NB; ++x) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(dpt, dV + 2 * kk, dO + 2 * kk, kk);
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(st, dK[x] + 2 * kk, dQ[x] + 2 * kk, 4 * x + kk);
+      }
+#pragma unroll
+      for (int x = 0; x < NB; ++x) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(dpt, dV[x] + 2 * kk, dO[x] + 2 * kk, 4 * x + kk);
+      }
       wgmma_commit();
       if (dropout) {  // from the folded key terms and the producer's folded query terms
         const uint32_t mixmul = block_mix(seed, b, q0 / mbq, kc0 / mbk);
@@ -252,9 +282,15 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* tq, const CUtensorM
       // dv += p_drop^T do, dk += ds^T q: A from registers, do and q MN-major
       wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dv_acc, pp + 4 * kc, dO + 128 * kc, 1);
+      for (int x = 0; x < NB; ++x) {
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dk_acc, pd + 4 * kc, dQ + 128 * kc, 1);
+        for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dv_acc[x], pp + 4 * kc, dO[x] + 128 * kc, 1);
+      }
+#pragma unroll
+      for (int x = 0; x < NB; ++x) {
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dk_acc[x], pd + 4 * kc, dQ[x] + 128 * kc, 1);
+      }
       wgmma_commit();
       if constexpr (DQ) {
         float dq[32];
@@ -266,12 +302,12 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* tq, const CUtensorM
         fence_regs(dq);
         wgmma_fence();
 #pragma unroll
-        for (int kc = 0; kc < 4; ++kc) wgmma_ss<1, 1>(dq, dS + 128 * kc, dK + 128 * kc, kc);
+        for (int kc = 0; kc < 4; ++kc) wgmma_ss<1, 1>(dq, dS + 128 * kc, dK[0] + 128 * kc, kc);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
-        fence_regs(dk_acc);
-        fence_regs(dv_acc);
+        fence_regs(dk_acc[0]);
+        fence_regs(dv_acc[0]);
         mbar_arrive(&sm.empty[s]);
 
         // the previous partial's reduce-add has read the staging tile
@@ -296,8 +332,11 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* tq, const CUtensorM
         }
       } else {
         wgmma_wait<0>();
-        fence_regs(dk_acc);
-        fence_regs(dv_acc);
+#pragma unroll
+        for (int x = 0; x < NB; ++x) {
+          fence_regs(dk_acc[x]);
+          fence_regs(dv_acc[x]);
+        }
         mbar_arrive(&sm.empty[s]);
       }
     }
@@ -305,18 +344,21 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* tq, const CUtensorM
       if (tid == 0) bulk_wait();  // the last reduce-adds are done before the block's shared memory goes
     }
 
-    const int ld = H * DH;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (krow[r] >= Lk) continue;
-      bf16* dkrow = dk + ((size_t)b * Lk + krow[r]) * ld + h * DH;
-      bf16* dvrow = dv + ((size_t)b * Lk + krow[r]) * ld + h * DH;
+      const size_t off = row_offset<PER_HEAD>(b, h, H, Lk, D, krow[r]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(dkrow + j * 8 + 2 * t) =
-            __floats2bfloat162_rn(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dvrow + j * 8 + 2 * t) =
-            __floats2bfloat162_rn(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      for (int x = 0; x < NB; ++x) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (PER_HEAD && 64 * x + j * 8 >= D) continue;
+          const int col = 64 * x + j * 8 + 2 * t;
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
+              __floats2bfloat162_rn(dk_acc[x][4 * j + 2 * r], dk_acc[x][4 * j + 2 * r + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+              __floats2bfloat162_rn(dv_acc[x][4 * j + 2 * r], dv_acc[x][4 * j + 2 * r + 1]);
+        }
       }
     }
   }

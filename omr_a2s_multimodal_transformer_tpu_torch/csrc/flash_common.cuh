@@ -6,7 +6,9 @@
 // Layout: q/o/do are [B, Lq, H*64] bf16 and k/v are [B, Lk, H*64] bf16,
 // contiguous. A block works on one head: it indexes head h's 64 columns of
 // the packed rows directly (the TPU kernel's block-diagonal packing existed
-// only to fill 128-lane tiles and has no counterpart here).
+// only to fill 128-lane tiles and has no counterpart here). The per-head
+// legacy kernels that share K3a's and K3b's blocks (L2b, L2c) take
+// [B, H, L, D] tensors instead (tile_at, row_offset).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -145,6 +147,22 @@ __device__ __forceinline__ bool key_valid(const uint8_t* valid_b, int len, int k
 template <bool CAUSAL>
 __device__ __forceinline__ bool in_band(int q, int k, int window) {
   return !CAUSAL || (k <= q && (window <= 0 || k >= q - window));
+}
+
+// Where head h of batch row b lies in a tensor map (the column of its first
+// 64-column box, the map's batch index): a head-packed [B, L, H*64] tensor
+// is a map of (H*64 columns, L rows, B), a per-head [B, H, L, D] one a map
+// of (D columns, L rows, B*H).
+template <bool PER_HEAD>
+__device__ __forceinline__ int2 tile_at(int b, int h, int H) {
+  return PER_HEAD ? make_int2(0, b * H + h) : make_int2(h * DH, b);
+}
+
+// The element offset of row `row` of head h, batch row b, in a
+// [B, L, H*64] (head-packed) or [B, H, L, D] (per-head) tensor.
+template <bool PER_HEAD>
+__device__ __forceinline__ size_t row_offset(int b, int h, int H, int L, int D, int row) {
+  return PER_HEAD ? (((size_t)b * H + h) * L + row) * D : ((size_t)b * L + row) * (H * DH) + h * DH;
 }
 
 // Key tiles [lo, hi] that hold a key some query of [q0, q0 + rows) may see

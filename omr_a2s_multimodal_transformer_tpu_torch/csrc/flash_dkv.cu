@@ -18,7 +18,8 @@
 // queries against 768 bytes of q, k, v, do, dk and dv per key and head:
 // bytes bound it.
 //
-// The design is K2's block without dq (flash_bwd.cuh, DQ = false): a block
+// The design is K2's block without dq (flash_bwd.cuh, DQ = false, which
+// L2c shares for the per-head layout): a block
 // per (128 keys, head, batch row), a producer warp feeding a 3-stage TMA
 // ring of Q and dO tiles and their (lse * log2 e, delta) pairs, two
 // consumer warpgroups of 64 keys that run s^T, dp^T, dv += p_drop^T do and
@@ -38,8 +39,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  const int* __restrict__ kv_len, const uint8_t* __restrict__ kv_valid, const int* __restrict__ seed_p,
                  const float* __restrict__ stats, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Lq, int Lk,
                  int mbq, int mbk, int window, float rate, float keep_scale, uint32_t thresh) {
-  k2::bwd_block<false, CAUSAL>(&tq, &tdo, &tk, &tv, nullptr, kv_len, kv_valid, seed_p, stats, dk, dv, H, Lq, Lk,
-                               mbq, mbk, window, rate, keep_scale, thresh);
+  k2::bwd_block<false, CAUSAL, false, 1, true>(&tq, &tdo, &tk, &tv, nullptr, kv_len, kv_valid, seed_p, stats, dk,
+                                               dv, H, Lq, Lk, DH, mbq, mbk, window, 0.125f, rate, keep_scale, thresh);
 }
 
 extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v, const void* kv_len,
@@ -53,12 +54,12 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v, con
   static bool configured[2] = {false, false};
   if (!configured[causal ? 1 : 0]) {
     const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k2::smem_bytes<false>());
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k2::smem_bytes<false, 1>());
     if (e != cudaSuccess) return (int)e;
     configured[causal ? 1 : 0] = true;
   }
   dim3 grid((Lk + k2::KEYS - 1) / k2::KEYS, H, B);
-  kernel<<<grid, k2::THREADS, k2::smem_bytes<false>(), (cudaStream_t)stream>>>(
+  kernel<<<grid, k2::THREADS, k2::smem_bytes<false, 1>(), (cudaStream_t)stream>>>(
       tq, tdo, tk, tv, (const int*)kv_len, (const uint8_t*)kv_valid, (const int*)seed, (const float*)stats, (bf16*)dk,
       (bf16*)dv, H, Lq, Lk, mbq, mbk, window, rate, keep_scale, thresh);
   return (int)cudaGetLastError();

@@ -1,8 +1,9 @@
-// Shared pieces of the per-head legacy flash kernels (legacy_flash_fwd.cu:
-// L1 and L2a; legacy_flash_dq.cu: L2b; legacy_flash_dkv.cu: L2c): tile
+// Shared pieces of the per-head legacy flash kernels on mma.sync
+// (legacy_flash_fwd.cu: L1 and L2a; legacy_flash_any_*.cu: LA): tile
 // geometry for a head width DP of 64 or 128, tile loads, ldmatrix fragment
 // loads, the key test and the tile ranges of the block skip. The mma.sync,
-// ldmatrix, cp.async and ex2 primitives come from flash_common.cuh.
+// ldmatrix, cp.async and ex2 primitives come from flash_common.cuh. L2b and
+// L2c run on K3a's and K3b's TMA/wgmma blocks (flash_dq.cuh, flash_bwd.cuh).
 //
 // Layout: q/o/do are [B, H, Lq, D] and k/v/dk/dv [B, H, Lk, D] bf16,
 // contiguous; lse and delta are [B, H, Lq] f32. A block works on one

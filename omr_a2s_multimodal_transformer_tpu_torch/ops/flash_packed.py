@@ -238,19 +238,21 @@ def fwd_splits(batch: int, n_heads: int, lq: int, lk: int, n_sm: int) -> Tuple[i
                        MAX_FWD_SPLITS)
 
 
-def dq_splits(batch: int, n_heads: int, lq: int, lk: int, n_sm: int) -> Tuple[int, int]:
-    """(n_split, per): K3a walks its ceil(lk / 64) key tiles in n_split
-    chunks of ``per`` tiles, each chunk a block of its own writing an f32
-    dq partial, summed in chunk order by the merge kernel. The chooser is
-    K1's (``fwd_splits``, with K1's fitted set-up constant) for blocks of
-    DQ_CONSUMERS x 64 queries, one an SM; it is not fitted to K3a, whose
+def dq_splits(batch: int, n_heads: int, lq: int, lk: int, n_sm: int,
+              consumers: int = DQ_CONSUMERS) -> Tuple[int, int]:
+    """(n_split, per): K3a (and L2b, whose block is K3a's, with its own
+    ``consumers``) walks its ceil(lk / 64) key tiles in n_split chunks of
+    ``per`` tiles, each chunk a block of its own writing an f32 dq partial,
+    summed in chunk order by the merge kernel. The chooser is K1's
+    (``fwd_splits``, with K1's fitted set-up constant) for blocks of
+    ``consumers`` x 64 queries, one an SM; it is not fitted to K3a, whose
     blocks differ in length because key tiles with no valid key are
     skipped. At the flagship cross shape (224 blocks of 192 queries, 199
     key tiles) on 132 SMs it picks 4, 896 blocks in 6.79 waves (7) instead
     of 224 in 1.70 (2); there 3 chunks ran faster than 4 in every 1-8
     chunk sweep of chip_smoke.py on the H100 (by 0-5%), so it is off by
     one chunk."""
-    units = -(-lq // (64 * DQ_CONSUMERS)) * n_heads * batch
+    units = -(-lq // (64 * consumers)) * n_heads * batch
     return _key_splits(units, -(-lk // KERNEL_TILE), n_sm, FWD_BLOCK_OVERHEAD_TILES, MAX_FWD_SPLITS)
 
 

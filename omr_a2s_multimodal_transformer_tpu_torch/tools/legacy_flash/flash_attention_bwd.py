@@ -17,9 +17,13 @@ differentiated by autograd); CUDA tensors go through
 ``LegacyFlashAttention``, whose forward launches L2a
 (``csrc/legacy_flash_fwd.cu``) and whose backward launches L2b
 (``csrc/legacy_flash_dq.cu``) and then L2c (``csrc/legacy_flash_dkv.cu``).
-Both backward kernels write each row once: no atomics, deterministic. What
-the bf16 tensor-core kernels do not take (float16, float32, heads wider
-than 128, misaligned rows) goes to the any-dtype kernels
+L2b and L2c run on the TMA/wgmma blocks of the head-packed split backward,
+K3a and K3b (``csrc/flash_dq.cuh``, ``csrc/flash_bwd.cuh``), in two head
+width classes, 64 and 128 columns; L2b walks the key tiles of a non-causal
+call in ``legacy_dq_splits`` chunks whose f32 partials a second kernel sums
+in chunk order. No atomics in either: both are deterministic. What the bf16
+tensor-core kernels do not take (float16, float32, heads wider than 128,
+misaligned rows) goes to the any-dtype kernels
 (``csrc/legacy_flash_any_{fwd,dq,dkv}.cu``: all three on the tensor cores,
 float32 as three TF32 passes, on ``any_operands``); the wrappers raise for
 another dtype, non-contiguous tensors or mixed devices.
@@ -32,7 +36,8 @@ import functools
 import torch
 
 from omr_a2s_multimodal_transformer_tpu_torch.ops import cuda_build
-from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import band_window
+from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import (
+    KERNEL_TILE, _sm_count, _split_of, band_window, bwd_stats, dq_splits)
 from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash.flash_attention import (
     KERNEL_DTYPES, any_operands, attention_plain, check_backward_inputs, check_inputs, kv_len_tensor,
     launch_fwd, legacy_any_fwd_cuda, pad_head_dim, tensor_core_route, unpad_head_dim)
@@ -59,15 +64,40 @@ def attention_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1)
 
 
+# consumer warpgroups of 64 queries in a non-causal L2b block by head width class, fixed in
+# csrc/legacy_flash_dq.cu: K3a's three at 64 columns, two at 128 (three would not hold dq's 64 floats a thread
+# beside s and dp in their 160 registers)
+LEGACY_DQ_CONSUMERS = {64: 3, 128: 2}
+
+
+def width_class(d: int) -> int:
+    """The head width L2b and L2c are built for that holds a head of d <= 128
+    columns: 64 or 128 (the columns past d read as zero)."""
+    return 64 if d <= 64 else 128
+
+
+def legacy_dq_splits(batch: int, n_heads: int, lq: int, lk: int, d: int, n_sm: int):
+    """(n_split, per): the key chunks of a non-causal L2b call, K3a's chooser
+    (``dq_splits``) over L2b's blocks, ceil(lq / (64 x consumers)) per (b, h)
+    with the consumers of d's width class. At the legacy cross shape (B 8,
+    H 4, Lq 1268, Lk 12,696, D 64) those are K3a's 224 blocks and its 4
+    chunks of 50 key tiles; at D 128 with H 2, 160 blocks and 4 chunks."""
+    return dq_splits(batch, n_heads, lq, lk, n_sm, LEGACY_DQ_CONSUMERS[width_class(d)])
+
+
 def _bwd_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window):
+    """The operands of L2b and L2c: the four [B, H, L, D] tensors with D
+    padded to a multiple of 8, the (lse * log2 e, delta) pairs of K3a and
+    K3b (``bwd_stats``), and the ints both kernels take."""
     check_inputs(q, k, v, kv_len, kv_valid)
     check_backward_inputs(q, do, lse, delta)
     b, h, lq, d = q.shape
     padded = [pad_head_dim(t) for t in (q, k, v, do)]  # the caller keeps them alive until the launch
     qp, kp, vp, dop = padded
-    ptrs = [t.data_ptr() for t in (qp, kp, vp, kv_len, kv_valid, dop, lse, delta)]
+    stats = bwd_stats(lse, delta)
+    ptrs = [t.data_ptr() for t in (qp, kp, vp, kv_len, kv_valid, dop, stats)]
     ints = [b, h, lq, k.shape[2], qp.shape[3], int(causal), band_window(causal, window)]
-    return padded, ptrs, ints, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream
+    return padded + [stats], ptrs, ints, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream
 
 
 def _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window):
@@ -111,17 +141,31 @@ def legacy_any_dkv_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool 
 legacy_any_dkv_cuda.launches = 0
 
 
-def legacy_dq_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool = False, window: int = -1):
+def legacy_dq_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool = False, window: int = -1,
+                   n_split=None):
     """Launch L2b (bf16, D <= 128) or, for what it does not take, the
     any-dtype dq: dq [B, H, Lq, D] in q's dtype, given L2a's lse and
-    ``attention_delta``. Deterministic: each row is written once."""
+    ``attention_delta``. A non-causal L2b call walks the keys in ``n_split``
+    chunks when given (chip_smoke.py times each split), else in
+    ``legacy_dq_splits``'s for the card, and for more than one also launches
+    the merge kernel; a causal call walks its band in one. Deterministic:
+    the chunks' f32 partials are summed in a fixed order."""
     if not tensor_core_route(q, k, v, do):
         check_inputs(q, k, v, kv_len, kv_valid)
         check_backward_inputs(q, do, lse, delta)
         return legacy_any_dq_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
     padded, ptrs, ints, scale, stream = _bwd_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
+    b, h, lq, lk, dp = ints[:5]
+    if causal:
+        n_split, per = 1, 1
+    elif n_split is None:
+        n_split, per = legacy_dq_splits(b, h, lq, lk, dp, _sm_count(q.device))
+    else:
+        n_split, per = _split_of(-(-lk // KERNEL_TILE), n_split)
     dq = torch.empty_like(padded[0])
-    err = cuda_build.load("legacy_flash_dq")(*ptrs, dq.data_ptr(), *ints, scale, stream)
+    dq_part = torch.empty((n_split, *dq.shape), device=q.device, dtype=torch.float32) if n_split > 1 else None
+    err = cuda_build.load("legacy_flash_dq")(*ptrs, dq.data_ptr(), None if dq_part is None else dq_part.data_ptr(),
+                                             *ints, n_split, per, scale, stream)
     if err != 0:
         raise RuntimeError(f"legacy_flash_dq launch failed: cudaError {err}")
     legacy_dq_cuda.launches += 1
@@ -153,7 +197,7 @@ legacy_dkv_cuda.launches = 0
 
 
 class LegacyFlashAttention(torch.autograd.Function):
-    """L2a forward; L2b then L2c backward, with delta computed between them
+    """L2a forward; L2b then L2c backward, with delta computed before them
     in float32. Saves q, k, v, kv_len, kv_valid, o and lse (no score
     tensor); kv_len and kv_valid get no gradient."""
 

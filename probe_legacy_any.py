@@ -23,9 +23,10 @@
    the three kernels.
 2. LA against the bf16 tensor-core kernels in bf16 at the cross shape, D
    64 and 128, on the same inputs: LA fwd against L1 and L2a, LA dq and
-   dk/dv against L2b/L2c: device ms and launch records of each, their
-   errors against the plain version, whether the outputs are bit-equal,
-   and SDPA's forward and backward device ms.
+   dk/dv against L2b/L2c (on K3a's and K3b's TMA/wgmma blocks): device ms
+   and launch records of each, their errors against the plain version,
+   whether the outputs are bit-equal, and SDPA's forward and backward
+   device ms.
 3. With --parent P (a checkout of another commit, e.g. a git archive of
    the parent), chip_smoke.any_cross_fwd on P's port in a process of its
    own: that LA fwd at the cross shape in float32 D 64, float16 D 64 and
@@ -166,7 +167,8 @@ def bf16_routes(cs, dev) -> dict:
         ref = torch.autograd.grad(o_p, refs, do.float())
         row |= {"LA error (dq, dk, dv)": [rel_err(a, r) for a, r in zip(la, ref)],
                 "L2 error (dq, dk, dv)": [rel_err(a, r) for a, r in zip(l2, ref)],
-                "LA - L2 max abs (dq, dk, dv)": [float((a.float() - b.float()).abs().max()) for a, b in zip(la, l2)]}
+                "LA - L2 max abs (dq, dk, dv)": [float((a.float() - b.float()).abs().max()) for a, b in zip(la, l2)],
+                "LA bit-equal to L2 (dq, dk, dv)": [torch.equal(a, b) for a, b in zip(la, l2)]}
         del la, l2, refs, o_p, ref
         timed = (("L2a fwd", "L2a legacy flash fwd lse", fwd["L2a fwd"]),
                  ("LA fwd (L2a)", cs.LEGACY_ANY[0], fwd["LA fwd (L2a)"]),
@@ -176,9 +178,10 @@ def bf16_routes(cs, dev) -> dict:
                  ("LA dq", cs.LEGACY_ANY[1], lambda: fb.legacy_any_dq_cuda(*bargs)),
                  ("L2c dk/dv", "L2c legacy flash dk/dv", lambda: fb.legacy_dkv_cuda(*bargs)),
                  ("LA dk/dv", cs.LEGACY_ANY[2], lambda: fb.legacy_any_dkv_cuda(*bargs)))
+        per_launch = {"L2b legacy flash dq": cs.l2b_kernels(q, k, False)}  # L2b's chunk kernel and merge
         for rep in ("", " again"):  # each twice, interleaved
             for key, name, fn in timed:
-                row[key + rep] = cs.kernel_times(name, fn)[0]
+                row[key + rep] = cs.kernel_times(name, fn, per_launch=per_launch.get(name))[0]
                 row[key + " launch"] = cs.KERNEL_INFO.pop(name, {})
         row["SDPA fwd device ms"] = cs.device_ms(lambda: sdpa(q, k, v, attn_mask=kv_valid[:, None, None, :]))
         qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the split flash backward (K3a dq, K3b dk/dv) on one GPU, against another checkout's.
+"""Time the split flash backward (K3a dq, K3b dk/dv) and the per-head L2b/L2c on one GPU, against another checkout's.
 
     python3 probe_split_bwd.py                # from the root of a checkout
     python3 probe_split_bwd.py --parent P     # also time the K3a/K3b of the checkout at P, in turns
@@ -13,11 +13,17 @@ of the wrapper's kernels in a profiler trace) and device_ms:
 - the flagship cross shape of chip_smoke.py (B 8, Lq 1268, Lk 12,696, the
   images' kv_valid, bf16), the split backward of a merged_bwd=False call
   at dropout 0.1 and 0: K3a (its chunk kernel and merge), K3b, K2 (whose
-  block K3b shares) and SDPA's backward on the same tensors and boolean
-  mask at the same rate, with each kernel's launch record;
+  block K3b shares), K1 (the forward, its chunk kernel and merge) and SDPA's
+  backward on the same tensors and boolean mask at the same rate, with each
+  kernel's launch record;
 - the paper's self-attention shape (B 8, L 1268, 4 x 64 heads, ragged
   targets, 128/512 blocks), window 100 at dropout 0.1 and 0 and full causal
-  at 0.1: K3a and K3b.
+  at 0.1: K3a and K3b;
+- the per-head legacy backward (tools/legacy_flash: [B, H, L, D] bf16, no
+  dropout), L2b (dq: its chunk kernel and merge where it splits the keys)
+  and L2c (dk, dv), at the cross shape with 4 x 64 and with 2 x 128 heads
+  and at the self shape (4 x 64, window 100, the targets as kv_valid),
+  with SDPA's backward on the same tensors and boolean mask.
 The results go to <out-dir>/split_bwd_probe.json and, as one JSON object,
 to the last line of standard output. Exits 2 without a GPU.
 """
@@ -33,7 +39,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 from probe_turns import build, card, copy_port, run_in_turns  # noqa: E402
 
-LIBS = ["flash_fwd", "flash_bwd", "flash_dq", "flash_dkv"]
+LIBS = ["flash_fwd", "flash_bwd", "flash_dq", "flash_dkv", "legacy_flash_fwd", "legacy_flash_dq", "legacy_flash_dkv"]
 
 
 def timed(cs, name: str, fn, per_launch: int = 1) -> dict:
@@ -61,20 +67,22 @@ def cross(cs, fp, dev) -> dict:
     n_split = fp.dq_splits(cs.B, cs.HEADS, cs.LQ, cs.LK, n_sm)[0] if hasattr(fp, "dq_splits") else 1
     out = {}
     for rate in (0.1, 0.0):
-        o, lse = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, rate, cs.HEADS, bq, bk)
+        fwd = lambda: fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, rate, cs.HEADS, bq, bk)  # noqa: E731
+        o, lse = fwd()
         delta = fp.attention_delta(do, o, cs.HEADS)
         args = (q, k, v, kv_len, kv_valid, seed, do, lse, delta, rate, cs.HEADS, bq, bk, False, -1)
         r = dict(k3a=timed(cs, "K3a flash dq", lambda: fp.flash_dq_cuda(*args), 1 if n_split == 1 else 2),
                  k3b=timed(cs, "K3b flash dk/dv", lambda: fp.flash_dkv_cuda(*args)),
                  k2=timed(cs, "K2 flash bwd", lambda: fp.flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do,
-                                                                       rate, cs.HEADS, bq, bk)))
+                                                                       rate, cs.HEADS, bq, bk)),
+                 k1=timed(cs, "K1 flash fwd", fwd, 2))
         o_s = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=kv_valid[:, None, None, :],
                                                                dropout_p=rate)
         r["sdpa_bwd_ms"] = cs.device_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True))
         del o_s
         print(f"[cross dropout {rate}] " + json.dumps(r), flush=True)
         out[str(rate)] = r
-        del o, lse, delta, args
+        del o, lse, delta, args, fwd
         torch.cuda.empty_cache()
     return out
 
@@ -103,6 +111,42 @@ def self_shape(cs, fp, dev) -> dict:
     return out
 
 
+def legacy(cs, dev) -> dict:
+    """L2b and L2c at the cross shape (4 x 64 and 2 x 128 heads) and the
+    self shape (4 x 64, window 100), given L2a's lse, beside SDPA's
+    backward (device ms)."""
+    import torch
+
+    fb, fl = cs.fb, cs.fl
+    g = torch.Generator(device=dev).manual_seed(2)
+    lengths = torch.tensor(cs.TARGET_LENGTHS, dtype=torch.int32, device=dev)
+    valid_cross = cs.memory_valid_from_hw(cs.ragged_hw(cs.B, dev), cs.GRID_H, cs.GRID_W).contiguous()
+    valid_self = (torch.arange(cs.LQ, device=dev)[None, :] < lengths[:, None]).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for tag, heads, d, lk, kv_valid, causal, window in (
+            ("cross D 64", cs.HEADS, 64, cs.LK, valid_cross, False, -1),
+            ("cross D 128", 2, 128, cs.LK, valid_cross, False, -1),
+            ("self D 64", cs.HEADS, 64, cs.LQ, valid_self, True, cs.WINDOW)):
+        q, k, v, do = (torch.randn((cs.B, heads, n, d), generator=g, device=dev).to(torch.bfloat16)
+                       for n in (cs.LQ, lk, lk, cs.LQ))
+        kv_len = torch.full((cs.B,), lk, dtype=torch.int32, device=dev)
+        o, lse = fb.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, causal, window)
+        args = (q, k, v, kv_len, kv_valid, do, lse, fb.attention_delta(do, o), causal, window)
+        # L2b's chunk kernel and merge, or its one kernel where the port has no key split
+        n_dq = cs.l2b_kernels(q, k, causal) if hasattr(fb, "legacy_dq_splits") else 1
+        r = dict(l2b=timed(cs, "L2b legacy flash dq", lambda: fb.legacy_dq_cuda(*args), n_dq),
+                 l2c=timed(cs, "L2c legacy flash dk/dv", lambda: fb.legacy_dkv_cuda(*args)))
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        o_s = sdpa(qs, ks, vs, attn_mask=fl.visible_keys(cs.LQ, lk, kv_len, kv_valid, causal, window))
+        r["sdpa_bwd_ms"] = cs.device_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do, retain_graph=True))
+        print(f"[legacy {tag}] " + json.dumps(r), flush=True)
+        out[tag] = r
+        del q, k, v, do, o, lse, args, qs, ks, vs, o_s
+        torch.cuda.empty_cache()
+    return out
+
+
 def child(mode: str, out_dir: Path) -> dict:
     import torch
 
@@ -114,13 +158,13 @@ def child(mode: str, out_dir: Path) -> dict:
     cs.OUT_DIR = out_dir / f"traces_{mode}"
     cs.OUT_DIR.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda")
-    return dict(mode=mode, cross=cross(cs, fp, dev), self=self_shape(cs, fp, dev))
+    return dict(mode=mode, cross=cross(cs, fp, dev), self=self_shape(cs, fp, dev), legacy=legacy(cs, dev))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", type=Path, default=ROOT / "build" / "split_bwd_probe")
-    ap.add_argument("--parent", type=Path, default=None, help="a checkout whose K3a/K3b are timed in turns")
+    ap.add_argument("--parent", type=Path, default=None, help="a checkout whose kernels are timed in turns")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch

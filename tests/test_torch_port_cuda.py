@@ -452,10 +452,21 @@ def test_fused_stem_tile_height_on_gpu(dtype):
 # keeps in registers, 128 in float32 and 192 in 16-bit types: o split over
 # the grid, as for float32 at D 192), float16 at D 72 one element
 # into its buffer; and a batch row whose kv_len is 0 (no key tile runs: o,
-# lse and its gradients must be 0).
+# lse and its gradients must be 0). L2b and L2c run on K3a's and K3b's
+# blocks in two width classes (64, 128 columns, zero-filled past D): bf16
+# non-causal at D 128, 120 and 64 with Lq 300 and Lk 2100, where L2b splits
+# its key tiles into chunks (legacy_dq_splits > 1) merged in order; D 72,
+# whose second 64-column box is mostly zero fill; and a kv_valid that
+# empties a whole 64-key tile (keys 128-191 of row 0: no product on it in
+# L2b, a K3b consumer warpgroup with no valid key in L2c).
 LEGACY_CASES = [dict(d=d, causal=c, window=w, dtype=torch.bfloat16)
                 for d in (40, 64, 128) for c, w in ((False, -1), (True, -1), (True, 30))]
 LEGACY_CASES.append(dict(d=36, causal=True, window=30, dtype=torch.bfloat16))
+LEGACY_CASES += [dict(d=d, causal=False, window=-1, dtype=torch.bfloat16, lq=300, lk=2100) for d in (128, 120, 64)]
+LEGACY_CASES += [dict(d=72, causal=False, window=-1, dtype=torch.bfloat16),
+                 dict(d=72, causal=True, window=30, dtype=torch.bfloat16),
+                 dict(d=64, causal=False, window=-1, dtype=torch.bfloat16, empty_tile=True),
+                 dict(d=128, causal=True, window=30, dtype=torch.bfloat16, empty_tile=True)]
 LEGACY_CASES += [dict(d=d, causal=True, window=w, dtype=dt)
                  for d, dt in ((64, torch.float32), (64, torch.float16), (192, torch.bfloat16), (192, torch.float32))
                  for w in (-1, 30)]
@@ -473,7 +484,7 @@ LEGACY_TOL = {torch.bfloat16: REL_TOL, torch.float16: REL_TOL, torch.float32: 1e
 def _legacy_inputs(case, dev, seed=2):
     rng = np.random.default_rng(seed)
     b, h, d = 2, 3, case["d"]
-    lq, lk = (150, 150) if case["causal"] else (90, 200)
+    lq, lk = (150, 150) if case["causal"] else (case.get("lq", 90), case.get("lk", 200))
     dtype = case.get("dtype", torch.bfloat16)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).to(dev, dtype)
                    for n in (lq, lk, lk, lq))
@@ -482,13 +493,28 @@ def _legacy_inputs(case, dev, seed=2):
     kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
     kv_valid[0, 40:70] = False  # a hole, as in the concat mixer's fused memories
     kv_valid[1, 90:] = False    # a short target
+    if case.get("empty_tile"):
+        kv_valid[0, 128:192] = False  # a whole 64-key tile, between tiles with valid keys
     return q, k, v, do, kv_len, kv_valid
 
 
 def _legacy_id(c):
     dt = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}[c["dtype"]]
     return (f"d{c['d']}_c{int(c['causal'])}_w{c['window']}" + ("" if dt == "bf16" and c["d"] <= 128 else f"_{dt}")
-            + ("_offset" if c.get("offset") else "") + ("_zero_len" if c.get("zero_len") else ""))
+            + ("_offset" if c.get("offset") else "") + ("_zero_len" if c.get("zero_len") else "")
+            + (f"_q{c['lq']}_k{c['lk']}" if "lq" in c else "") + ("_empty_tile" if c.get("empty_tile") else ""))
+
+
+def _l2b_splits(q, k, causal):
+    """The key chunks of an L2b call on these [B, H, L, D] tensors (1 for a
+    causal call)."""
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention_bwd as l2
+
+    if causal:
+        return 1
+    b, h, lq, d = q.shape
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return l2.legacy_dq_splits(b, h, lq, k.shape[2], d, n_sm)[0]
 
 
 def _leaves(tensors, offset=False):
@@ -536,6 +562,8 @@ def test_legacy_flash_kernels_match_plain_on_gpu(case):
     tensor_cores = dtype == torch.bfloat16 and case["d"] <= 128
     want = [1, 1, 1, 1, 0, 0, 0] if tensor_cores else [0, 0, 0, 0, 2, 1, 1]
     assert [f.launches - n for f, n in zip(wrappers, before)] == want
+    if "lq" in case:  # the cases that split L2b's key tiles
+        assert _l2b_splits(q, k, case["causal"]) > 1
     grads = _grads(leaves, (q, k, v))
     assert o1.dtype == o2.dtype == grads[0].dtype == dtype
 
@@ -565,12 +593,17 @@ def test_legacy_flash_kernels_match_plain_on_gpu(case):
 @pytest.mark.parametrize("case", [dict(d=64, causal=True, window=30, dtype=torch.bfloat16),
                                   dict(d=64, causal=False, window=-1, dtype=torch.float32),
                                   dict(d=64, causal=False, window=-1, dtype=torch.float16),
-                                  dict(d=192, causal=False, window=-1, dtype=torch.float32)], ids=_legacy_id)
+                                  dict(d=192, causal=False, window=-1, dtype=torch.float32),
+                                  dict(d=128, causal=True, window=30, dtype=torch.bfloat16),
+                                  dict(d=128, causal=False, window=-1, dtype=torch.bfloat16, lq=300, lk=2100),
+                                  dict(d=64, causal=False, window=-1, dtype=torch.bfloat16, lq=300, lk=2100)],
+                         ids=_legacy_id)
 def test_legacy_backward_is_deterministic_on_gpu(case):
-    """Both backward routes write each row once: two calls give bit-equal
-    dq, dk and dv (bf16 D 64 on the tensor-core kernels; float32, float16
-    and D 192, three 64-column chunks of the output, on the any-dtype
-    kernels)."""
+    """Both backward routes write each row once, and L2b sums its key
+    chunks' partials in a fixed order: two calls give bit-equal dq, dk and
+    dv (bf16 D 64 and 128 on L2b/L2c, causal in one key chunk and split;
+    float32, float16 and D 192, three 64-column chunks of the output, on the
+    any-dtype kernels)."""
     from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention_bwd as l2
 
     dev = _cuda()
@@ -578,12 +611,16 @@ def test_legacy_backward_is_deterministic_on_gpu(case):
     band = (case["causal"], case["window"])
     o, lse = l2.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, *band)
     args = (q, k, v, kv_len, kv_valid, do, lse, l2.attention_delta(do, o), *band)
-    before = (l2.legacy_any_dq_cuda.launches, l2.legacy_any_dkv_cuda.launches)
+    counters = (l2.legacy_any_dq_cuda, l2.legacy_any_dkv_cuda, l2.legacy_dq_cuda, l2.legacy_dkv_cuda)
+    before = [f.launches for f in counters]
     first = (l2.legacy_dq_cuda(*args), *l2.legacy_dkv_cuda(*args))
     second = (l2.legacy_dq_cuda(*args), *l2.legacy_dkv_cuda(*args))
     any_route = not (case["dtype"] == torch.bfloat16 and case["d"] <= 128)
-    launched = (l2.legacy_any_dq_cuda.launches - before[0], l2.legacy_any_dkv_cuda.launches - before[1])
-    assert launched == ((2, 2) if any_route else (0, 0))
+    launched = tuple(f.launches - n for f, n in zip(counters, before))
+    # the any-dtype kernels, or (bf16 heads of up to 128) L2b and L2c, twice each
+    assert launched == ((2, 2, 0, 0) if any_route else (0, 0, 2, 2))
+    if "lq" in case:
+        assert _l2b_splits(q, k, case["causal"]) > 1
     for a, b in zip(first, second):
         assert torch.equal(a, b) and a.abs().max() > 0
 

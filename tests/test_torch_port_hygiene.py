@@ -132,7 +132,12 @@ def test_chip_smoke_tells_every_kernel_apart_in_a_trace():
              "void lf_fwd_lse_kernel<64, false>(__nv_bfloat16 const*, float*)": "L2a legacy flash fwd lse",
              "void lf_fwd_lse_kernel<64, true>(__nv_bfloat16 const*, float*)": "L2a legacy flash fwd lse",
              "void lf_dq_kernel<64, true>(__nv_bfloat16 const*)": "L2b legacy flash dq",
-             "void lf_dkv_kernel<128, false>(__nv_bfloat16 const*)": "L2c legacy flash dk/dv"}
+             "void lf_dkv_kernel<128, false>(__nv_bfloat16 const*)": "L2c legacy flash dk/dv",
+             "void lf_dq_kernel<3, false, 1>(CUtensorMap_st, CUtensorMap_st, int const*)": "L2b legacy flash dq",
+             "void lf_dq_kernel<2, true, 2>(CUtensorMap_st, CUtensorMap_st, int const*)": "L2b legacy flash dq",
+             "void lf_dq_merge_kernel(float const*, __nv_bfloat16*, unsigned long, int)": "L2b legacy flash dq",
+             "void lf_dkv_kernel<false, 2>(CUtensorMap_st, CUtensorMap_st, int const*)": "L2c legacy flash dk/dv",
+             "void lf_dkv_kernel<true, 1>(CUtensorMap_st, CUtensorMap_st, int const*)": "L2c legacy flash dk/dv"}
     for name, kind in names.items():
         assert cs.kernel_kind(name) == kind, name
     for name, (_, _, _, symbol, _) in cs.KERNELS.items():

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from omr_a2s_multimodal_transformer_tpu_torch.ops import flash_packed as tflash
 from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention as tl1
 from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention_bwd as tl2
 
@@ -242,3 +243,57 @@ def test_any_operands_pads_short_rows_and_copies_misaligned_views():
     got_view, got_aligned = tl1.any_operands(view, aligned)
     assert got_view.shape == view.shape and got_view.data_ptr() % 16 == 0 and torch.equal(got_view, view)
     assert got_aligned is aligned
+
+
+# L2b's key split (legacy_dq_splits): K3a's chooser over L2b's blocks of
+# LEGACY_DQ_CONSUMERS[width class] x 64 queries per (b, h), on 132 SMs
+CHOOSER_SHAPES = [  # (B, H, Lq, Lk, D)
+    (8, 4, 1268, 12696, 64),   # the legacy cross shape, 4 x 64 heads
+    (8, 2, 1268, 12696, 128),  # the same keys at 2 x 128 (the model's 256 columns)
+    (2, 3, 300, 2100, 120),    # the card tests' split cases
+    (2, 3, 90, 200, 72),
+    (2, 4, 150, 60, 64),       # one key tile
+    (1, 1, 64, 130, 40),       # three key tiles, one block
+    (64, 8, 2048, 4096, 64),   # 5,632 blocks: the grid fills the card many times over
+    (64, 8, 2048, 4096, 128),
+]
+
+
+@pytest.mark.parametrize("shape", CHOOSER_SHAPES, ids=lambda s: "b{}_h{}_q{}_k{}_d{}".format(*s))
+def test_legacy_dq_splits_cover_the_key_tiles(shape):
+    """Never more chunks than key tiles, and every chunk holds a tile: the
+    chunks of `per` tiles cover the ceil(Lk / 64) tiles exactly."""
+    b, h, lq, lk, d = shape
+    n_split, per = tl2.legacy_dq_splits(b, h, lq, lk, d, 132)
+    n_tiles = -(-lk // 64)
+    assert 1 <= n_split <= n_tiles and per >= 1
+    assert (n_split - 1) * per < n_tiles <= n_split * per
+
+
+@pytest.mark.parametrize("d", [40, 64, 72, 128])
+def test_legacy_dq_splits_take_one_chunk_when_the_grid_fills_the_card(d):
+    """5,632 (D <= 64) or 8,192 (D 128) blocks are 43 or 62 waves of 132:
+    splitting the keys would add a block's set-up per chunk and no wave is
+    short of work, so the chooser keeps one chunk."""
+    assert tl2.legacy_dq_splits(64, 8, 2048, 4096, d, 132) == (1, 64)
+
+
+@pytest.mark.parametrize("shape, want", [((8, 4, 1268, 12696, 64), (4, 50)), ((8, 2, 1268, 12696, 128), (4, 50))],
+                         ids=["cross_d64", "cross_d128"])
+def test_legacy_dq_splits_at_the_legacy_cross_shape(shape, want):
+    """The picks PERF.md states: 224 blocks of 192 queries at D 64 (K3a's
+    blocks and its 4 chunks of 50 key tiles), 160 blocks of 128 queries at
+    D 128 with 2 heads (4 chunks too)."""
+    b, h, lq, lk, d = shape
+    assert tl2.legacy_dq_splits(b, h, lq, lk, d, 132) == want
+    consumers = tl2.LEGACY_DQ_CONSUMERS[tl2.width_class(d)]
+    assert -(-lq // (64 * consumers)) * h * b == (224 if d == 64 else 160)
+    if d == 64:
+        assert tl2.legacy_dq_splits(b, h, lq, lk, d, 132) == tflash.dq_splits(b, h, lq, lk, 132)
+
+
+@pytest.mark.parametrize("d, cls", [(8, 64), (40, 64), (64, 64), (72, 128), (120, 128), (128, 128)])
+def test_width_class_holds_the_head(d, cls):
+    """L2b and L2c are built for heads of 64 and 128 columns; a narrower
+    head takes the class that holds it (its columns past D read as zero)."""
+    assert tl2.width_class(d) == cls and tl2.LEGACY_DQ_CONSUMERS[cls] in (2, 3)
