@@ -35,8 +35,8 @@ Phases, each of which raises on failure (exit code 1):
        self-attention shape (4 x 64, causal, window 100, the targets as
        kv_len for L1 and kv_valid for L2, so pad rows see no key and must
        give o = 0, lse = 0): L1, L2a, L2b, L2c against the plain version,
-       with plain and SDPA times (SDPA's backward also in device time),
-       beside the head-packed K1, K3a, K3b and K2 at dropout 0;
+       with plain and SDPA times (SDPA's forward and backward also in device
+       time), beside the head-packed K1, K3a, K3b and K2 at dropout 0;
      - the any-dtype legacy kernels (LA: float16, float32, heads over 128)
        at B 2, H 4, 256 x 1,024: float32 D 64 and 192 to 1e-4 x max |plain|,
        float16 D 64 and bf16 D 192 to 2e-2 (lse 1e-4), with times of the
@@ -147,11 +147,13 @@ KERNELS = {
     # K5a launches the tile kernel and the fixed-order statistics sum
     "K5a fused stem k1": (fs.fused_stem_k1_cuda, "fused_stem_k1.cu", JAX_STEM + "288", "fused_stem_k1", 2),
     "K5b fused stem k2": (fs.fused_stem_k2_cuda, "fused_stem_k2.cu", JAX_STEM + "412", "fused_stem_k2", 1),
-    # the per-head legacy flash family of tools/legacy_flash (L1 and L2a share a source, not a symbol)
+    # the per-head legacy flash family of tools/legacy_flash. L1 and L2a, K1's block per head, share a source:
+    # each launches its key-chunk kernel (lf_fwd_chunk, lf_fwd_lse_chunk) and its merge (lf_fwd_chunk_merge,
+    # lf_fwd_lse_chunk_merge: a non-causal call of more than one chunk, legacy_fwd_splits) or the first alone
     "L1 legacy flash fwd": (fl.legacy_fwd_cuda, "legacy_flash_fwd.cu", JAX_LEGACY + "flash_attention.py:42",
-                            "lf_fwd_kernel", 1),
+                            "lf_fwd_chunk", 2),
     "L2a legacy flash fwd lse": (fb.legacy_fwd_lse_cuda, "legacy_flash_fwd.cu",
-                                 JAX_LEGACY + "flash_attention_bwd.py:57", "lf_fwd_lse_kernel", 1),
+                                 JAX_LEGACY + "flash_attention_bwd.py:57", "lf_fwd_lse_chunk", 2),
     # L2b, K3a's block per head, launches the key-chunk kernel and the merge (a non-causal call of more than one
     # chunk, legacy_dq_splits) or the first alone
     "L2b legacy flash dq": (fb.legacy_dq_cuda, "legacy_flash_dq.cu", JAX_LEGACY + "flash_attention_bwd.py:109",
@@ -304,6 +306,37 @@ def l2b_kernels(q, k, causal, n_split=None) -> int:
         n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
         n_split = fb.legacy_dq_splits(b, h, lq, k.shape[2], d, n_sm)[0]
     return 1 if n_split == 1 else 2
+
+
+def lf_fwd_kernels(q, k, causal, n_split=None) -> int:
+    """Device kernels of one L1 or L2a launch on [B, H, L, D] q and k: the
+    key-chunk kernel and, for a non-causal call of more than one chunk
+    (n_split, or legacy_fwd_splits' for the card), the merge."""
+    if n_split is None:
+        b, h, lq, d = q.shape
+        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_split = fl.legacy_fwd_splits(b, h, lq, k.shape[2], d, n_sm, causal)[0]
+    return 1 if n_split == 1 else 2
+
+
+def check_legacy_blocks(rows, tag, q, k, causal):
+    """The launch records of L1, L2a and (non-causal) L2b at shape tag hold
+    the consumer warpgroups a block that the wrappers' key-split choosers
+    sized their chunks for (LEGACY_FWD_CONSUMERS, LEGACY_DQ_CONSUMERS; the
+    C launches pick their counts by D) and the grid of those chunks."""
+    b, h, lq, d = q.shape
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plans = {name: (fl.LEGACY_FWD_CONSUMERS[fl.width_class(d)],
+                    fl.legacy_fwd_splits(b, h, lq, k.shape[2], d, n_sm, causal)[0])
+             for name in ("L1 legacy flash fwd", "L2a legacy flash fwd lse")}
+    if not causal:
+        plans["L2b legacy flash dq"] = (fb.LEGACY_DQ_CONSUMERS[fb.width_class(d)],
+                                        fb.legacy_dq_splits(b, h, lq, k.shape[2], d, n_sm)[0])
+    for name, (cons, n_split) in plans.items():
+        record = rows[name][tag]["launch_record"]
+        want = dict(threads=128 * (cons + 1), grid=[-(-lq // (64 * cons)), h, b * n_split])
+        if {key: record.get(key) for key in want} != want:
+            raise AssertionError(f"{name} at {tag}: launched {record}, planned {want} ({cons} consumers)")
 
 
 def ragged_hw(n, device):
@@ -845,7 +878,7 @@ def kernel_kind(name: str) -> str:
     for key, kind in (("lfany_fwd_kernel", "LA legacy flash fwd, any dtype"),
                       ("lfany_dq_kernel", "LA legacy flash dq, any dtype"),
                       ("lfany_dkv_kernel", "LA legacy flash dk/dv, any dtype"),
-                      ("lf_fwd_lse_kernel", "L2a legacy flash fwd lse"), ("lf_fwd_kernel", "L1 legacy flash fwd"),
+                      ("lf_fwd_lse_chunk", "L2a legacy flash fwd lse"), ("lf_fwd_chunk", "L1 legacy flash fwd"),
                       ("lf_dq_", "L2b legacy flash dq"), ("lf_dkv_kernel", "L2c legacy flash dk/dv"),
                       ("flash_fwd", "K1 flash fwd"), ("flash_bwd", "K2 flash bwd"), ("flash_dq", "K3a flash dq"),
                       ("flash_dkv", "K3b flash dk/dv"), ("keep_mask", "K4 keep mask"),
@@ -998,7 +1031,7 @@ def phase_legacy(dev, cross):
     past a target see no key): each against its plain version (rows with no
     key: o = 0 and lse = 0 in both), device time with its launch record,
     plain time and SDPA with the same boolean mask (forward beside L1 and
-    L2a, backward beside L2b and L2c, the backward also in device time).
+    L2a, backward beside L2b and L2c, both also in device time).
     The head-packed kernels of the cross phase at dropout 0 stand beside
     them: K1 beside L2a, K3a beside L2b (also at 1-8 key chunks), K3b
     beside L2c, K2 beside L2b + L2c."""
@@ -1060,7 +1093,9 @@ def phase_legacy(dev, cross):
                  "L2a legacy flash fwd lse": lambda: fb.legacy_fwd_lse_cuda(q, k, v, kv_len2, kv_valid, **band),
                  "L2b legacy flash dq": lambda: fb.legacy_dq_cuda(*bargs),
                  "L2c legacy flash dk/dv": lambda: fb.legacy_dkv_cuda(*bargs)}
-        per_launch = {"L2b legacy flash dq": l2b_kernels(q, k, band["causal"])}
+        n_fwd = lf_fwd_kernels(q, k, band["causal"])
+        per_launch = {"L1 legacy flash fwd": n_fwd, "L2a legacy flash fwd lse": n_fwd,
+                      "L2b legacy flash dq": l2b_kernels(q, k, band["causal"])}
         plain_fwd1 = time_ms(lambda: fl.attention_plain(q, k, v, kv_len1, None, **band), reps=3, warmup=1)
         plain_fwd2 = time_ms(lambda: fl.attention_plain(q, k, v, kv_len2, kv_valid, **band), reps=3, warmup=1)
         plain_bwd = time_ms(lambda: torch.autograd.grad(o2_p, (qr, kr, vr), do, retain_graph=True), reps=3, warmup=1)
@@ -1069,6 +1104,8 @@ def phase_legacy(dev, cross):
         mask1 = fl.visible_keys(LQ, lk, kv_len1, None, band["causal"], band["window"])
         lib_fwd1 = time_ms(lambda: sdpa(q, k, v, attn_mask=mask1))
         lib_fwd2 = time_ms(lambda: sdpa(q, k, v, attn_mask=see))
+        lib_fwd1_dev = device_ms(lambda: sdpa(q, k, v, attn_mask=mask1))
+        lib_fwd2_dev = device_ms(lambda: sdpa(q, k, v, attn_mask=see))
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
         o_s = sdpa(qs, ks, vs, attn_mask=see)
         lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do, retain_graph=True))
@@ -1086,16 +1123,20 @@ def phase_legacy(dev, cross):
                                    work=work[name], bound_ms=max(t_ops, t_bytes) * 1e3,
                                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                                    launch_record=dict(KERNEL_INFO.get(name, {})))
-            if name in ("L2b legacy flash dq", "L2c legacy flash dk/dv"):
-                rows[name][tag]["library_device_ms"] = lib_bwd_dev
+            rows[name][tag]["library_device_ms"] = {"L1 legacy flash fwd": lib_fwd1_dev,
+                                                    "L2a legacy flash fwd lse": lib_fwd2_dev}.get(name, lib_bwd_dev)
         log("  " + ", ".join(f"{n.split()[0]} {rows[n][tag]['ms']:.4f} ms (call {rows[n][tag]['call_ms']:.3f}, "
                                f"bound {rows[n][tag]['bound_ms']:.4f})" for n in timed))
         pair = rows["L2b legacy flash dq"][tag]["ms"] + rows["L2c legacy flash dk/dv"][tag]["ms"]
+        ms1, ms2 = rows["L1 legacy flash fwd"][tag]["ms"], rows["L2a legacy flash fwd lse"][tag]["ms"]
         log(f"  plain fwd {plain_fwd1:.3f} (L1) / {plain_fwd2:.3f} (L2a) ms, plain autograd bwd {plain_bwd:.3f} ms; "
-            f"SDPA fwd {lib_fwd1:.3f} / {lib_fwd2:.3f} ms, bwd {lib_bwd:.3f} ms (device {lib_bwd_dev:.4f} ms); "
-            f"L2b + L2c {pair:.4f} ms, {pair / lib_bwd_dev:.3f} x SDPA's backward device time")
-        for name in ("L2b legacy flash dq", "L2c legacy flash dk/dv"):
+            f"SDPA fwd {lib_fwd1:.3f} / {lib_fwd2:.3f} ms (device {lib_fwd1_dev:.4f} / {lib_fwd2_dev:.4f} ms), "
+            f"bwd {lib_bwd:.3f} ms (device {lib_bwd_dev:.4f} ms); L1 {ms1 / lib_fwd1_dev:.3f} x and L2a "
+            f"{ms2 / lib_fwd2_dev:.3f} x SDPA's forward device time; L2b + L2c {pair:.4f} ms, "
+            f"{pair / lib_bwd_dev:.3f} x SDPA's backward device time")
+        for name in LEGACY_BF16:
             log(f"  {name.split()[0]} launch record: {rows[name][tag]['launch_record']}")
+        check_legacy_blocks(rows, tag, q, k, band["causal"])
         del q, k, v, do, o2, lse2, bargs, qr, kr, vr, see, mask1, timed
         torch.cuda.empty_cache()
 

@@ -1,9 +1,9 @@
 // Shared pieces of the per-head legacy flash kernels on mma.sync
-// (legacy_flash_fwd.cu: L1 and L2a; legacy_flash_any_*.cu: LA): tile
-// geometry for a head width DP of 64 or 128, tile loads, ldmatrix fragment
-// loads, the key test and the tile ranges of the block skip. The mma.sync,
-// ldmatrix, cp.async and ex2 primitives come from flash_common.cuh. L2b and
-// L2c run on K3a's and K3b's TMA/wgmma blocks (flash_dq.cuh, flash_bwd.cuh).
+// (legacy_flash_any_*.cu: LA): tile geometry for a head width DP of 64 or
+// 128, ldmatrix fragment loads, the key test and the tile ranges of the
+// block skip. The mma.sync, ldmatrix, cp.async and ex2 primitives come from
+// flash_common.cuh. L1 and L2a run on K1's TMA/wgmma block (flash_fwd.cuh),
+// L2b and L2c on K3a's and K3b's (flash_dq.cuh, flash_bwd.cuh).
 //
 // Layout: q/o/do are [B, H, Lq, D] and k/v/dk/dv [B, H, Lk, D] bf16,
 // contiguous; lse and delta are [B, H, Lq] f32. A block works on one
@@ -27,22 +27,7 @@ using flash::NT;
 template <int DP>
 struct Tile {
   static constexpr int SROW = DP + 8;
-  static constexpr int ELEMS = 64 * SROW;  // one 64-row tile
-  static constexpr int KC = DP / 16;       // 16-column k chunks of an mma
-  static constexpr int NB = DP / 8;        // 8-column n tiles of an mma
 };
-
-// Start copying rows [row0, row0 + 64) of a row-major [n_rows, D] matrix
-// into a tile; rows at or past n_rows and columns at or past D are zeroed.
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* g, int row0, int n_rows, int D, int tid) {
-  constexpr int CH = DP / 8;  // 16-byte chunks per row
-  for (int i = tid; i < 64 * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool in = row0 + r < n_rows && c < D;
-    flash::cp_async16(sm + r * Tile<DP>::SROW + c, in ? g + (size_t)(row0 + r) * D + c : g, in);
-  }
-}
 
 // A fragment of the 16-row block at rows r0.. of a tile, columns
 // kk*16 .. kk*16+15 (the m16n8k16 A layout).

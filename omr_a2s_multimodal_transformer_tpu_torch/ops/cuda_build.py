@@ -39,7 +39,7 @@ SIGNATURES = {
     "keep_mask": ("keep_mask_launch", [_P] * 2 + [_I] * 6 + [_U, _P]),
     "fused_stem_k1": ("fused_stem_k1_launch", [_P] * 13 + [_I] * 10 + [_F, _P]),
     "fused_stem_k2": ("fused_stem_k2_launch", [_P] * 9 + [_I] * 13 + [_F, _P]),
-    "legacy_flash_fwd": ("lf_fwd_launch", [_P] * 7 + [_I] * 8 + [_F, _P]),
+    "legacy_flash_fwd": ("lf_fwd_launch", [_P] * 9 + [_I] * 10 + [_F, _P]),
     "legacy_flash_dq": ("lf_dq_launch", [_P] * 9 + [_I] * 9 + [_F, _P]),
     "legacy_flash_dkv": ("lf_dkv_launch", [_P] * 9 + [_I] * 7 + [_F, _P]),
     "legacy_flash_any_fwd": ("lfany_fwd_launch", [_P] * 7 + [_I] * 9 + [_F, _P]),

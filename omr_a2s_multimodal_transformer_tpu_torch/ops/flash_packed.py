@@ -226,14 +226,15 @@ def _key_splits(units: int, n_tiles: int, slots: int, overhead: int, max_splits:
     return best[1], best[2]
 
 
-def fwd_splits(batch: int, n_heads: int, lq: int, lk: int, n_sm: int) -> Tuple[int, int]:
-    """(n_split, per): K1 walks its ceil(lk / 64) key tiles in n_split
+def fwd_splits(batch: int, n_heads: int, lq: int, lk: int, n_sm: int, rows: int = FWD_ROWS) -> Tuple[int, int]:
+    """(n_split, per): K1 (and L1/L2a, whose block is K1's, with blocks of
+    their own ``rows`` queries) walks its ceil(lk / 64) key tiles in n_split
     chunks of ``per`` tiles, each chunk a block of its own, merged by lse.
     The split minimizes waves x block time over the card's n_sm one-block
     slots (``_key_splits``). At the flagship cross shape (224 blocks of
     192 queries, 199 key tiles) on 132 SMs it picks 4: 896 blocks in 6.79
     waves (7) instead of 224 in 1.70 (2)."""
-    units = -(-lq // FWD_ROWS) * n_heads * batch
+    units = -(-lq // rows) * n_heads * batch
     return _key_splits(units, -(-lk // KERNEL_TILE), n_sm * FWD_BLOCKS_PER_SM, FWD_BLOCK_OVERHEAD_TILES,
                        MAX_FWD_SPLITS)
 

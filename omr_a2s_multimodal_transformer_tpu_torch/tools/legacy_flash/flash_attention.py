@@ -12,10 +12,14 @@ kernels against; no model calls it.
 
 Two routes, chosen by where the tensors lie, never by a switch:
 
-- CUDA tensors launch L1 (``csrc/legacy_flash_fwd.cu``, bf16 tensor cores)
-  for bfloat16 heads of width D <= 128 (the kernel is built for 64 and 128
-  and zero-fills the columns past D; a D that is not a multiple of 8 is
-  zero-padded here), and the any-dtype forward
+- CUDA tensors launch L1 (``csrc/legacy_flash_fwd.cu``: K1's TMA/wgmma
+  block of ``csrc/flash_fwd.cuh`` per head) for bfloat16 heads of width
+  D <= 128 (the block is built for 64 and 128 columns, and its tensor maps
+  read the columns past D as zero; a D that is not a multiple of 8 is
+  zero-padded here). A non-causal call walks its key tiles in
+  ``legacy_fwd_splits`` chunks whose f32 partials a second kernel merges
+  by lse in chunk order; a causal call walks its band in one. What L1 does
+  not take goes to the any-dtype forward
   (``csrc/legacy_flash_any_fwd.cu``) for float16, float32, wider heads and
   misaligned rows, as the JAX kernels take any float dtype and width. That
   forward runs on the tensor cores too, in 64-column chunks (float16 on
@@ -46,10 +50,15 @@ import torch
 import torch.nn.functional as F
 
 from omr_a2s_multimodal_transformer_tpu_torch.ops import cuda_build
-from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import band_window
+from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import (
+    KERNEL_TILE, _sm_count, _split_of, band_window, fwd_splits)
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128  # the widest head the bf16 tensor-core kernels are built for
+# consumer warpgroups of 64 queries in an L1/L2a block by head width class: K1's three at 64 columns, two at
+# 128 (three, at 160 registers a thread, were slower on the H100). lf_fwd_launch (csrc/legacy_flash_fwd.cu)
+# picks the same counts by D and must match this table, which sizes the key chunks for its blocks.
+LEGACY_FWD_CONSUMERS = {64: 3, 128: 2}
 
 
 def visible_keys(lq: int, lk: int, kv_len: torch.Tensor, kv_valid: Optional[torch.Tensor], causal: bool,
@@ -156,6 +165,26 @@ def tensor_core_route(*tensors: torch.Tensor) -> bool:
             and (d % 8 != 0 or all(t.data_ptr() % 16 == 0 for t in tensors)))
 
 
+def width_class(d: int) -> int:
+    """The head width L1, L2a, L2b and L2c are built for that holds a head of
+    d <= 128 columns: 64 or 128 (the columns past d read as zero)."""
+    return 64 if d <= 64 else 128
+
+
+def legacy_fwd_splits(batch: int, n_heads: int, lq: int, lk: int, d: int, n_sm: int, causal: bool = False):
+    """(n_split, per): the key chunks of an L1 or L2a call. A causal call
+    walks its band in one chunk; a non-causal one takes K1's chooser
+    (``fwd_splits``) over its blocks of ``LEGACY_FWD_CONSUMERS`` x 64
+    queries per (b, h) for d's width class. At the legacy cross shape
+    (B 8, H 4, Lq 1268, Lk 12,696, D 64) those are K1's 224 blocks and its
+    4 chunks of 50 key tiles; at D 128 with 2 heads, 160 blocks and 4
+    chunks. The chooser counts every key tile, as the kernel's chunks do; a
+    block walks only those below kv_len."""
+    if causal:
+        return 1, -(-lk // KERNEL_TILE)
+    return fwd_splits(batch, n_heads, lq, lk, n_sm, rows=64 * LEGACY_FWD_CONSUMERS[width_class(d)])
+
+
 def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
     """Zero-pad the head width to a multiple of 8 (16-byte rows for the
     kernels' copies); padded columns add 0 to q k^T and give zero columns."""
@@ -167,20 +196,33 @@ def unpad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
     return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
-def launch_fwd(q, k, v, kv_len, kv_valid, causal: bool, window: int, with_lse: bool):
+def launch_fwd(q, k, v, kv_len, kv_valid, causal: bool, window: int, with_lse: bool, n_split=None):
     """Run L1 (with_lse False, no kv_valid) or L2a on checked inputs that
-    ``tensor_core_route`` takes. Returns (o bf16 [B, H, Lq, D], lse f32
-    [B, H, Lq] or None)."""
+    ``tensor_core_route`` takes: a non-causal call in ``n_split`` key chunks
+    when given, else in ``legacy_fwd_splits``'s for the card, and for more
+    than one the merge kernel too; a causal call in one (``n_split`` 1 or
+    None). Returns (o bf16 [B, H, Lq, D], lse f32 [B, H, Lq] or None)."""
     b, h, lq, d = q.shape
+    lk = k.shape[2]
     qp, kp, vp = (pad_head_dim(t) for t in (q, k, v))
+    if n_split is None:
+        n_split, per = legacy_fwd_splits(b, h, lq, lk, qp.shape[3], _sm_count(q.device), causal)
+    elif causal and n_split != 1:
+        raise ValueError("a causal call walks its band in one key chunk")
+    else:
+        n_split, per = _split_of(-(-lk // KERNEL_TILE), n_split)
     o = torch.empty_like(qp)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32) if with_lse else None
+    o_part = lse_part = None
+    if n_split > 1:  # scratch of the key chunks (L1's lse too)
+        o_part = torch.empty((n_split, *qp.shape), device=q.device, dtype=torch.float32)
+        lse_part = torch.empty((n_split, b, h, lq), device=q.device, dtype=torch.float32)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = cuda_build.load("legacy_flash_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), kv_len.data_ptr(),
-             None if kv_valid is None else kv_valid.data_ptr(), o.data_ptr(),
-             None if lse is None else lse.data_ptr(), b, h, lq, k.shape[2], qp.shape[3], int(causal),
-             band_window(causal, window), int(with_lse), 1.0 / d ** 0.5, stream)
+    err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), kv_len.data_ptr(), ptr(kv_valid), o.data_ptr(), ptr(lse),
+             ptr(o_part), ptr(lse_part), b, h, lq, lk, qp.shape[3], int(causal), band_window(causal, window),
+             int(with_lse), n_split, per, 1.0 / d ** 0.5, stream)
     if err != 0:
         raise RuntimeError(f"legacy_flash_fwd launch failed: cudaError {err}")
     return unpad_head_dim(o, d), lse
@@ -222,13 +264,15 @@ def legacy_any_fwd_cuda(q, k, v, kv_len, kv_valid, causal: bool, window: int, wi
 legacy_any_fwd_cuda.launches = 0
 
 
-def legacy_fwd_cuda(q, k, v, kv_len, causal: bool = False, window: int = -1) -> torch.Tensor:
-    """Launch L1 (bf16, D <= 128) or, for what it does not take, the
-    any-dtype forward. Returns o ([B, H, Lq, D] in q's dtype)."""
+def legacy_fwd_cuda(q, k, v, kv_len, causal: bool = False, window: int = -1, n_split=None) -> torch.Tensor:
+    """Launch L1 (bf16, D <= 128; its key chunks and merge, ``launch_fwd``)
+    or, for what it does not take, the any-dtype forward. Returns o
+    ([B, H, Lq, D] in q's dtype). Deterministic: the chunks are merged in a
+    fixed order."""
     check_inputs(q, k, v, kv_len)
     if not tensor_core_route(q, k, v):
         return legacy_any_fwd_cuda(q, k, v, kv_len, None, causal, window, with_lse=False)[0]
-    o, _ = launch_fwd(q, k, v, kv_len, None, causal, window, with_lse=False)
+    o, _ = launch_fwd(q, k, v, kv_len, None, causal, window, False, n_split)
     legacy_fwd_cuda.launches += 1
     return o
 

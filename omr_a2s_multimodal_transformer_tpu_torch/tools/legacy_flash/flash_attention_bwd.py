@@ -17,16 +17,17 @@ differentiated by autograd); CUDA tensors go through
 ``LegacyFlashAttention``, whose forward launches L2a
 (``csrc/legacy_flash_fwd.cu``) and whose backward launches L2b
 (``csrc/legacy_flash_dq.cu``) and then L2c (``csrc/legacy_flash_dkv.cu``).
-L2b and L2c run on the TMA/wgmma blocks of the head-packed split backward,
-K3a and K3b (``csrc/flash_dq.cuh``, ``csrc/flash_bwd.cuh``), in two head
-width classes, 64 and 128 columns; L2b walks the key tiles of a non-causal
-call in ``legacy_dq_splits`` chunks whose f32 partials a second kernel sums
-in chunk order. No atomics in either: both are deterministic. What the bf16
-tensor-core kernels do not take (float16, float32, heads wider than 128,
-misaligned rows) goes to the any-dtype kernels
-(``csrc/legacy_flash_any_{fwd,dq,dkv}.cu``: all three on the tensor cores,
-float32 as three TF32 passes, on ``any_operands``); the wrappers raise for
-another dtype, non-contiguous tensors or mixed devices.
+The three run on the TMA/wgmma blocks of the head-packed kernels, K1's
+forward and K3a's and K3b's split backward (``csrc/flash_fwd.cuh``,
+``csrc/flash_dq.cuh``, ``csrc/flash_bwd.cuh``), in two head width classes,
+64 and 128 columns; L2a walks the key tiles of a non-causal call in
+``legacy_fwd_splits`` chunks merged by lse, and L2b in ``legacy_dq_splits``
+chunks summed, both in chunk order. No atomics: all three are
+deterministic. What the bf16 tensor-core kernels do not take (float16,
+float32, heads wider than 128, misaligned rows) goes to the any-dtype
+kernels (``csrc/legacy_flash_any_{fwd,dq,dkv}.cu``: all three on the
+tensor cores, float32 as three TF32 passes, on ``any_operands``); the
+wrappers raise for another dtype, non-contiguous tensors or mixed devices.
 """
 
 from __future__ import annotations
@@ -40,17 +41,18 @@ from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import (
     KERNEL_TILE, _sm_count, _split_of, band_window, bwd_stats, dq_splits)
 from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash.flash_attention import (
     KERNEL_DTYPES, any_operands, attention_plain, check_backward_inputs, check_inputs, kv_len_tensor,
-    launch_fwd, legacy_any_fwd_cuda, pad_head_dim, tensor_core_route, unpad_head_dim)
+    launch_fwd, legacy_any_fwd_cuda, pad_head_dim, tensor_core_route, unpad_head_dim, width_class)
 
 
-def legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, causal: bool = False, window: int = -1):
-    """Launch L2a (bf16, D <= 128) or, for what it does not take, the
-    any-dtype forward. Returns (o [B, H, Lq, D] in q's dtype, lse f32
-    [B, H, Lq])."""
+def legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, causal: bool = False, window: int = -1, n_split=None):
+    """Launch L2a (bf16, D <= 128; its key chunks and merge, ``launch_fwd``)
+    or, for what it does not take, the any-dtype forward. Returns (o
+    [B, H, Lq, D] in q's dtype, lse f32 [B, H, Lq]). Deterministic: the
+    chunks are merged in a fixed order."""
     check_inputs(q, k, v, kv_len, kv_valid)
     if not tensor_core_route(q, k, v):
         return legacy_any_fwd_cuda(q, k, v, kv_len, kv_valid, causal, window, with_lse=True)
-    out = launch_fwd(q, k, v, kv_len, kv_valid, causal, window, with_lse=True)
+    out = launch_fwd(q, k, v, kv_len, kv_valid, causal, window, True, n_split)
     legacy_fwd_lse_cuda.launches += 1
     return out
 
@@ -68,12 +70,6 @@ def attention_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 # csrc/legacy_flash_dq.cu: K3a's three at 64 columns, two at 128 (three would not hold dq's 64 floats a thread
 # beside s and dp in their 160 registers)
 LEGACY_DQ_CONSUMERS = {64: 3, 128: 2}
-
-
-def width_class(d: int) -> int:
-    """The head width L2b and L2c are built for that holds a head of d <= 128
-    columns: 64 or 128 (the columns past d read as zero)."""
-    return 64 if d <= 64 else 128
 
 
 def legacy_dq_splits(batch: int, n_heads: int, lq: int, lk: int, d: int, n_sm: int):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the split flash backward (K3a dq, K3b dk/dv) and the per-head L2b/L2c on one GPU, against another checkout's.
+"""Time the split flash backward (K3a dq, K3b dk/dv), K1 and the per-head L1-L2c on one GPU, against another checkout's.
 
     python3 probe_split_bwd.py                # from the root of a checkout
-    python3 probe_split_bwd.py --parent P     # also time the K3a/K3b of the checkout at P, in turns
+    python3 probe_split_bwd.py --parent P     # also time the kernels of the checkout at P, in turns
     python3 probe_split_bwd.py --out-dir D    # results to D (default build/split_bwd_probe/)
 
 Each part runs in a process of its own (probe_turns.py), on the port beside
@@ -19,11 +19,13 @@ of the wrapper's kernels in a profiler trace) and device_ms:
 - the paper's self-attention shape (B 8, L 1268, 4 x 64 heads, ragged
   targets, 128/512 blocks), window 100 at dropout 0.1 and 0 and full causal
   at 0.1: K3a and K3b;
-- the per-head legacy backward (tools/legacy_flash: [B, H, L, D] bf16, no
-  dropout), L2b (dq: its chunk kernel and merge where it splits the keys)
-  and L2c (dk, dv), at the cross shape with 4 x 64 and with 2 x 128 heads
-  and at the self shape (4 x 64, window 100, the targets as kv_valid),
-  with SDPA's backward on the same tensors and boolean mask.
+- the per-head legacy family (tools/legacy_flash: [B, H, L, D] bf16, no
+  dropout), L1 and L2a (the forward: its chunk kernel and merge where it
+  splits the keys; L2a also at 1-8 chunks), L2b (dq, likewise) and L2c
+  (dk, dv), at the cross shape with 4 x 64 and with 2 x 128 heads and at
+  the self shape (4 x 64, window 100, the targets as kv_valid for L2 and
+  kv_len for L1), with SDPA's forward and backward on the same tensors and
+  boolean mask.
 The results go to <out-dir>/split_bwd_probe.json and, as one JSON object,
 to the last line of standard output. Exits 2 without a GPU.
 """
@@ -112,9 +114,12 @@ def self_shape(cs, fp, dev) -> dict:
 
 
 def legacy(cs, dev) -> dict:
-    """L2b and L2c at the cross shape (4 x 64 and 2 x 128 heads) and the
-    self shape (4 x 64, window 100), given L2a's lse, beside SDPA's
-    backward (device ms)."""
+    """L1 and L2a, then L2b and L2c given L2a's lse, at the cross shape (4 x
+    64 and 2 x 128 heads; L2: the images' kv_valid, L1: kv_len of the same
+    counts) and the self shape (4 x 64, window 100, the targets as kv_valid
+    for L2 and as kv_len for L1), beside SDPA's forward and backward
+    (device ms). Where the port splits the forward's keys: L2a at each
+    split of 1-8 chunks."""
     import torch
 
     fb, fl = cs.fb, cs.fl
@@ -123,26 +128,41 @@ def legacy(cs, dev) -> dict:
     valid_cross = cs.memory_valid_from_hw(cs.ragged_hw(cs.B, dev), cs.GRID_H, cs.GRID_W).contiguous()
     valid_self = (torch.arange(cs.LQ, device=dev)[None, :] < lengths[:, None]).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    split_fwd = hasattr(fl, "legacy_fwd_splits")
+    if not split_fwd:  # a port whose L1 and L2a are one kernel each, named as before the key split
+        for name, symbol in (("L1 legacy flash fwd", "lf_fwd_kernel"), ("L2a legacy flash fwd lse", "lf_fwd_lse_kernel")):
+            cs.KERNELS[name] = (*cs.KERNELS[name][:3], symbol, 1)
     out = {}
-    for tag, heads, d, lk, kv_valid, causal, window in (
-            ("cross D 64", cs.HEADS, 64, cs.LK, valid_cross, False, -1),
-            ("cross D 128", 2, 128, cs.LK, valid_cross, False, -1),
-            ("self D 64", cs.HEADS, 64, cs.LQ, valid_self, True, cs.WINDOW)):
+    for tag, heads, d, lk, kv_valid, kv_len1, causal, window in (
+            ("cross D 64", cs.HEADS, 64, cs.LK, valid_cross, valid_cross.sum(1).to(torch.int32), False, -1),
+            ("cross D 128", 2, 128, cs.LK, valid_cross, valid_cross.sum(1).to(torch.int32), False, -1),
+            ("self D 64", cs.HEADS, 64, cs.LQ, valid_self, lengths, True, cs.WINDOW)):
         q, k, v, do = (torch.randn((cs.B, heads, n, d), generator=g, device=dev).to(torch.bfloat16)
                        for n in (cs.LQ, lk, lk, cs.LQ))
         kv_len = torch.full((cs.B,), lk, dtype=torch.int32, device=dev)
         o, lse = fb.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, causal, window)
         args = (q, k, v, kv_len, kv_valid, do, lse, fb.attention_delta(do, o), causal, window)
-        # L2b's chunk kernel and merge, or its one kernel where the port has no key split
+        # L1/L2a's and L2b's chunk kernel and merge, or their one kernel where the port has no key split
+        n_fwd = cs.lf_fwd_kernels(q, k, causal) if split_fwd else 1
         n_dq = cs.l2b_kernels(q, k, causal) if hasattr(fb, "legacy_dq_splits") else 1
-        r = dict(l2b=timed(cs, "L2b legacy flash dq", lambda: fb.legacy_dq_cuda(*args), n_dq),
+        l1 = lambda **kw: fl.legacy_fwd_cuda(q, k, v, kv_len1, causal, window, **kw)  # noqa: E731
+        l2a = lambda **kw: fb.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, causal, window, **kw)  # noqa: E731
+        r = dict(l1=timed(cs, "L1 legacy flash fwd", l1, n_fwd), l2a=timed(cs, "L2a legacy flash fwd lse", l2a, n_fwd),
+                 l2b=timed(cs, "L2b legacy flash dq", lambda: fb.legacy_dq_cuda(*args), n_dq),
                  l2c=timed(cs, "L2c legacy flash dk/dv", lambda: fb.legacy_dkv_cuda(*args)))
+        if split_fwd and not causal:
+            r["l2a_ms_at_splits"] = {n: timed(cs, "L2a legacy flash fwd lse", lambda n=n: l2a(n_split=n),
+                                              1 if n == 1 else 2)["ms"] for n in range(1, 9)}
+        see = fl.visible_keys(cs.LQ, lk, kv_len, kv_valid, causal, window)
+        see1 = fl.visible_keys(cs.LQ, lk, kv_len1, None, causal, window)
+        r["sdpa_fwd_ms"] = cs.device_ms(lambda: sdpa(q, k, v, attn_mask=see))
+        r["sdpa_fwd_l1_mask_ms"] = cs.device_ms(lambda: sdpa(q, k, v, attn_mask=see1))
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-        o_s = sdpa(qs, ks, vs, attn_mask=fl.visible_keys(cs.LQ, lk, kv_len, kv_valid, causal, window))
+        o_s = sdpa(qs, ks, vs, attn_mask=see)
         r["sdpa_bwd_ms"] = cs.device_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do, retain_graph=True))
         print(f"[legacy {tag}] " + json.dumps(r), flush=True)
         out[tag] = r
-        del q, k, v, do, o, lse, args, qs, ks, vs, o_s
+        del q, k, v, do, o, lse, args, qs, ks, vs, o_s, see, see1
         torch.cuda.empty_cache()
     return out
 

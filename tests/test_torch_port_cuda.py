@@ -9,7 +9,8 @@ its autograd: bf16 heads of 36 to 128 on the tensor-core kernels; float32
 and float16 heads and heads of 192 and 256 on the any-dtype kernels, rows
 off 16-byte alignment and float16 rows of odd width among them, float32 to
 1e-4 x max |plain|; rows with no key must give o = 0 and lse = 0 in both;
-both backward routes and the any-dtype forward bit-equal across two calls;
+both backward routes, L1 and L2a at 1-8 key chunks and the any-dtype
+forward bit-equal across two calls;
 the any-dtype forward in float32 over 128 key tiles).
 The K1/K2 cases include the edges of their Hopper design: lengths off the
 TMA box and the key chunks, a row whose only key is in the last chunk,
@@ -33,6 +34,10 @@ would miss this by a factor of 50. Causal and windowed calls compare o, dq
 and lse on the query rows that have a key to see; the cotangent is zero on
 the others (ROADMAP Queue 3). K4 must equal the plain keep-mask bit for bit.
 """
+
+import json
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -458,7 +463,13 @@ def test_fused_stem_tile_height_on_gpu(dtype):
 # its key tiles into chunks (legacy_dq_splits > 1) merged in order; D 72,
 # whose second 64-column box is mostly zero fill; and a kv_valid that
 # empties a whole 64-key tile (keys 128-191 of row 0: no product on it in
-# L2b, a K3b consumer warpgroup with no valid key in L2c).
+# L2b, a K3b consumer warpgroup with no valid key in L2c). L1 and L2a run on
+# K1's block in the same width classes: every bf16 case of D <= 128 also
+# runs them at each key split the launch takes (1-8 chunks merged by lse;
+# a causal call in one), against the plain version with o = 0 and lse = 0
+# on the rows with no key, and twice, bit-equal; Lk 2560 (40 key tiles)
+# takes every split of 1-8, at D 72 and at D 64 with a batch row of kv_len
+# 0 (no key in any chunk); D 120 causal is the 128 class's band.
 LEGACY_CASES = [dict(d=d, causal=c, window=w, dtype=torch.bfloat16)
                 for d in (40, 64, 128) for c, w in ((False, -1), (True, -1), (True, 30))]
 LEGACY_CASES.append(dict(d=36, causal=True, window=30, dtype=torch.bfloat16))
@@ -466,7 +477,10 @@ LEGACY_CASES += [dict(d=d, causal=False, window=-1, dtype=torch.bfloat16, lq=300
 LEGACY_CASES += [dict(d=72, causal=False, window=-1, dtype=torch.bfloat16),
                  dict(d=72, causal=True, window=30, dtype=torch.bfloat16),
                  dict(d=64, causal=False, window=-1, dtype=torch.bfloat16, empty_tile=True),
-                 dict(d=128, causal=True, window=30, dtype=torch.bfloat16, empty_tile=True)]
+                 dict(d=128, causal=True, window=30, dtype=torch.bfloat16, empty_tile=True),
+                 dict(d=120, causal=True, window=-1, dtype=torch.bfloat16),
+                 dict(d=72, causal=False, window=-1, dtype=torch.bfloat16, lq=300, lk=2560),
+                 dict(d=64, causal=False, window=-1, dtype=torch.bfloat16, lq=300, lk=2560, zero_len=True)]
 LEGACY_CASES += [dict(d=d, causal=True, window=w, dtype=dt)
                  for d, dt in ((64, torch.float32), (64, torch.float16), (192, torch.bfloat16), (192, torch.float32))
                  for w in (-1, 30)]
@@ -587,6 +601,64 @@ def test_legacy_flash_kernels_match_plain_on_gpu(case):
         assert not o[empty].any() and (lse_k is None or not lse_k[empty].any())
     if case.get("zero_len"):
         assert not any(g[1].any() for g in grads)
+    if tensor_cores:
+        _legacy_forward_splits(case, q, k, v, kv_len, kv_valid, o1_ref, lse1_ref, o2_ref, lse_ref)
+
+
+def _legacy_forward_splits(case, q, k, v, kv_len, kv_valid, o1_ref, lse1_ref, o2_ref, lse_ref):
+    """L1 and L2a at each key split of 1-8 chunks the launch takes (one for
+    a causal call), against the plain version, o = 0 and lse = 0 on the
+    rows with no key, two calls bit-equal, and the block and grid of the
+    launched chunk kernels those of ``legacy_fwd_splits``."""
+    from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import _split_of
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention as l1
+    from omr_a2s_multimodal_transformer_tpu_torch.tools.legacy_flash import flash_attention_bwd as l2
+
+    band = dict(causal=case["causal"], window=case["window"])
+    n_tiles = -(-k.shape[2] // 64)
+    splits = [1] if case["causal"] else [n for n in range(1, min(8, n_tiles) + 1)
+                                         if -(-n_tiles // -(-n_tiles // n)) == n]
+    if case.get("lk") == 2560:
+        assert splits == list(range(1, 9))
+    empty1, empty2 = lse1_ref.detach() == 0, lse_ref.detach() == 0
+    for n in splits:
+        assert _split_of(n_tiles, n)[0] == n
+        before = (l1.legacy_fwd_cuda.launches, l2.legacy_fwd_lse_cuda.launches)
+        a1, b1 = (l1.legacy_fwd_cuda(q, k, v, kv_len, n_split=n, **band) for _ in range(2))
+        (a2, al2), (b2, bl2) = (l2.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, n_split=n, **band) for _ in range(2))
+        torch.cuda.synchronize()
+        assert (l1.legacy_fwd_cuda.launches - before[0], l2.legacy_fwd_lse_cuda.launches - before[1]) == (2, 2)
+        _legacy_close(f"L1 o, {n} key chunks", a1, o1_ref, torch.bfloat16)
+        _legacy_close(f"L2a o, {n} key chunks", a2, o2_ref, torch.bfloat16)
+        np.testing.assert_allclose(al2.cpu().numpy(), lse_ref.detach().cpu().numpy(), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"L2a lse, {n} key chunks")
+        assert not a1[empty1].any() and not a2[empty2].any() and not al2[empty2].any()
+        assert torch.isfinite(a1).all() and torch.isfinite(a2).all() and torch.isfinite(al2).all()
+        assert torch.equal(a1, b1) and torch.equal(a2, b2) and torch.equal(al2, bl2), f"{n} key chunks"
+    with pytest.raises(ValueError):  # a causal call walks its band in one chunk; no more chunks than tiles
+        l1.legacy_fwd_cuda(q, k, v, kv_len, n_split=2 if case["causal"] else n_tiles + 1, **band)
+    # the launched blocks hold the consumer warpgroups that legacy_fwd_splits sized the key chunks for
+    b, h, lq, d = q.shape
+    cons = l1.LEGACY_FWD_CONSUMERS[l1.width_class(d)]
+    n_split = l1.legacy_fwd_splits(b, h, lq, k.shape[2], d, fp._sm_count(q.device), case["causal"])[0]
+    for symbol, fn in (("lf_fwd_chunk", lambda: l1.legacy_fwd_cuda(q, k, v, kv_len, **band)),
+                       ("lf_fwd_lse_chunk", lambda: l2.legacy_fwd_lse_cuda(q, k, v, kv_len, kv_valid, **band))):
+        blocks = [(e["args"]["block"], e["args"]["grid"]) for e in _traced_kernels(fn)
+                  if symbol in e["name"] and "merge" not in e["name"]]
+        assert blocks == [([128 * (cons + 1), 1, 1], [-(-lq // (64 * cons)), h, b * n_split])], (symbol, blocks)
+
+
+def _traced_kernels(fn) -> list:
+    """The kernel events (name, block, grid) of a profiler trace of one call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        return [e for e in json.loads(path.read_text())["traceEvents"] if e.get("cat") == "kernel"]
 
 
 @pytest.mark.cuda

@@ -127,10 +127,15 @@ def test_chip_smoke_tells_every_kernel_apart_in_a_trace():
              "void lfany_fwd_kernel<float, true>(float const*, int)": "LA legacy flash fwd, any dtype",
              "void lfany_dq_kernel<__half>(__half const*)": "LA legacy flash dq, any dtype",
              "void lfany_dkv_kernel<__nv_bfloat16>(__nv_bfloat16 const*)": "LA legacy flash dk/dv, any dtype",
-             "void lf_fwd_kernel<64, false>(__nv_bfloat16 const*, int)": "L1 legacy flash fwd",
-             "void lf_fwd_kernel<128, true>(__nv_bfloat16 const*, int)": "L1 legacy flash fwd",
-             "void lf_fwd_lse_kernel<64, false>(__nv_bfloat16 const*, float*)": "L2a legacy flash fwd lse",
-             "void lf_fwd_lse_kernel<64, true>(__nv_bfloat16 const*, float*)": "L2a legacy flash fwd lse",
+             "void lf_fwd_chunk<3, false, 1>(CUtensorMap_st, CUtensorMap_st, int const*)": "L1 legacy flash fwd",
+             "void lf_fwd_chunk<2, true, 2>(CUtensorMap_st, CUtensorMap_st, int const*)": "L1 legacy flash fwd",
+             "void lf_fwd_chunk_merge(float const*, float const*, __nv_bfloat16*)": "L1 legacy flash fwd",
+             "void lf_fwd_lse_chunk<3, false, 1>(CUtensorMap_st, CUtensorMap_st, int const*)":
+                 "L2a legacy flash fwd lse",
+             "void lf_fwd_lse_chunk<2, true, 1>(CUtensorMap_st, CUtensorMap_st, int const*)":
+                 "L2a legacy flash fwd lse",
+             "void lf_fwd_lse_chunk_merge(float const*, float const*, __nv_bfloat16*, float*)":
+                 "L2a legacy flash fwd lse",
              "void lf_dq_kernel<64, true>(__nv_bfloat16 const*)": "L2b legacy flash dq",
              "void lf_dkv_kernel<128, false>(__nv_bfloat16 const*)": "L2c legacy flash dk/dv",
              "void lf_dq_kernel<3, false, 1>(CUtensorMap_st, CUtensorMap_st, int const*)": "L2b legacy flash dq",

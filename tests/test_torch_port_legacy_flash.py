@@ -14,6 +14,12 @@ JAX kernel averages v over the blocks it ran (ROADMAP Queue 3). dq, dk and
 dv are compared on every row, with a nonzero cotangent everywhere: both
 mask p before its products, so a row with no key adds nothing.
 
+The forward of L1 and L2a on the card walks the keys in chunks of 64-key
+tiles (``legacy_fwd_splits``) and merges the chunks' (o, lse) by lse:
+``_chunked_plain`` does the same in float32 (a row that sees no key of a
+chunk weighs 0 there; a row that sees none at all gets o = 0, lse = 0),
+and is held against the JAX kernels at 1, 2 and 4 chunks.
+
 Tolerance: float32 at 1e-5 relative and absolute (the same float32
 formulas, the JAX kernel's online softmax against the dense softmax, in
 another summation order; the conftest sets JAX's matmuls to full float32);
@@ -27,6 +33,7 @@ columns; the forward keeps up to 128 columns of float32 output in registers
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -297,3 +304,154 @@ def test_width_class_holds_the_head(d, cls):
     """L2b and L2c are built for heads of 64 and 128 columns; a narrower
     head takes the class that holds it (its columns past D read as zero)."""
     assert tl2.width_class(d) == cls and tl2.LEGACY_DQ_CONSUMERS[cls] in (2, 3)
+
+
+# ------------------------------------------------ L1 / L2a in key chunks
+
+
+def _chunked_plain(q, k, v, kv_len, kv_valid, causal, window, n_split):
+    """(o, lse) of L1 (kv_valid None) or L2a as their kernels compute them,
+    in float32: the keys in n_split chunks of ``per`` 64-key tiles
+    (``_split_of``, as the launch splits them), each chunk's masked softmax
+    giving its (o_c, lse_c), with o_c = 0 and lse_c = -inf on a row that
+    sees no key of the chunk; then lse = mx + log sum_c exp(lse_c - mx) and
+    o = sum_c exp(lse_c - lse) o_c in chunk order, mx the rows' largest
+    lse_c; a row with no key in any chunk gets o = 0 and lse = 0."""
+    lq, lk, d = q.shape[2], k.shape[2], q.shape[3]
+    n_split, per = tflash._split_of(-(-lk // tflash.KERNEL_TILE), n_split)
+    see = tl1.visible_keys(lq, lk, kv_len, kv_valid, causal, tflash.band_window(causal, window))
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / d ** 0.5
+    o_parts, lse_parts = [], []
+    for c in range(n_split):
+        lo, hi = c * per * 64, min(lk, (c + 1) * per * 64)
+        see_c = see[..., lo:hi].expand(*s.shape[:3], hi - lo)
+        s_c = torch.where(see_c, s[..., lo:hi], float("-inf"))
+        seen = see_c.any(-1)
+        lse_c = torch.where(seen, torch.logsumexp(s_c, -1), float("-inf"))
+        p = torch.where(see_c, torch.exp(s_c - torch.where(seen, lse_c, 0.0)[..., None]), 0.0)
+        o_parts.append(torch.matmul(p, v[:, :, lo:hi].float()))
+        lse_parts.append(lse_c)
+    mx = torch.stack(lse_parts).amax(0)
+    seen = mx > float("-inf")
+    tot, acc = torch.zeros_like(mx), torch.zeros_like(o_parts[0])
+    for o_c, lse_c in zip(o_parts, lse_parts):
+        w = torch.where(seen, torch.exp(lse_c - torch.where(seen, mx, 0.0)), 0.0)
+        tot = tot + w
+        acc = acc + w[..., None] * o_c
+    o = torch.where(seen[..., None], acc / torch.where(seen, tot, 1.0)[..., None], 0.0)
+    return o, torch.where(seen, mx + torch.log(torch.where(seen, tot, 1.0)), 0.0)
+
+
+# the float32 cases, and one whose chunks hold no key for some rows: a kv_valid hole of a whole 64-key tile
+# (row 0), a kv_len that ends in the second tile (row 1) and a kv_len of 0 (row 2: no key at all)
+CHUNK_CASES = {name: c for name, c in CASES.items() if c.get("dtype", np.float32) == np.float32} | {
+    "cross_dead_chunks_d64": dict(b=3, h=2, lq=70, lk=256, d=64, causal=False, window=-1, kv_len=(256, 100, 0),
+                                  holes=((0, 64, 128),)),
+}
+_JAX_FWD = {}
+
+
+def _jax_forward(name):
+    """(L1's o, L2a's o, L2a's lse) of the JAX kernels in interpret mode on
+    the case's float32 inputs, once per case."""
+    if name not in _JAX_FWD:
+        case = CHUNK_CASES[name]
+        q, k, v, _, kv_len, kv_valid = _inputs(case)
+        kw = dict(causal=case["causal"], window=case["window"])
+        o1 = np.asarray(jl1.flash_attention(q, k, v, jnp.asarray(kv_len), interpret=True, **kw))
+        o2, res = jl2.make_flash_attention(interpret=True, **kw).fwd(q, k, v, jnp.asarray(kv_len),
+                                                                     jnp.asarray(kv_valid))
+        lse = np.asarray(res[5]).reshape(case["b"], case["h"], -1)[:, :, :case["lq"]]
+        _JAX_FWD[name] = (o1, np.asarray(o2), lse)
+    return _JAX_FWD[name]
+
+
+def _chunks(case, n_split):
+    """n_split, or the key tiles' count where there are fewer."""
+    return min(n_split, -(-case["lk"] // 64))
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+@pytest.mark.parametrize("name", list(CHUNK_CASES))
+def test_l1_chunked_forward_matches_jax_interpret(name, n_split):
+    case = CHUNK_CASES[name]
+    q, k, v, _, kv_len, _ = _inputs(case)
+    rows = _rows_with_a_key(case, kv_len, np.ones((case["b"], case["lk"]), bool))
+    o, _ = _chunked_plain(*_torch(q, k, v, kv_len), None, case["causal"], case["window"], _chunks(case, n_split))
+    o = o.numpy().transpose(0, 2, 1, 3)
+    assert np.isfinite(o).all()
+    np.testing.assert_allclose(o[rows], _jax_forward(name)[0].transpose(0, 2, 1, 3)[rows], **TOL[np.float32])
+    assert not o[~rows].any(), "a row with no key to see must give o = 0"
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+@pytest.mark.parametrize("name", list(CHUNK_CASES))
+def test_l2a_chunked_forward_matches_jax_interpret(name, n_split):
+    case = CHUNK_CASES[name]
+    q, k, v, _, kv_len, kv_valid = _inputs(case)
+    rows = _rows_with_a_key(case, kv_len, kv_valid)
+    o, lse = _chunked_plain(*_torch(q, k, v, kv_len, kv_valid), case["causal"], case["window"],
+                            _chunks(case, n_split))
+    o, lse = o.numpy().transpose(0, 2, 1, 3), lse.numpy().transpose(0, 2, 1)
+    assert np.isfinite(o).all() and np.isfinite(lse).all()
+    _, oj, lse_j = _jax_forward(name)
+    np.testing.assert_allclose(o[rows], oj.transpose(0, 2, 1, 3)[rows], **TOL[np.float32])
+    np.testing.assert_allclose(lse[rows], lse_j.transpose(0, 2, 1)[rows], **TOL[np.float32], err_msg="lse")
+    assert not o[~rows].any() and not lse[~rows].any(), "a row with no key must give o = 0, lse = 0"
+
+
+def test_chunked_forward_cases_have_dead_chunks_and_rows_without_keys():
+    """The chunked cases reach both edges of the merge: at 4 chunks some
+    row sees no key of some chunk but sees one of another, and some row sees
+    no key at all."""
+    case = CHUNK_CASES["cross_dead_chunks_d64"]
+    _, _, _, _, kv_len, kv_valid = _inputs(case)
+    see = (kv_valid & (np.arange(case["lk"])[None, :] < kv_len[:, None])).reshape(case["b"], 4, 64).any(-1)
+    assert (see.any(1) & ~see.all(1)).any() and (~see.any(1)).any()
+
+
+# L1 and L2a's key split (legacy_fwd_splits): K1's chooser over their blocks of
+# LEGACY_FWD_CONSUMERS[width class] x 64 queries per (b, h), on 132 SMs
+
+
+@pytest.mark.parametrize("shape", CHOOSER_SHAPES, ids=lambda s: "b{}_h{}_q{}_k{}_d{}".format(*s))
+def test_legacy_fwd_splits_cover_the_key_tiles(shape):
+    """Never more chunks than key tiles, and every chunk holds a tile; a
+    causal call takes one chunk of every tile."""
+    b, h, lq, lk, d = shape
+    n_tiles = -(-lk // 64)
+    n_split, per = tl1.legacy_fwd_splits(b, h, lq, lk, d, 132)
+    assert 1 <= n_split <= n_tiles and per >= 1
+    assert (n_split - 1) * per < n_tiles <= n_split * per
+    assert tl1.legacy_fwd_splits(b, h, lq, lk, d, 132, causal=True) == (1, n_tiles)
+
+
+@pytest.mark.parametrize("shape, want", [((8, 4, 1268, 12696, 64), (4, 50)), ((8, 2, 1268, 12696, 128), (4, 50))],
+                         ids=["cross_d64", "cross_d128"])
+def test_legacy_fwd_splits_at_the_legacy_cross_shape(shape, want):
+    """The picks PERF.md states: K1's 224 blocks of 192 queries and its 4
+    chunks of 50 key tiles at D 64; 160 blocks of 128 queries at D 128
+    with 2 heads, 4 chunks too; the self shape, causal, one chunk."""
+    b, h, lq, lk, d = shape
+    assert tl1.legacy_fwd_splits(b, h, lq, lk, d, 132) == want
+    consumers = tl1.LEGACY_FWD_CONSUMERS[tl1.width_class(d)]
+    assert -(-lq // (64 * consumers)) * h * b == (224 if d == 64 else 160)
+    if d == 64:
+        assert tl1.legacy_fwd_splits(b, h, lq, lk, d, 132) == tflash.fwd_splits(b, h, lq, lk, 132)
+    assert tl1.legacy_fwd_splits(b, h, lq, lq, d, 132, causal=True) == (1, 20)
+
+
+@pytest.mark.parametrize("source, launch, table", [("legacy_flash_fwd.cu", "launch_fwd", "LEGACY_FWD_CONSUMERS"),
+                                                   ("legacy_flash_dq.cu", "launch_dq", "LEGACY_DQ_CONSUMERS")],
+                         ids=["l1_l2a", "l2b"])
+def test_consumer_tables_match_the_c_launches(source, launch, table):
+    """The key-split choosers size their chunks for blocks of the consumer
+    counts in the wrappers' tables; the C launches pick their instances by
+    D: a non-causal call of each width class must launch the table's
+    count (NB = 1: 64 columns, 2: 128)."""
+    text = (Path(tl1.__file__).resolve().parents[2] / "csrc" / source).read_text()
+    body = text[text.index('extern "C"'):]
+    built = {64 * int(nb): int(n) for n, causal, nb in re.findall(launch + r"<(\d), (true|false), (\d)>", body)
+             if causal == "false"}
+    tables = {"LEGACY_FWD_CONSUMERS": tl1.LEGACY_FWD_CONSUMERS, "LEGACY_DQ_CONSUMERS": tl2.LEGACY_DQ_CONSUMERS}
+    assert built == tables[table]
