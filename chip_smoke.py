@@ -28,7 +28,11 @@ Phases, each of which raises on failure (exit code 1):
        (y2, statistics) and K5b (out) against plain_k1/plain_k2 and the
        whole block against reference_block; the plain block's forward, the
        cuDNN convolutions of the block alone (convs_ms), and forward +
-       backward of fused_packed_block against plain autograd;
+       backward of fused_packed_block against plain autograd; each bf16
+       kernel's launch record (threads, registers, shared memory, grid from
+       the trace; spills from ptxas), which must hold the threads, grid and
+       shared memory of the wrapper's plan, beside its rows a stage, strips
+       and row segments;
      - the per-head legacy flash family of tools/legacy_flash ([B, H, L, D]
        bf16) at the cross shape with 4 x 64 heads and with 2 x 128 (L2: the
        images' kv_valid; L1: kv_len of the same counts) and at the paper's
@@ -144,9 +148,10 @@ KERNELS = {
     "K3a flash dq": (fp.flash_dq_cuda, "flash_dq.cu", JAX_FLASH + "228", "flash_dq_", 2),
     "K3b flash dk/dv": (fp.flash_dkv_cuda, "flash_dkv.cu", JAX_FLASH + "283", "flash_dkv_kernel", 1),
     "K4 keep mask": (fp.keep_mask_cuda, "keep_mask.cu", JAX_FLASH + "747", "keep_mask_kernel", 1),
-    # K5a launches the tile kernel and the fixed-order statistics sum
-    "K5a fused stem k1": (fs.fused_stem_k1_cuda, "fused_stem_k1.cu", JAX_STEM + "288", "fused_stem_k1", 2),
-    "K5b fused stem k2": (fs.fused_stem_k2_cuda, "fused_stem_k2.cu", JAX_STEM + "412", "fused_stem_k2", 1),
+    # K5a launches its walk (bf16 fused_stem_k1_tma; float32 fused_stem_k1_kernel) and the fixed-order statistics
+    # sum (fused_stem_k1_stats_kernel); K5b its walk (fused_stem_k2_tma; float32 fused_stem_k2_kernel) alone
+    "K5a fused stem k1": (fs.fused_stem_k1_cuda, "fused_stem_k1.cu", JAX_STEM + "288", "fused_stem_k1_", 2),
+    "K5b fused stem k2": (fs.fused_stem_k2_cuda, "fused_stem_k2.cu", JAX_STEM + "412", "fused_stem_k2_", 1),
     # the per-head legacy flash family of tools/legacy_flash. L1 and L2a, K1's block per head, share a source:
     # each launches its key-chunk kernel (lf_fwd_chunk, lf_fwd_lse_chunk) and its merge (lf_fwd_chunk_merge,
     # lf_fwd_lse_chunk_merge: a non-causal call of more than one chunk, legacy_fwd_splits) or the first alone
@@ -696,14 +701,52 @@ def stem_work(name, drop):
     return k5a, k5b
 
 
+def ptxas_spills(lib: str, symbol: str) -> dict:
+    """{kernel instance: ptxas's register and spill line} for the instances
+    of `symbol` in library `lib`'s build log."""
+    out, current = {}, None
+    for line in cuda_build.build_log(lib).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1) if symbol in m.group(1) else None
+        elif current and ("spill" in line or "registers" in line):
+            out[current] = (out.get(current, "") + " " + line.strip()).strip()
+    return out
+
+
+def stem_launch(kind, plan, record):
+    """The log line and the kernels-line entry of one bf16 stem kernel's
+    launch: the trace's launch record of its longest kernel, held against
+    the wrapper's plan (k1_plan/k2_plan, whose shared memory comes from the
+    kernels' own layout, csrc/fused_stem_layout.h): the threads, the grid
+    and the shared memory the trace recorded must be the plan's. The entry
+    keeps the record and the launch's arguments (rows a stage, strips and
+    segments an image)."""
+    want = dict(threads=160, grid=[plan.grid, 1, 1], smem_bytes=plan.smem)
+    got = {key: (record or {}).get(key) for key in want}
+    log(f"  {kind} launch: {plan.grid} blocks of 160 threads (a consumer warpgroup and its producer warp, "
+        f"{plan.blocks_per_sm} a SM by the plan), {plan.rows} rows a stage, "
+        f"{plan.n_strips} strips x {plan.n_seg} segments of {plan.seg_len} rows an image, {plan.smem} B shared; "
+        f"trace: {record}")
+    if got != want:
+        raise AssertionError(f"{kind}: the trace recorded {got}, the plan launched {want}")
+    return dict(record=record, rows=plan.rows, n_strips=plan.n_strips, n_seg=plan.n_seg, seg_len=plan.seg_len,
+                setmaxnreg="none: one producer warp a consumer warpgroup")
+
+
 def phase_stem(dev):
     """K5a and K5b at the three stem block shapes (b8, bf16), dropout 0.5
     and none: each kernel against its plain version, the whole block against
     reference_block; device times, the plain block's forward, the cuDNN
     convolutions of the same block alone, and forward + backward of the
-    fused block against plain autograd."""
+    fused block against plain autograd; each kernel's launch record,
+    held against its plan."""
     t0 = time.perf_counter()
     rows = {}
+    for lib, sym in (("fused_stem_k1", "fused_stem_k1_tma"), ("fused_stem_k2", "fused_stem_k2_tma")):
+        for inst, line in ptxas_spills(lib, sym).items():
+            log(f"[stem] ptxas {inst}: {line}")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, (f_in, f_out, stride, ci, co, h, wp) in STEM_BLOCKS.items():
         for p in (STEM_DROPOUT, None):
             (x, w1, b1, w2, b2, w3, b3), drop = stem_inputs(name, dev, p)
@@ -728,8 +771,12 @@ def phase_stem(dev):
             torch.cuda.empty_cache()
             r["ms_a"], r["call_a"] = kernel_times("K5a fused stem k1", lambda: fs.fused_stem_k1_cuda(
                 x, w1, b1, w2, b2, drop, f_in=f_in))
+            r["launch_a"] = stem_launch("K5a", fs.k1_plan(B, h, wp * f_in, ci, co, drop is not None, n_sm),
+                                        KERNEL_INFO.get("K5a fused stem k1"))
             r["ms_b"], r["call_b"] = kernel_times("K5b fused stem k2", lambda: fs.fused_stem_k2_cuda(
                 y2, mean_inv, w3, b3, drop, **kw))
+            r["launch_b"] = stem_launch("K5b", fs.k2_plan(B, h, wp * f_in, co, stride, f_out, drop is not None,
+                                                                n_sm), KERNEL_INFO.get("K5b fused stem k2"))
             r["plain_ms"] = time_ms(lambda: fs.reference_block(x, w1, b1, w2, b2, w3, b3, drop=drop, **kw))
             r["convs12_ms"] = time_ms(lambda: packed_conv(packed_conv(x, w1, b1, f_in, f_in, (1, 1)), w2, b2, f_in,
                                                           f_in, (1, 1)))
@@ -812,7 +859,8 @@ def stem_rows(rows, launches, errs):
                                max_abs_err_block=r["err_block"], fwd_bwd_ms=r["fwd_bwd_ms"],
                                plain_fwd_bwd_ms=r["plain_fwd_bwd_ms"], ms_dropout_none=n["ms_" + key],
                                plain_ms_dropout_none=n["plain_ms"], max_abs_err_dropout_none=n["err_" + key],
-                               max_abs_err_path=errs[blk])
+                               max_abs_err_path=errs[blk], launch=r["launch_" + key],
+                               launch_dropout_none=n["launch_" + key])
                      | (dict(stats_rel_err=max(r["stats_rel_err"], n["stats_rel_err"])) if key == "a" else {})
                      for blk, r, n in zip(STEM_BLOCKS, main, none)}
         out[name] = dict(name=name, route="cuda", source=CSRC + KERNELS[name][1], replaces=KERNELS[name][2],

@@ -1,23 +1,28 @@
 // Shared pieces of the fused stem block kernels (fused_stem_k1.cu, K5a;
-// fused_stem_k2.cu, K5b): element conversions, 16-wide vector loads and
-// stores, the positioned-MixDropout site factors and two 3x3 convolutions
-// over a tile held in shared memory: direct on the CUDA cores (conv3x3,
-// float tiles) and an implicit GEMM on the tensor cores (conv3x3_mma, bf16
-// tiles).
+// fused_stem_k2.cu, K5b).
+//
+// float32 route: element loads and stores, the positioned-MixDropout site
+// factors and a direct 3x3 convolution over a float tile in shared memory
+// on the CUDA cores (conv3x3).
+//
+// bfloat16 route (the Hopper kernels): the shared-memory geometry both
+// kernels use, the site factor of a pair of channels, the swizzle of the
+// staging rows that a TMA store writes out and the resident weights.
 //
 // Layout: the TPU kernels take width-packed tensors [B, H, W/f, f*C]. That
 // is the plain NHWC [B, H, W, C] by a reshape, so these kernels index NHWC
 // with 3x3 windows and need no widened or patched weights. Weights are the
-// original HWIO [3, 3, ci, co] (or their mma fragments). Every value in a
-// tile is already rounded to the kernel's element type; every sum is
-// float32 (promote(T, float32) for T in {float, bf16}).
+// original HWIO [3, 3, ci, co], or their wgmma operand (stem_weight_operand
+// in ops/fused_stem.py). Every value in a tile is already rounded to the
+// kernel's element type; every sum is float32.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_common.cuh"  // mma16816, ldsm_x4
+#include "fused_stem_layout.h"
+#include "hopper_common.cuh"
 
 namespace stem {
 
@@ -25,15 +30,12 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int OCB = 16;  // output channels per thread and task: one 16-byte bits load
 constexpr int PX = 2;    // pixels per thread and task (lanes of a warp take neighbouring pixels)
-constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may take on sm_90
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Pixel stride of a tile in shared memory, in floats: odd, so that lanes
 // reading one channel of neighbouring pixels hit distinct banks.
 __host__ __device__ __forceinline__ int odd_stride(int c) { return c | 1; }
-
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
 // OCB consecutive elements (16-element aligned) as float, through the
 // read-only path; a warp reads the same address, so one load serves it.
@@ -45,24 +47,6 @@ __device__ __forceinline__ void load16(const float* __restrict__ p, float (&v)[O
     v[4 * k + 1] = q.y;
     v[4 * k + 2] = q.z;
     v[4 * k + 3] = q.w;
-  }
-}
-
-__device__ __forceinline__ float2 bf2_to_f2(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
-__device__ __forceinline__ void load16(const bf16* __restrict__ p, float (&v)[OCB]) {
-#pragma unroll
-  for (int k = 0; k < OCB / 8; ++k) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p) + k);
-    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = bf2_to_f2(w[i]);
-      v[8 * k + 2 * i] = f.x;
-      v[8 * k + 2 * i + 1] = f.y;
-    }
   }
 }
 
@@ -154,98 +138,104 @@ __device__ __forceinline__ void conv3x3(const float* in_s, int in_cols, int cinp
   }
 }
 
-// ---- bf16 tensor-core convolution (mma.sync m16n8k16, float32 sums)
+
+// ---- bfloat16 route: the Hopper kernels
 //
-// The same 3x3 convolution as an implicit GEMM: out[pixel, oc] = sum over
-// (tap, c) of in[pixel + tap offset, c] * w[tap, c, oc]. A warp task is 32
-// output pixels (two 16-row tiles) by 8 * NT output channels. A fragments
-// come from the bf16 tile in shared memory by ldmatrix, one address per
-// pixel row, so any stride and any row of the tile works; the pixel stride
-// cs = cin + MMA_PAD keeps ldmatrix's eight rows on distinct banks. B
-// fragments come from device memory in the order ldmatrix would give them
-// (``mma_weight_fragments`` in ops/fused_stem.py): one 16-byte load per lane
-// and pair of 8-channel tiles, shared by every block through L1.
-constexpr int MMA_PAD = 8;
+// Both kernels are persistent. A consumer warpgroup walks units (one image,
+// one column strip, one segment of rows) top to bottom, one image row of 64
+// pixels (one wgmma M) at a time; a producer warp of its own keeps TMA
+// loads of the rows it will read in flight, in a ring of stages guarded by
+// mbarriers. A block is one such pair (160 threads) with its copy of the
+// weights; a second consumer warpgroup sharing them ran no faster where it
+// fits (blocks 0 and 1) and does not fit block2.
+//
+// The 3x3 products are implicit GEMMs on wgmma: M = 64 pixels of a row,
+// N = co, K = 9 taps x the input channels in 16-deep steps. Their A
+// operands are channel-planar rows: a row of pixels is C / 8 planes of
+// [pixel][8 channels] (16 bytes a pixel), so the window shifted by dx
+// pixels is the same planes at + 16 dx bytes, and a descriptor without
+// swizzle reads it as a K-major A (rows 16 bytes apart; the two 8-channel
+// halves of a k step one plane apart). B is the weights' operand, resident
+// in shared memory for the block's whole walk.
 
-__host__ __device__ __forceinline__ int mma_stride(int c) { return c + MMA_PAD; }
+// The layouts, the blocks an SM holds and what a launch takes are in
+// fused_stem_layout.h, which the host reads too.
 
-// Two consecutive channels (c even): bits as one 16-bit load, factors.
-__device__ __forceinline__ void site_factors2(float (&fac)[2], const Drop& d, int site, const uint8_t* bits,
-                                              const float* fch) {
-  if (d.pos != site) {
-    fac[0] = fac[1] = 1.f;
-  } else if (d.use_elem) {
-    const uint32_t w = *reinterpret_cast<const uint16_t*>(bits);
-    fac[0] = (int)(w & 0xFFu) < d.t ? d.inv_e : 0.f;
-    fac[1] = (int)(w >> 8) < d.t ? d.inv_e : 0.f;
-  } else {
-    fac[0] = __ldg(fch);
-    fac[1] = __ldg(fch + 1);
-  }
+// Byte offset inside a staging row of 2 co bytes a pixel under TMA's
+// 32-, 64- or 128-byte swizzle (co 16, 32, 64): the 16-byte chunk index
+// XOR the 128-byte line index, so the epilogue's stores of 8 pixel rows
+// by a warp hit distinct banks. Staging rows are 1024-byte aligned.
+template <int CO>
+__device__ __forceinline__ uint32_t stg_swizzle(uint32_t off) {
+  constexpr uint32_t mask = CO == 64 ? 7u : CO == 32 ? 3u : 1u;
+  return off ^ (((off >> 7) & mask) << 4);
 }
 
-// in_s: bf16 [rows][in_cols][cs], cs = mma_stride(cin), cin % 16 == 0;
-// wf: fragments [9][cin/16][co/16][32 lanes][8] bf16. epi(oy, ox, oc, v0,
-// v1) gets channels oc and oc + 1 of one valid output pixel (no bias).
-template <int NT, typename Epi>
-__device__ __forceinline__ void conv3x3_mma(const bf16* in_s, int in_cols, int cin, int out_rows, int out_cols,
-                                            int sh, int sw, const uint4* __restrict__ wf, int co, Epi&& epi) {
-  static_assert(NT % 2 == 0, "n tiles come in pairs");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  const int cs = mma_stride(cin), npix = out_rows * out_cols;
-  const int n_pt = cdiv(npix, 32), n_cg = co / (8 * NT), kc_n = cin / 16, np_n = co / 16;
-  for (int task = warp; task < n_pt * n_cg; task += nwarps) {
-    const int cg = task % n_cg, pt = task / n_cg;
-    int a_off[2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int q = min(pt * 32 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, npix - 1);
-      a_off[mt] = ((q / out_cols) * sh * in_cols + (q % out_cols) * sw) * cs + (lane >> 4) * 8;
-    }
-    float acc[2][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const bf16* ap = in_s + ((tap / 3) * in_cols + tap % 3) * cs;
-      const uint4* bp = wf + ((size_t)tap * kc_n * np_n + cg * (NT / 2)) * 32 + lane;
-#pragma unroll 1
-      for (int kc = 0; kc < kc_n; ++kc) {
-        uint32_t a[2][4];
-        flash::ldsm_x4(a[0], ap + a_off[0] + kc * 16);
-        flash::ldsm_x4(a[1], ap + a_off[1] + kc * 16);
-#pragma unroll
-        for (int p = 0; p < NT / 2; ++p) {
-          const uint4 q = __ldg(bp + ((size_t)kc * np_n + p) * 32);
-          const uint32_t b0[2] = {q.x, q.y}, b1[2] = {q.z, q.w};
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            flash::mma16816(acc[mt][2 * p], a[mt], b0);
-            flash::mma16816(acc[mt][2 * p + 1], a[mt], b1);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int q = pt * 32 + mt * 16 + (lane >> 2) + 8 * hf;
-        if (q >= npix) continue;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          epi(q / out_cols, q % out_cols, (cg * NT + nt) * 8 + 2 * (lane & 3), acc[mt][nt][2 * hf],
-              acc[mt][nt][2 * hf + 1]);
-      }
-  }
+inline CUtensorMapSwizzle stg_swizzle_mode(int co) {
+  return co == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : co == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-__device__ __forceinline__ void store_bf2(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+// A map of a [B, rows, cols, c] tensor of elem-byte elements (strides of
+// c * elem and more bytes: multiples of 16) as (c, cols, rows, B), with box
+// (bc, bcols, brows, 1).
+inline int make_nhwc_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem, int B, int rows,
+                         int cols, int c, int bc, int bcols, int brows, CUtensorMapSwizzle swizzle) {
+  const uint64_t dims[4] = {(uint64_t)c, (uint64_t)cols, (uint64_t)rows, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)c * elem, (uint64_t)cols * c * elem, (uint64_t)rows * cols * c * elem};
+  const uint32_t box[4] = {(uint32_t)bc, (uint32_t)bcols, (uint32_t)brows, 1};
+  return hopper::make_map_nd(map, base, type, 4, dims, strides, box, swizzle);
 }
+
+// A consumer's units, in the order every consumer and its producer walk
+// them: unit u is (image b, segment seg, strip) with the strip fastest, so
+// a wave of consumers holds neighbouring strips of the same rows (their
+// halo columns meet in L2). Rows [r0, r1) of `rows`.
+struct Unit {
+  int b, seg, strip, r0, r1;
+};
+
+__device__ __forceinline__ Unit unit_of(int u, int n_strips, int n_seg, int seg_len, int rows) {
+  Unit t;
+  t.strip = u % n_strips;
+  t.seg = (u / n_strips) % n_seg;
+  t.b = u / (n_strips * n_seg);
+  t.r0 = t.seg * seg_len;
+  t.r1 = min(rows, t.r0 + seg_len);
+  return t;
+}
+
+// The dropout draw's scalars, read from the device once by each block.
+struct SiteDrop {
+  int pos, use_elem, t;
+  float inv_e;
+};
+
+// Factors of channels n, n + 1 at dropout site `site`: 1 where the draw is
+// elsewhere; else from the u8 bits of the two channels (elementwise) or the
+// channel factors fch.
+__device__ __forceinline__ float2 pair_factor(const SiteDrop& d, int site, const uint8_t* bits, float2 fch) {
+  if (d.pos != site) return make_float2(1.f, 1.f);
+  if (!d.use_elem) return fch;
+  const uint32_t w = *reinterpret_cast<const uint16_t*>(bits);
+  return make_float2((int)(w & 0xFFu) < d.t ? d.inv_e : 0.f, (int)(w >> 8) < d.t ? d.inv_e : 0.f);
+}
+
+// Copy `bytes` (a multiple of 16; both ends 16-byte aligned) from device
+// to shared memory, by every thread of the block.
+__device__ __forceinline__ void copy_to_smem(void* dst, const void* src, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(dst)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+}
+
+__device__ __forceinline__ uint32_t pack_bf2(float v0, float v1) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// A staged row waiting for its TMA store: written by the consumer as it
+// makes one row, stored by its thread 0 after the consumer's next barrier.
+struct PendingRow {
+  int on, buf, col, row, b;
+};
 
 }  // namespace stem

@@ -1,7 +1,9 @@
 // Hopper building blocks of the redesigned flash kernels (flash_fwd.cu K1,
-// flash_bwd.cu K2, flash_dq.cu K3a, flash_dkv.cu K3b): TMA tensor maps
-// (host) and loads / reduce-adds (device), the mbarrier ring, wgmma
-// descriptors and instructions, fences and register reallocation.
+// flash_bwd.cu K2, flash_dq.cu K3a, flash_dkv.cu K3b) and of the fused stem
+// kernels (fused_stem_k1.cu K5a, fused_stem_k2.cu K5b): TMA tensor maps
+// (host) and loads / stores / reduce-adds (device), the mbarrier ring,
+// wgmma descriptors (128-byte swizzle, or none for the stem's
+// channel-planar rows) and instructions, fences and register reallocation.
 // Everything here is sm_90a PTX.
 //
 // Shared-memory tiles are 64 rows x 128 bytes (64 bf16 or 32 f32), written
@@ -63,6 +65,31 @@ inline int make_map_f32(CUtensorMap* map, const void* base, int B, int L, int W,
   return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, L, W, rows);
 }
 
+// A map of any rank (2-5) over a tensor given innermost dimension first:
+// dims[0] elements of elem_bytes are contiguous, strides[i] is the byte
+// stride of dimension i + 1 (a multiple of 16), box[i] the box extent.
+// Elements outside the tensor read as zero and are never written. A box's
+// start in dimension 0 must be 16-byte aligned: a load from another start
+// faults (illegal instruction). The fused stem kernels' maps
+// (fused_stem_k1.cu, fused_stem_k2.cu).
+inline int make_map_nd(CUtensorMap* map, const void* base, CUtensorMapDataType type, int rank, const uint64_t* dims,
+                       const uint64_t* strides, const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t d[5], s[4];
+  cuuint32_t bx[5], unit[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    unit[i] = 1;
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, s, bx, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // The maps of a flash kernel's q and do ([B, Lq, W] bf16) and k and v
 // ([B, Lk, W] bf16), 64-row boxes.
 inline int make_qkv_maps(CUtensorMap* tq, CUtensorMap* tdo, CUtensorMap* tk, CUtensorMap* tv, const void* q,
@@ -122,6 +149,33 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, "
+      "%7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// Store a shared-memory box to a 4-D map at (c0, c1, c2, c3), clipped at the
+// tensor's edges; bulk_commit closes the group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+
 // Bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned).
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
@@ -146,7 +200,6 @@ __device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.w
 
 // Wait until every committed bulk group has completed.
 __device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-
 // Generic-proxy writes to shared memory made visible to wgmma and TMA.
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
@@ -261,5 +314,52 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[16], const float (&d)[32]) 
     }
   }
 }
+
+// wgmma descriptor of a K-major operand without swizzle at shared address
+// `addr` (16-byte aligned): core matrices of 8 rows x 16 bytes (8 bf16 of
+// K), rows 16 bytes apart; `lbo` bytes between the two 8-element halves of
+// a 16-deep k step, `sbo` bytes between groups of 8 rows.
+__device__ __forceinline__ uint64_t plain_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32;
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, f32 accumulate, N in {16,
+// 32, 64}, both operands K-major and read through descriptors. The
+// accumulator layout is wgmma_ss's: d[4j + e] is row 16w + g + 8 (e / 2),
+// column 8j + 2 (lane % 4) + e % 2.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+    wgmma_ss<0, 0>(d, da, db, accumulate);
+  }
+};
 
 }  // namespace hopper

@@ -37,8 +37,8 @@ SIGNATURES = {
     "flash_dq": ("flash_dq_launch", [_P] * 10 + [_I] * 10 + [_F, _F, _U, _P]),
     "flash_dkv": ("flash_dkv_launch", [_P] * 10 + [_I] * 8 + [_F, _F, _U, _P]),
     "keep_mask": ("keep_mask_launch", [_P] * 2 + [_I] * 6 + [_U, _P]),
-    "fused_stem_k1": ("fused_stem_k1_launch", [_P] * 13 + [_I] * 10 + [_F, _P]),
-    "fused_stem_k2": ("fused_stem_k2_launch", [_P] * 9 + [_I] * 13 + [_F, _P]),
+    "fused_stem_k1": ("fused_stem_k1_launch", [_P] * 13 + [_I] * 12 + [_F, _P]),
+    "fused_stem_k2": ("fused_stem_k2_launch", [_P] * 9 + [_I] * 15 + [_F, _P]),
     "legacy_flash_fwd": ("lf_fwd_launch", [_P] * 9 + [_I] * 10 + [_F, _P]),
     "legacy_flash_dq": ("lf_dq_launch", [_P] * 9 + [_I] * 9 + [_F, _P]),
     "legacy_flash_dkv": ("lf_dkv_launch", [_P] * 9 + [_I] * 7 + [_F, _P]),
@@ -57,9 +57,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h"))
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):  # every header and source, so a header edit rebuilds
+    for src in _sources():  # every header and source, so a header edit rebuilds
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(name.encode())
@@ -93,12 +97,43 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return paths
 
 
-def load(name: str):
-    """The launch function of library ``name``, built on first use."""
+def library(name: str) -> ctypes.CDLL:
+    """Library ``name``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build_all([name])[name]))
         _loaded[name] = lib
+    return lib
+
+
+def host_library(header: str) -> ctypes.CDLL:
+    """``csrc/<header>.h`` built alone by the host's C++ compiler: the
+    geometry a kernel's launch shares with the host (its extern "C"
+    functions), for a machine without nvcc. Built once into BUILD_DIR."""
+    key = f"host_{header}"
+    lib = _loaded.get(key)
+    if lib is None:
+        src = CSRC / f"{header}.h"
+        path = BUILD_DIR / f"lib{key}_{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+        if not path.exists():
+            cxx = shutil.which(os.environ.get("CXX", "c++"))
+            if cxx is None:
+                raise RuntimeError("no host C++ compiler (c++ or $CXX) to build " + src.name)
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++", "-o", str(tmp),
+                                   str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cxx} failed for {src.name}:\n{proc.stdout}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+        _loaded[key] = lib
+    return lib
+
+
+def load(name: str):
+    """The launch function of library ``name``, built on first use."""
+    lib = library(name)
     fn_name, argtypes = SIGNATURES[name]
     fn = getattr(lib, fn_name)
     fn.argtypes = argtypes

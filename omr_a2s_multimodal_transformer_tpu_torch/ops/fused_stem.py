@@ -11,6 +11,18 @@ of device memory:
   K5b (``csrc/fused_stem_k2.cu``): y2 -> normalize (mean/inv from those
       sums) -> conv3 -> out.
 
+In bfloat16 both are persistent kernels for Hopper: a consumer warpgroup
+walks a column strip (62 y2 / 64 output columns, one wgmma M) down a
+segment of rows, carrying its halo rows in shared memory, fed by a TMA
+ring; the products run on wgmma with the weights resident in shared
+memory (``stem_weight_operand``). ``k1_plan``/``k2_plan`` cut the strips
+and row segments from the SM count. They take the widths of the packed
+stem's three blocks, ci 1, 16, 32 or 64 and co 16, 32 or 64 where the
+layout fits a block (not ci 64 at co 64), and raise for others: at co 128
+conv2's weights alone (295 KB) would not fit a block's shared memory.
+float32 keeps tiles on the CUDA cores, the full-precision reference
+route, at any co that is a multiple of 16 dividing 256.
+
 Two routes, chosen by where the tensors lie:
 
 - CUDA tensors go through ``FusedPackedBlock`` (a ``torch.autograd.Function``)
@@ -33,7 +45,9 @@ fill 128-lane tiles and have no counterpart here.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -171,39 +185,125 @@ def norm_from_stats(stats: torch.Tensor, n: int, eps: float) -> torch.Tensor:
 
 # ------------------------------------------------------------------ kernels
 
+K1_ROWS = {16: 4, 32: 4, 64: 2}  # default x rows a K5a stage (tile_h), by co
+K2_ROWS = {16: 4, 32: 1, 64: 1}  # default output rows a K5b stage, by co (a stage holds 2 or more y2 rows)
+F32_TILES = {16: ((16, 32), (8, 32)), 32: ((8, 32), (8, 16))}  # float32 CUDA-core tiles by co; else ((8, 16), (4, 16))
 
-def default_tiles(co: int, sh: int, tile_h: Optional[int] = None) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """((th, tw), (tho, two)): the y2 tile of a K5a block and the output
-    tile of a K5b block, in unpacked pixels. The defaults give a K5a block
-    (8 warps) 8192 outputs and a K5b block (4 warps) 4096: a whole number of
-    tasks for every warp on both routes (CUDA cores: 64 pixels x 16
-    channels; tensor cores: 32 pixels x 16 or 32 channels). ``tile_h`` sets
-    th, and tho = max(1, th // sh), as the TPU kernel's tile height does."""
-    th, tw = {16: (16, 32), 32: (8, 32)}.get(co, (8, 16))
-    tho, two = {16: (8, 32), 32: (8, 16)}.get(co, (4, 16))
+
+def _align(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+class StemPlan(NamedTuple):
+    """How a persistent stem kernel walks its output: `rows` a stage of its TMA ring (K5a: x rows, from which it
+    makes as many y2 rows; K5b: y2 rows, sh of them for each out row), `smem` bytes of shared memory a block,
+    `grid` blocks of one consumer warpgroup each (blocks_per_sm resident on each SM), n_strips column strips an
+    image, segments of seg_len rows (n_seg an image); a unit is (image, segment, strip). The shared memory, the
+    blocks an SM holds, the strip and the rows a stage takes come from the kernels' own layout
+    (csrc/fused_stem_layout.h)."""
+    rows: int
+    smem: int
+    blocks_per_sm: int
+    grid: int
+    n_strips: int
+    seg_len: int
+    n_seg: int
+
+
+@functools.lru_cache(maxsize=None)
+def segment_rows(n_rows: int, units_per_row: int, blocks: int) -> int:
+    """Rows a segment takes so that units = units_per_row * segments spread evenly over the blocks: the
+    fewest segments among those of least cost, where a block's cost is its units times the rows of one
+    plus 1 (each segment recomputes its first halo rows)."""
+    best = None
+    for n in range(1, n_rows + 1):
+        seg = _cdiv(n_rows, n)
+        cost = _cdiv(units_per_row * _cdiv(n_rows, seg), blocks) * (seg + 1)
+        if best is None or cost < best[0]:
+            best = (cost, seg)
+    return best[1]
+
+
+_FIT_WIDTHS, _FIT_ROWS, _FIT_SMEM = 1, 2, 3  # csrc/fused_stem_layout.h STEM_FIT_*
+
+
+def _fit(fn, args, kernel: str, widths: str, rows: int, unit: str) -> Tuple[int, int, int]:
+    """(shared memory, blocks an SM, strip) of a bf16 launch from the layout's fit function `fn`
+    (csrc/fused_stem_layout.h); raises for what the kernel does not take."""
+    out = (ctypes.c_int * 5)()
+    err = fn(*(ctypes.c_int(int(a)) for a in args), out)
+    smem, bpsm, strip, lo, hi = out
+    if err == _FIT_WIDTHS:
+        raise ValueError(f"the bf16 {kernel} does not take {widths}")
+    if err == _FIT_ROWS:
+        raise ValueError(f"{kernel} takes {lo} to {hi} {unit} a stage; got {rows}")
+    if err == _FIT_SMEM:
+        raise ValueError(f"{rows} {unit} a stage at {widths} need {smem} bytes of shared memory; a block has "
+                         f"{SMEM_MAX}")
+    if err:
+        raise ValueError(f"{kernel}: unknown fit error {err}")
+    return smem, bpsm, strip
+
+
+def _plan(n_rows, strips, b, rows, smem, bpsm, n_sm, n_blocks) -> StemPlan:
+    if n_blocks is not None and int(n_blocks) < 1:
+        raise ValueError(f"n_blocks must be at least 1, got {n_blocks}")
+    grid = int(n_blocks) if n_blocks is not None else n_sm * bpsm
+    seg = segment_rows(n_rows, b * strips, grid)
+    n_seg = _cdiv(n_rows, seg)
+    return StemPlan(rows, smem, bpsm, min(grid, b * strips * n_seg), strips, seg, n_seg)
+
+
+def k1_plan(b: int, h: int, w: int, ci: int, co: int, has_drop: bool, n_sm: int, tile_h: Optional[int] = None,
+            n_blocks: Optional[int] = None, layout=None) -> StemPlan:
+    """The bf16 K5a launch for y2 [b, h, w, co] (unpacked): tile_h x rows a stage (K1_ROWS by default), strips
+    and segments cut from the SM count n_sm (or n_blocks blocks). ``layout``: a library with the kernels'
+    layout functions (K5a's own by default; ``cuda_build.host_library("fused_stem_layout")`` without nvcc).
+    Raises for what the kernel does not take."""
+    layout = layout or cuda_build.library("fused_stem_k1")
+    rows = K1_ROWS.get(co, 1) if tile_h is None else int(tile_h)
+    smem, bpsm, strip = _fit(layout.fused_stem_k1_fit, (ci, co, rows, has_drop), "K5a", f"ci {ci}, co {co}",
+                             rows, "x rows")
+    return _plan(h, _cdiv(w, strip), b, rows, smem, bpsm, n_sm, n_blocks)
+
+
+def k2_plan(b: int, h: int, w: int, co: int, stride: Tuple[int, int], f_out: int, has_drop: bool, n_sm: int,
+            tile_h: Optional[int] = None, n_blocks: Optional[int] = None, layout=None) -> StemPlan:
+    """The bf16 K5b launch for y2 [b, h, w, co] (unpacked) at stride (sh, sw): tile_h output rows a stage (a
+    stage holds sh x tile_h y2 rows; by default K2_ROWS, or more to make the 2 y2 rows a stage holds at
+    least), strips and segments of output rows cut from the SM count; ``layout`` as in ``k1_plan``. Raises
+    for what the kernel does not take."""
+    sh, sw = stride
+    layout = layout or cuda_build.library("fused_stem_k2")
+    tho = max(K2_ROWS.get(co, 1), _cdiv(2, sh)) if tile_h is None else int(tile_h)
+    smem, bpsm, strip = _fit(layout.fused_stem_k2_fit, (co, sh, sw, f_out, tho * sh, has_drop), "K5b",
+                             f"co {co}, stride {tuple(stride)}, f_out {f_out}", tho * sh, "y2 rows")
+    return _plan(_cdiv(h, sh), _cdiv(w // sw, strip), b, tho * sh, smem, bpsm, n_sm, n_blocks)
+
+
+def f32_tiles(co: int, sh: int, tile_h: Optional[int] = None) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((th, tw), (tho, two)): the y2 tile of a float32 K5a block and the output tile of a float32 K5b block,
+    in unpacked pixels (8192 and 4096 outputs, a whole number of 64-pixel x 16-channel tasks for each warp);
+    tile_h sets th, and tho = max(1, th // sh), as the TPU kernel's tile height does."""
+    (th, tw), (tho, two) = F32_TILES.get(co, ((8, 16), (4, 16)))
     if tile_h is not None:
         th, tho = int(tile_h), max(1, int(tile_h) // sh)
     return (th, tw), (tho, two)
 
 
-def _align16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def _k1_smem_bytes(ci: int, co: int, th: int, tw: int, dtype=torch.float32) -> int:
-    """Dynamic shared memory of a K5a block (csrc/fused_stem_k1.cu): float
-    tiles on the CUDA-core route, bf16 tiles on the tensor-core one."""
-    if dtype == torch.bfloat16:
-        x_bytes = (th + 4) * (tw + 4) * ((ci + 8) * 2 if ci % 16 == 0 else (ci | 1) * 4)
-        return (_align16(max(x_bytes, th * tw * co * 2)) + _align16((th + 2) * (tw + 2) * (co + 8) * 2)
-                + 2 * K1_THREADS * 4)
+def _f32_k1_smem_bytes(ci: int, co: int, th: int, tw: int) -> int:
+    """Dynamic shared memory of a float32 K5a block (csrc/fused_stem_k1.cu k1_smem_bytes)."""
     x_floats = (th + 4) * (tw + 4) * (ci | 1)
     return (max(x_floats, th * tw * co) + (th + 2) * (tw + 2) * (co | 1) + 2 * K1_THREADS) * 4
 
 
-def _k2_smem_bytes(co: int, sh: int, sw: int, tho: int, two: int, dtype=torch.float32) -> int:
-    per_pixel = (co + 8) * 2 if dtype == torch.bfloat16 else (co | 1) * 4
-    return ((tho - 1) * sh + 3) * ((two - 1) * sw + 3) * per_pixel
+def _f32_k2_smem_bytes(co: int, sh: int, sw: int, tho: int, two: int) -> int:
+    return ((tho - 1) * sh + 3) * ((two - 1) * sw + 3) * (co | 1) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_cuda(name: str, t: torch.Tensor, device, dtype=None, shape=None):
@@ -246,38 +346,32 @@ def _ptrs(*tensors):
     return [None if t is None else t.data_ptr() for t in tensors]
 
 
-def mma_weight_fragments(w: torch.Tensor) -> torch.Tensor:
-    """HWIO [3, 3, cin, co] (cin, co multiples of 16) -> [9, cin/16, co/16,
-    32, 8]: the B operands of the bf16 kernels' mma.m16n8k16 products in the
-    register order ldmatrix.x4 would give them. Entry [tap, kc, np, lane,
-    2 * j + e] is w[tap, k, n] with n = (2 * np + j // 2) * 8 + lane // 4 and
-    k = kc * 16 + (j % 2) * 8 + 2 * (lane % 4) + e: registers j = 0, 1 are
-    b0, b1 of n-tile 2 * np, j = 2, 3 those of n-tile 2 * np + 1."""
+def stem_weight_operand(w: torch.Tensor) -> torch.Tensor:
+    """HWIO [3, 3, cin, co] -> [K / 16, 2, co, 8]: the B operand of the bf16
+    kernels' wgmma products, K-major without swizzle. K index k = tap * cin
+    + c (tap = 3 dy + dx; cin == 1 pads K from 9 to 16 with zeros); entry
+    [s, h, n, e] is w at k = 16 s + 8 h + e, column n. A 16-deep k step is
+    then 8-row core matrices of 16 bytes (co rows n, 8 k each), the two
+    8-deep halves co * 16 bytes apart."""
     cin, co = w.shape[2], w.shape[3]
-    dev = w.device
-    kc = torch.arange(cin // 16, device=dev)[:, None, None, None, None]
-    npair = torch.arange(co // 16, device=dev)[None, :, None, None, None]
-    lane = torch.arange(32, device=dev)[None, None, :, None, None]
-    j = torch.arange(4, device=dev)[None, None, None, :, None]
-    e = torch.arange(2, device=dev)[None, None, None, None, :]
-    n = (2 * npair + j // 2) * 8 + lane // 4
-    k = kc * 16 + (j % 2) * 8 + 2 * (lane % 4) + e
-    return w.reshape(9, cin, co)[:, k, n].reshape(9, cin // 16, co // 16, 32, 8).contiguous()
+    wk = w.reshape(9 * cin, co)
+    if cin == 1:
+        wk = torch.cat([wk, wk.new_zeros(7, co)])
+    return wk.reshape(-1, 2, 8, co).permute(0, 1, 3, 2).contiguous()
 
 
-def _fragments(w: torch.Tensor) -> Optional[torch.Tensor]:
-    """The mma fragments of a bf16 kernel's weights (None where that
-    convolution runs on the CUDA cores: float32, or cin not a multiple of 16)."""
-    return mma_weight_fragments(w) if w.dtype == torch.bfloat16 and w.shape[2] % 16 == 0 else None
-
-
-def fused_stem_k1_cuda(x, w1, b1, w2, b2, drop: Optional[Dict], *, f_in: int, tile=None):
+def fused_stem_k1_cuda(x, w1, b1, w2, b2, drop: Optional[Dict], *, f_in: int, tile: Optional[int] = None,
+                       n_blocks: Optional[int] = None):
     """Launch K5a. x [B, H, Wp, f_in*ci] (CUDA; float32 runs on the CUDA
-    cores, bfloat16 on the tensor cores), weights HWIO in x's dtype,
-    ``drop`` from ``make_drop_ctx`` or None; ``tile`` (th, tw) overrides
-    ``default_tiles``. Returns (y2 [B, H, Wp, f_in*co] in x's dtype, stats
-    float32 [B, 2, co]: the sum and the sum of squares of y2 per image and
-    channel, added in a fixed order)."""
+    cores, bfloat16 on the persistent TMA/wgmma kernel, which takes ci 1,
+    16, 32 or 64 and co 16, 32 or 64), weights HWIO in x's dtype, ``drop``
+    from ``make_drop_ctx`` or None. ``tile``: the y2 rows a block makes a
+    step, the TPU kernel's tile height: float32, the height of its tile;
+    bf16, the x rows of one stage of its TMA ring (``k1_plan``), from which
+    it makes as many y2 rows. ``n_blocks`` sets the bf16 kernel's block
+    count (for measuring). Returns (y2 [B, H, Wp, f_in*co] in x's dtype,
+    stats float32 [B, 2, co]: the sum and the sum of squares of y2 per
+    image and channel, added in a fixed order)."""
     code = _dtype_code(x)
     b, h, wp, cin = x.shape
     ci, co = w1.shape[2], w1.shape[3]
@@ -287,21 +381,28 @@ def fused_stem_k1_cuda(x, w1, b1, w2, b2, drop: Optional[Dict], *, f_in: int, ti
     for name, t, shape in (("w1", w1, (3, 3, ci, co)), ("b1", b1, (co,)), ("w2", w2, (3, 3, co, co)),
                            ("b2", b2, (co,))):
         _check_cuda(name, t, x.device, x.dtype, shape)
-    th, tw = tile or default_tiles(co, 1)[0]
-    if _k1_smem_bytes(ci, co, th, tw, x.dtype) > SMEM_MAX:
-        raise ValueError(f"K5a tile {th}x{tw} at ci {ci}, co {co} needs more shared memory than a block has")
+    w = wp * f_in
+    if code == 1:
+        plan = k1_plan(b, h, w, ci, co, drop is not None, _sm_count(x.device.index or 0), tile, n_blocks)
+        rows, tw, n_tiles = plan.rows, 0, plan.n_seg * plan.n_strips
+        w1op, w2op = stem_weight_operand(w1), stem_weight_operand(w2)
+        launch = (plan.grid, plan.seg_len)
+        if ci == 1 and w % 8:  # the kernel's map of x at ci 1 takes rows of a multiple of 8 pixels (16 bytes)
+            x = torch.nn.functional.pad(x.reshape(b, h, w), (0, _align(w, 8) - w))
+    else:
+        (rows, tw), _ = f32_tiles(co, 1, tile)
+        if _f32_k1_smem_bytes(ci, co, rows, tw) > SMEM_MAX:
+            raise ValueError(f"K5a tile {rows}x{tw} at ci {ci}, co {co} needs more shared memory than a block has")
+        n_tiles, w1op, w2op, launch = _cdiv(h, rows) * _cdiv(w, tw), None, None, (0, 0)
     bits, fchan, scal, t_keep, inv_e = _drop_args(drop, b, h, wp, f_in * co, co, x.device)
     x, w1, b1, w2, b2 = (t.contiguous() for t in (x, w1, b1, w2, b2))
-    w = wp * f_in
-    n_tiles = _cdiv(h, th) * _cdiv(w, tw)
     y2 = torch.empty((b, h, wp, f_in * co), device=x.device, dtype=x.dtype)
     partial = torch.empty((b, n_tiles, 2, co), device=x.device, dtype=torch.float32)
     stats = torch.empty((b, 2, co), device=x.device, dtype=torch.float32)
     fn = cuda_build.load("fused_stem_k1")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    w1f, w2f = _fragments(w1), _fragments(w2)
-    err = fn(*_ptrs(x, bits, fchan, scal, w1, w1f, b1, w2, w2f, b2, y2, partial, stats), code,
-             int(drop is not None), b, h, w, ci, co, th, tw, t_keep, inv_e, stream)
+    err = fn(*_ptrs(x, bits, fchan, scal, w1, w1op, b1, w2, w2op, b2, y2, partial, stats), code,
+             int(drop is not None), b, h, w, ci, co, rows, tw, *launch, t_keep, inv_e, stream)
     if err != 0:
         raise RuntimeError(f"fused_stem_k1 launch failed: cudaError {err}")
     fused_stem_k1_cuda.launches += 1
@@ -312,12 +413,15 @@ fused_stem_k1_cuda.launches = 0
 
 
 def fused_stem_k2_cuda(y2, mean_inv, w3, b3, drop: Optional[Dict], *, f_in: int, f_out: int,
-                       stride: Tuple[int, int], tile=None):
+                       stride: Tuple[int, int], tile: Optional[int] = None, n_blocks: Optional[int] = None):
     """Launch K5b. y2 [B, H, Wp, f_in*co] from K5a (float32 on the CUDA
-    cores, bfloat16 on the tensor cores), mean_inv float32 [B, 2, co]
-    (``norm_from_stats``), w3 HWIO and b3 in y2's dtype; ``tile`` (tho,
-    two) overrides ``default_tiles``. Returns out [B, ceil(H/sh), Wp,
-    f_out*co] in y2's dtype."""
+    cores, bfloat16 on the persistent TMA/wgmma kernel), mean_inv float32
+    [B, 2, co] (``norm_from_stats``), w3 HWIO and b3 in y2's dtype.
+    The bf16 kernel takes co 16, 32 or 64 and strides 1 or 2. ``tile``:
+    the output rows a block makes a step (float32: the height of its tile;
+    bf16: from one stage of its TMA ring, which holds sh x tile y2 rows,
+    ``k2_plan``); ``n_blocks`` as in ``fused_stem_k1_cuda``.
+    Returns out [B, ceil(H/sh), Wp, f_out*co] in y2's dtype."""
     code = _dtype_code(y2)
     sh, sw = stride
     b, h, wp, c = y2.shape
@@ -328,16 +432,24 @@ def fused_stem_k2_cuda(y2, mean_inv, w3, b3, drop: Optional[Dict], *, f_in: int,
     _check_cuda("w3", w3, y2.device, y2.dtype, (3, 3, co, co))
     _check_cuda("b3", b3, y2.device, y2.dtype, (co,))
     _check_cuda("mean_inv", mean_inv, y2.device, torch.float32, (b, 2, co))
-    tho, two = tile or default_tiles(co, sh)[1]
-    if _k2_smem_bytes(co, sh, sw, tho, two, y2.dtype) > SMEM_MAX:
-        raise ValueError(f"K5b tile {tho}x{two} at co {co} needs more shared memory than a block has")
+    w = wp * f_in
+    if code == 1:
+        plan = k2_plan(b, h, w, co, (sh, sw), f_out, drop is not None, _sm_count(y2.device.index or 0), tile,
+                       n_blocks)
+        rows, two, w3op, launch = plan.rows, 0, stem_weight_operand(w3), (plan.grid, plan.seg_len)
+    else:
+        _, (rows, two) = f32_tiles(co, sh)
+        rows = rows if tile is None else int(tile)
+        if _f32_k2_smem_bytes(co, sh, sw, rows, two) > SMEM_MAX:
+            raise ValueError(f"K5b tile {rows}x{two} at co {co} needs more shared memory than a block has")
+        w3op, launch = None, (0, 0)
     bits, fchan, scal, t_keep, inv_e = _drop_args(drop, b, h, wp, c, co, y2.device)
     y2, mean_inv, w3, b3 = (t.contiguous() for t in (y2, mean_inv, w3, b3))
     out = torch.empty((b, _cdiv(h, sh), wp, f_out * co), device=y2.device, dtype=y2.dtype)
     fn = cuda_build.load("fused_stem_k2")
     stream = torch.cuda.current_stream(y2.device).cuda_stream
-    err = fn(*_ptrs(y2, mean_inv, bits, fchan, scal, w3, _fragments(w3), b3, out), code, int(drop is not None),
-             b, h, wp * f_in, co, sh, sw, f_in, f_out, tho, two, t_keep, inv_e, stream)
+    err = fn(*_ptrs(y2, mean_inv, bits, fchan, scal, w3, w3op, b3, out), code, int(drop is not None),
+             b, h, w, co, sh, sw, f_in, f_out, rows, two, *launch, t_keep, inv_e, stream)
     if err != 0:
         raise RuntimeError(f"fused_stem_k2 launch failed: cudaError {err}")
     fused_stem_k2_cuda.launches += 1
@@ -363,8 +475,8 @@ class FusedPackedBlock(torch.autograd.Function):
         f_in, f_out, stride, eps, t, inv_e, tile_h = cfg
         drop = None if bits is None else dict(bits=bits, f_chan=f_chan, pos=pos, use_elem=use_elem, t=t,
                                               inv_e=inv_e)
-        k1_tile, k2_tile = default_tiles(w1.shape[-1], stride[0], tile_h)
-        y2, stats = fused_stem_k1_cuda(x, w1, b1, w2, b2, drop, f_in=f_in, tile=k1_tile)
+        k2_tile = None if tile_h is None else max(1, tile_h // stride[0])
+        y2, stats = fused_stem_k1_cuda(x, w1, b1, w2, b2, drop, f_in=f_in, tile=tile_h)
         mean_inv = norm_from_stats(stats, x.shape[1] * x.shape[2] * f_in, eps)
         out = fused_stem_k2_cuda(y2, mean_inv, w3, b3, drop, f_in=f_in, f_out=f_out, stride=stride, tile=k2_tile)
         ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3)
@@ -391,9 +503,14 @@ def fused_packed_block(x: torch.Tensor, w1, b1, w2, b2, w3, b3, *, f_in: int, f_
     biases [co]; returns [B, ceil(H/sh), Wp, f_out*co]. ``drop`` from
     ``make_drop_ctx`` (None = deterministic). ``conv_impl`` ('widened' or
     'patched') picks the TPU layout in JAX and is checked and accepted
-    here. ``tile_h`` sets the CUDA kernels' tile height. CUDA tensors
-    launch K5a and K5b (float32 or bfloat16, in the promoted dtype of x and
-    w1); CPU tensors run ``reference_block``.
+    here. ``tile_h`` sets the rows a kernel makes a step, as the TPU
+    kernels' tile height: K5a's y2 rows, and K5b's ``max(1, tile_h // sh)``
+    out rows (in bf16 a step is one stage of the kernel's TMA ring; see
+    ``fused_stem_k1_cuda``); a value a kernel cannot take raises. CUDA
+    tensors launch K5a and K5b (float32 or bfloat16, in the promoted dtype
+    of x and w1; the bf16 kernels take the widths of the packed stem's
+    blocks, ci 1, 16, 32 or 64 and co 16, 32 or 64, and raise for
+    others); CPU tensors run ``reference_block``.
     """
     sh, sw = stride
     if f_out * sw != f_in:

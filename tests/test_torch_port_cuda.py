@@ -325,11 +325,20 @@ def test_tiny_model_train_step_on_gpu_matches_cpu():
 
 # (f_in, f_out, stride, ci, co, H, Wp): small ragged versions of the stem
 # ladder's three packed stages: odd H, sh = 2, ci = 1, partial tiles in
-# height and width
+# height and width; and the "walk" cases of the bf16 strip walk: widths
+# that cross three strips or more with a ragged last one (K5a: 62 y2
+# columns a strip, K5b: 64 output columns), H over several row steps and
+# segments, odd H at stride 2; co 32 at stride 1; ci 1 at a width that
+# is not a multiple of 8
 STEM_CASES = {
     "block0": (8, 8, (1, 1), 1, 16, 13, 9),
     "block1": (4, 2, (2, 2), 16, 32, 17, 11),
     "block2": (2, 1, (2, 2), 32, 64, 9, 19),
+    "walk0": (8, 8, (1, 1), 1, 16, 21, 20),
+    "walk1": (4, 2, (2, 2), 16, 32, 23, 70),
+    "walk2": (2, 1, (2, 2), 32, 64, 19, 140),
+    "s1co32": (2, 2, (1, 1), 16, 32, 19, 70),  # co 32 at stride 1: K5b's default stage is raised to 2 y2 rows
+    "ci1w74": (2, 1, (2, 2), 1, 16, 15, 37),  # ci 1 at W 74, not a multiple of 8: x padded for K5a's map
 }
 STEM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # x max |plain|
 
@@ -407,6 +416,38 @@ def test_fused_stem_statistics_are_deterministic_on_gpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["walk0", "walk1", "walk2"])
+@pytest.mark.parametrize("n_blocks", [1, 2, 3])
+def test_fused_stem_forced_block_count_on_gpu(name, n_blocks):
+    """The bf16 strip walk with fewer blocks than strips (each walks several
+    units and resets its carry at each): K5a (y2, stats) and K5b against
+    plain_k1/plain_k2 at dropout 0.5 on every site, elementwise and by
+    channel; the statistics bit-equal across two runs at the same block
+    count."""
+    from omr_a2s_multimodal_transformer_tpu_torch.ops import fused_stem as fs
+
+    dev = _cuda()
+    f_in, f_out, stride, ci, co, h, wp = STEM_CASES[name]
+    (x, w1, b1, w2, b2, w3, b3), drop = _stem_inputs(STEM_CASES[name], torch.bfloat16, 0.5, dev, seed=4)
+    for pos, use_elem in [(s, e) for s in (1, 2, 3) for e in (0, 1)]:
+        drop["pos"] = torch.tensor(pos, dtype=torch.int32, device=dev)
+        drop["use_elem"] = torch.tensor(use_elem, dtype=torch.int32, device=dev)
+        y2, stats = fs.fused_stem_k1_cuda(x, w1, b1, w2, b2, drop, f_in=f_in, n_blocks=n_blocks)
+        again = fs.fused_stem_k1_cuda(x, w1, b1, w2, b2, drop, f_in=f_in, n_blocks=n_blocks)
+        y2_p, stats_p = fs.plain_k1(x, w1, b1, w2, b2, f_in=f_in, drop=drop)
+        mean_inv = fs.norm_from_stats(stats, h * wp * f_in, 1e-3)
+        out = fs.fused_stem_k2_cuda(y2, mean_inv, w3, b3, drop, f_in=f_in, f_out=f_out, stride=stride,
+                                    n_blocks=n_blocks)
+        out_p = fs.plain_k2(y2, mean_inv, w3, b3, f_in=f_in, f_out=f_out, stride=stride, drop=drop)
+        torch.cuda.synchronize()
+        tag = f"{name} n_blocks {n_blocks} pos {pos} use_elem {use_elem}"
+        assert torch.equal(y2, again[0]) and torch.equal(stats, again[1]), tag
+        _stem_close(f"K5a y2 ({tag})", y2, y2_p, torch.bfloat16)
+        _stem_close(f"K5a stats ({tag})", stats, stats_p, torch.bfloat16)
+        _stem_close(f"K5b out ({tag})", out, out_p, torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_fused_stem_wrappers_reject_what_the_kernels_do_not_take():
     from omr_a2s_multimodal_transformer_tpu_torch.ops import fused_stem as fs
 
@@ -422,6 +463,52 @@ def test_fused_stem_wrappers_reject_what_the_kernels_do_not_take():
         fs.fused_stem_k1_cuda(x, w1, b1, w2, b2, {**drop, "bits": drop["bits"].cpu()}, f_in=f_in)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fs.fused_stem_k1_cuda(x.cpu(), w1, b1, w2, b2, None, f_in=f_in)
+    # the bf16 kernels' own layouts (the built libraries) refuse what they do not take
+    with pytest.raises(ValueError, match="does not take ci 128, co 128"):
+        fs.k1_plan(2, 8, 64, 128, 128, True, 132)
+    with pytest.raises(ValueError, match="does not take co 128"):
+        fs.k2_plan(2, 8, 64, 128, (2, 1), 1, True, 132)
+    with pytest.raises(ValueError, match="1 to 8 x rows"):
+        fs.fused_packed_block(*(t.bfloat16() for t in (x, w1, b1, w2, b2, w3, b3)), tile_h=9, drop=drop, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(4))
+def test_fused_stem_random_walks_on_gpu(seed):
+    """The bf16 strip walk at 16 random launches a seed: geometry of one of
+    the stem blocks (or co 32 at stride 1, or ci 1 at a ragged width), H
+    3-40, widths of 1-5 strips, rows a stage, block counts and dropout
+    sites drawn; every launch ends, K5a twice gives the same bits, and K5a
+    (y2, stats) and K5b hold against plain_k1/plain_k2."""
+    from omr_a2s_multimodal_transformer_tpu_torch.ops import fused_stem as fs
+
+    dev = _cuda()
+    rng = np.random.default_rng(100 + seed)
+    geoms = [STEM_CASES[n] for n in ("walk0", "walk1", "walk2", "s1co32", "ci1w74")]
+    for i in range(16):
+        f_in, f_out, stride, ci, co, _, _ = geoms[rng.integers(len(geoms))]
+        h, wp = int(rng.integers(3, 41)), int(rng.integers(1, 5 * 64 // f_in + 1))
+        geom = (f_in, f_out, stride, ci, co, h, wp)
+        (x, w1, b1, w2, b2, w3, b3), drop = _stem_inputs(geom, torch.bfloat16, 0.5, dev, seed=1000 * seed + i)
+        pos, use_elem = int(rng.integers(1, 4)), int(rng.integers(2))
+        drop["pos"] = torch.tensor(pos, dtype=torch.int32, device=dev)
+        drop["use_elem"] = torch.tensor(use_elem, dtype=torch.int32, device=dev)
+        n_blocks = [None, None, 1, 2, 5][rng.integers(5)]
+        tile1 = int(rng.integers(1, 9)) if co < 64 else int(rng.integers(1, 3))  # x rows a K5a stage that fit
+        tile2 = int(rng.integers(-(-2 // stride[0]), {16: 16, 32: 8, 64: 2}[co] // stride[0] + 1))  # y2 rows that fit
+        tag = f"{geom} tiles {tile1}/{tile2} n_blocks {n_blocks} pos {pos} use_elem {use_elem}"
+        y2, stats = fs.fused_stem_k1_cuda(x, w1, b1, w2, b2, drop, f_in=f_in, tile=tile1, n_blocks=n_blocks)
+        again = fs.fused_stem_k1_cuda(x, w1, b1, w2, b2, drop, f_in=f_in, tile=tile1, n_blocks=n_blocks)
+        mean_inv = fs.norm_from_stats(stats, h * wp * f_in, 1e-3)
+        out = fs.fused_stem_k2_cuda(y2, mean_inv, w3, b3, drop, f_in=f_in, f_out=f_out, stride=stride, tile=tile2,
+                                    n_blocks=n_blocks)
+        torch.cuda.synchronize()
+        y2_p, stats_p = fs.plain_k1(x, w1, b1, w2, b2, f_in=f_in, drop=drop)
+        out_p = fs.plain_k2(y2, mean_inv, w3, b3, f_in=f_in, f_out=f_out, stride=stride, drop=drop)
+        assert torch.equal(y2, again[0]) and torch.equal(stats, again[1]), tag
+        _stem_close(f"K5a y2 ({tag})", y2, y2_p, torch.bfloat16)
+        _stem_close(f"K5a stats ({tag})", stats, stats_p, torch.bfloat16)
+        _stem_close(f"K5b out ({tag})", out, out_p, torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -12,6 +12,9 @@
 - The tie to the model: ``fused_packed_block`` on ``pack_width(x)`` with a
   port ``ConvBlock``'s weights in HWIO equals that block's deterministic
   forward, packed.
+- The kernels' default launches fit a block (float32: the wrapper's tile
+  sizes; bf16: the kernels' layouts, csrc/fused_stem_layout.h, built by
+  the host compiler; more in tests/test_torch_port_stem_layout.py).
 
 Tolerances, max |port - JAX| / max |JAX| per tensor: float64 1e-10 for
 outputs and 1e-9 for gradients, float32 1e-5 for both; the two packages
@@ -32,6 +35,7 @@ from omr_a2s_multimodal_transformer_tpu.ops.fused_stem import reference_block as
 from omr_a2s_multimodal_transformer_tpu.ops.norm import instance_norm_packed as j_norm_packed
 from omr_a2s_multimodal_transformer_tpu.ops.packed_conv import packed_conv as j_packed_conv
 from omr_a2s_multimodal_transformer_tpu_torch.models.encoder import ConvBlock
+from omr_a2s_multimodal_transformer_tpu_torch.ops import cuda_build
 from omr_a2s_multimodal_transformer_tpu_torch.ops import fused_stem as fs
 from omr_a2s_multimodal_transformer_tpu_torch.ops.norm import instance_norm_packed
 from omr_a2s_multimodal_transformer_tpu_torch.ops.packed_conv import pack_width, packed_conv
@@ -225,28 +229,20 @@ def test_make_drop_ctx_draws_the_jax_structure():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", list(FLAGSHIP_BLOCKS))
 def test_default_kernel_tiles_fit_a_block(name, dtype):
-    _, _, (sh, sw), ci, co, _, _ = FLAGSHIP_BLOCKS[name]
-    (th, tw), (tho, two) = fs.default_tiles(co, sh)
-    assert fs._k1_smem_bytes(ci, co, th, tw, dtype) <= fs.SMEM_MAX // 2  # two blocks per SM
-    assert fs._k2_smem_bytes(co, sh, sw, tho, two, dtype) <= fs.SMEM_MAX // 2
-    assert th * tw * co == 8192 and tho * two * co == 4096
-
-
-@pytest.mark.parametrize("cin, co", [(16, 16), (16, 32), (32, 64)])
-def test_mma_weight_fragments_follow_the_mma_operand_layout(cin, co):
-    """Rebuild each 16 x 16 block of w from its fragments by the PTX layout
-    of mma.m16n8k16's B operand (register b0 of lane l holds k = 2 (l % 4)
-    + e, b1 k + 8, column n = l // 4 of its 8-wide n-tile)."""
-    w = torch.randn(3, 3, cin, co)
-    frag = fs.mma_weight_fragments(w).reshape(9, cin // 16, co // 16, 32, 4, 2)
-    rebuilt = torch.empty(9, cin, co)
-    for lane in range(32):
-        g, t = divmod(lane, 4)
-        for j in range(4):
-            for e in range(2):
-                k = (j % 2) * 8 + 2 * t + e
-                n = (j // 2) * 8 + g
-                for kc in range(cin // 16):
-                    for npair in range(co // 16):
-                        rebuilt[:, kc * 16 + k, npair * 16 + n] = frag[:, kc, npair, lane, j, e]
-    assert torch.equal(rebuilt, w.reshape(9, cin, co))
+    """The default launch of each kernel fits a block: float32 tiles two blocks an SM (a whole number of
+    64-pixel x 16-channel tasks for each warp); the bf16 strip walk at dropout and none, with the blocks an
+    SM its plan counts on (the SM's shared memory, each block's 1 KB included)."""
+    f_in, f_out, (sh, sw), ci, co, h, wp = FLAGSHIP_BLOCKS[name]
+    if dtype == torch.float32:
+        (th, tw), (tho, two) = fs.f32_tiles(co, sh)
+        assert fs._f32_k1_smem_bytes(ci, co, th, tw) <= fs.SMEM_MAX // 2  # two blocks per SM
+        assert fs._f32_k2_smem_bytes(co, sh, sw, tho, two) <= fs.SMEM_MAX // 2
+        assert th * tw * co == 8192 and tho * two * co == 4096
+        return
+    layout = cuda_build.host_library("fused_stem_layout")  # the kernels' layouts, built by the host compiler
+    for has_drop in (True, False):
+        for plan in (fs.k1_plan(8, h, wp * f_in, ci, co, has_drop, 132, layout=layout),
+                     fs.k2_plan(8, h, wp * f_in, co, (sh, sw), f_out, has_drop, 132, layout=layout)):
+            assert plan.smem <= fs.SMEM_MAX
+            assert plan.blocks_per_sm * (plan.smem + 1024) <= 233472  # an SM's shared memory, 1 KB a block
+            assert plan.blocks_per_sm * 160 <= 2048  # a block: a consumer warpgroup and its producer warp
