@@ -18,11 +18,14 @@ Phases, each of which raises on failure (exit code 1):
        each split of its key tiles into 1-8 chunks (at dropout 0 beside
        L2b, per head, at the same splits), and the pair against SDPA's
        backward at the same rate; K4, the keep-mask probe at the decoder's
-       128/2048 blocks, bit for bit;
+       128/2048 blocks and at B = H = 1 with 70,000 query rows, bit for
+       bit, with the time of filling the same bytes as its write floor;
      - at the paper's self-attention shape (B 8, L 1268, 4 x 64 heads,
        window 100, ragged target lengths, 128/512 blocks), dropout 0 and
        0.1: K1c, K3a and K3b, with the banded attention of the windowed
-       decoder as a second witness at dropout 0; full causal once;
+       decoder as a second witness at dropout 0; full causal once; K1c's
+       launch record (threads, grid, shared memory from the trace) must be
+       the wrapper's plan (causal_fwd_plan);
      - at the three packed stem block shapes (tools/bench_fused_block.py:
        b8, bf16; blocks 0-2 on 361x4416 images), dropout 0.5 and none: K5a
        (y2, statistics) and K5b (out) against plain_k1/plain_k2 and the
@@ -129,6 +132,7 @@ HEADS = 4
 WINDOW = 100  # the paper's attn_window (run_experiments.sh)
 OP_BLOCKS = (128, 512)  # make_flash_attention_packed's default blocks
 TARGET_LENGTHS = (1268, 1203, 1111, 1010, 905, 811, 702, 640)  # ragged targets of the paper-shape phase
+K4_LONG_LQ = 70000  # K4's second geometry: B = H = 1, more query rows than a grid dimension holds
 KERNEL_TOL = 2e-2  # max |kernel - plain| <= KERNEL_TOL * max |plain| (bf16 outputs, p rounded to bf16)
 LSE_TOL = 1e-3     # lse is f32 from the same bf16 products, other summation order
 CSRC = "omr_a2s_multimodal_transformer_tpu_torch/csrc/"
@@ -141,8 +145,8 @@ KERNELS = {
     # K1 launches the key-chunk kernel and the merge (four chunks at the cross shape, fwd_splits)
     "K1 flash fwd": (fp.flash_fwd_cuda, "flash_fwd.cu", JAX_FLASH + "161", "flash_fwd_tma", 2),
     "K2 flash bwd": (fp.flash_bwd_cuda, "flash_bwd.cu", JAX_FLASH + "364", "flash_bwd_kernel", 1),
-    "K1c flash fwd causal": (fp.flash_fwd_causal_cuda, "flash_fwd.cu", JAX_FLASH + "161", "flash_fwd_causal_kernel",
-                             1),
+    "K1c flash fwd causal": (fp.flash_fwd_causal_cuda, "flash_fwd.cu", JAX_FLASH + "161",
+                             "flash_fwd_causal_tma_kernel", 1),
     # K3a launches the key-chunk kernel and the merge (four chunks at the cross shape, dq_splits); a causal
     # call or a single chunk launches the first alone
     "K3a flash dq": (fp.flash_dq_cuda, "flash_dq.cu", JAX_FLASH + "228", "flash_dq_", 2),
@@ -485,19 +489,27 @@ def phase_cross(dev):
         del o_p, lse_p, dq_p, dk_p, dv_p, qr, kr, vr
         torch.cuda.empty_cache()
 
-    # K4: the keep-mask probe at the decoder's geometry, bit for bit
+    # K4: the keep-mask probe at the decoder's geometry, bit for bit, and at B = H = 1 with more query rows
+    # than a grid dimension holds (65,535), which the first design could not launch
     lq_p, lk_p = -(-LQ // bq) * bq, -(-LK // bk) * bk
-    keep_k = fp.export_keep_masks(int(seed), B, HEADS, LQ, LK, dropout_rate=0.1, block_q=bq, block_k=bk)
-    keep_p = fp.keep_mask(int(seed), B, HEADS, lq_p, lk_p, 0.1, dev, bq, bk)
-    torch.cuda.synchronize()
-    if not torch.equal(keep_k, keep_p):
-        raise AssertionError("K4 keep-mask differs from its plain version")
-    log(f"[cross] K4 keep-mask [{B}, {HEADS}, {lq_p}, {lk_p}] equal to the plain version bit for bit")
-    del keep_k, keep_p
-    torch.cuda.empty_cache()
+    for b4, h4, lq4, lk4 in ((B, HEADS, LQ, LK), (1, 1, K4_LONG_LQ, LQ)):
+        bq4, bk4 = fp.mask_geometry(lq4, lk4)
+        keep_k = fp.export_keep_masks(int(seed), b4, h4, lq4, lk4, dropout_rate=0.1, block_q=bq4, block_k=bk4)
+        keep_p = fp.keep_mask(int(seed), b4, h4, -(-lq4 // bq4) * bq4, -(-lk4 // bk4) * bk4, 0.1, dev, bq4, bk4)
+        torch.cuda.synchronize()
+        if not torch.equal(keep_k, keep_p):
+            raise AssertionError(f"K4 keep-mask {tuple(keep_k.shape)} differs from its plain version")
+        log(f"[cross] K4 keep-mask {list(keep_k.shape)} equal to the plain version bit for bit")
+        del keep_k, keep_p
+        torch.cuda.empty_cache()
     ms4, call4 = kernel_times("K4 keep mask", lambda: fp.keep_mask_cuda(seed, B, HEADS, lq_p, lk_p, 0.1, bq, bk))
     plain4 = time_ms(lambda: fp.keep_mask(int(seed), B, HEADS, lq_p, lk_p, 0.1, dev, bq, bk), reps=3, warmup=1)
-    log(f"  K4 {ms4:.3f} ms (call {call4:.3f}, plain {plain4:.3f} ms)")
+    # the card's write floor for the same bytes: filling the same bool tensor (a yardstick, not a library call
+    # of this hash: no PyTorch call computes it)
+    mask4 = torch.empty((B, HEADS, lq_p, lk_p), dtype=torch.bool, device=dev)
+    fill4 = device_ms(lambda: mask4.fill_(True), reps=10)
+    del mask4
+    log(f"  K4 {ms4:.3f} ms (call {call4:.3f}, plain {plain4:.3f} ms; fill_ of the same bytes {fill4:.4f} ms)")
 
     # library yardstick (never called by the port): SDPA on the same tensors and boolean mask, at dropout 0
     # and at the path's 0.1 (its own RNG: another keep-mask, the same work)
@@ -556,8 +568,21 @@ def phase_cross(dev):
                         launch_record_cross=main["info3b"]),
         # K4 reads nothing and writes the mask; its hash is integer work, which the bf16 peak does not rate
         "K4 keep mask": kernel_row("K4 keep mask", 0.0, ms4, plain4, 0, B * HEADS * lq_p * lk_p + 4, None,
-                                   call_ms=call4),
+                                   call_ms=call4, fill_ms=fill4),
     }
+
+
+def check_k1c_launch(record):
+    """The launch record of K1c's kernel (threads, grid, shared memory, as
+    the trace gives them) must be the wrapper's plan (causal_fwd_plan, read
+    from the library that launches it)."""
+    plan = fp.causal_fwd_plan(B, HEADS, LQ)
+    want = {key: plan[key] for key in ("threads", "grid", "smem_bytes")}
+    got = {key: (record or {}).get(key) for key in want}
+    if got != want:
+        raise AssertionError(f"K1c: the trace recorded {got}, the plan launched {want}")
+    log(f"  K1c launch: {plan['grid'][0]} blocks of {plan['threads']} threads ({plan['consumers']} consumer "
+        f"warpgroups), {plan['smem_bytes']} B shared, as planned; trace: {record}")
 
 
 def band_mask(lengths, window, dev):
@@ -627,6 +652,7 @@ def phase_self(dev):
                 del o_b, o_bg, hb, heads
             r["ms1c"], r["call1c"] = kernel_times("K1c flash fwd causal", lambda: fp.flash_fwd_causal_cuda(
                 q, k, v, kv_len, kv_valid, seed, rate, HEADS, bq, bk, window))
+            check_k1c_launch(KERNEL_INFO.get("K1c flash fwd causal"))
             r["ms3a"], r["call3a"] = kernel_times("K3a flash dq", lambda: fp.flash_dq_cuda(*args), per_launch=1)
             r["ms3b"], r["call3b"] = kernel_times("K3b flash dk/dv", lambda: fp.flash_dkv_cuda(*args))
             r["plain_fwd"] = time_ms(lambda: fp.flash_attention_plain(q, k, v, kv_len, kv_valid, seed, rate, HEADS,
@@ -921,7 +947,7 @@ def phase_train(model, dev, tag, n_steps=3):
 def kernel_kind(name: str) -> str:
     """Coarse class of a device kernel, by its name."""
     low = name.lower()
-    if "flash_fwd_causal_kernel" in low:
+    if "flash_fwd_causal" in low:
         return "K1c flash fwd causal"
     for key, kind in (("lfany_fwd_kernel", "LA legacy flash fwd, any dtype"),
                       ("lfany_dq_kernel", "LA legacy flash dq, any dtype"),

@@ -1,7 +1,7 @@
-// The forward block of K1 (flash_fwd.cu: head-packed, dropout) and of L1
-// and L2a (legacy_flash_fwd.cu: per-head, no dropout, heads of 64 or 128
-// columns, causal calls too), shared, and the merges of their key-chunk
-// partials by lse.
+// The forward block of K1 and K1c (flash_fwd.cu: head-packed, dropout;
+// K1c causal with a window) and of L1 and L2a (legacy_flash_fwd.cu:
+// per-head, no dropout, heads of 64 or 128 columns, causal calls too),
+// shared, and the merges of their key-chunk partials by lse.
 //
 // Per head, with M the dropout keep-mask (DROP only):
 //   o   = (softmax(s * scale) * M / (1 - rate)) v,   s = q k^T
@@ -27,17 +27,21 @@
 // across the loop's back edge made ptxas serialize the wgmma pipeline).
 // The online softmax is kept in the log2 domain (one ex2 per score).
 //
+// A causal instance (K1c, L1, L2a) walks the key tiles of the block's band
+// (key_tiles) in one chunk, runs no product on a tile outside the band of
+// a consumer's 64 queries (tile_meets_band) and tests each score against
+// the band (in_band); a head-packed one (K1c) loads every tile of its band.
 // The per-head instances (PER_HEAD) also:
-// - walk only the key tiles below kv_len[b] and, for a causal call, those
-//   of the block's band (key_tiles), in one chunk; each score is tested
-//   against the band;
+// - walk only the key tiles below kv_len[b];
 // - skip a key tile with no key to see: the producer loads no K/V for it
-//   and the consumers run no product on it (`live`); a consumer runs none
-//   on a tile outside the band of its 64 queries either;
+//   and the consumers run no product on it (`live`);
 // - give a query row that sees no key of its chunk a partial of weight 0
-//   (o 0, lse -inf), and a row that sees no key at all o = 0 and lse = 0
-//   (K1's rows always see a key of every chunk: the model's memories are
-//   never empty, and K1 keeps its arithmetic).
+//   (o 0, lse -inf), and a row that sees no key at all o = 0 and lse = 0.
+// The head-packed instances keep K1's arithmetic (K1's rows always see a
+// key of every chunk: the model's memories are never empty): a row of K1c
+// whose band holds no key it may see gets the mean of v (dropout applied)
+// over the 64-key tiles its consumer ran, or o = 0 and lse = 0 where its
+// consumer ran none.
 //
 // Layouts, as in flash_dq.cuh: a head-packed [B, L, H*64] tensor is a map
 // of (H*64 columns, L rows, B) read at column h*64; a per-head [B, H, L, D]
@@ -48,8 +52,8 @@
 // halves.
 //
 // The accumulator layout gives each thread query rows 16w + g and + 8 and
-// key pairs 8j + 2t, the layout of the mma.sync kernels, so the hoisted
-// hash terms are the same and the keep-mask is the same bit for bit.
+// key pairs 8j + 2t (the m16n8 fragment layout), and every instance hashes
+// the same (b, h, q, k), so the keep-mask is the JAX kernel's bit for bit.
 #pragma once
 
 #include <math.h>
@@ -95,15 +99,27 @@ __device__ __forceinline__ Smem<NCONS, NB>& smem() {
   return *reinterpret_cast<Smem<NCONS, NB>*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 }
 
-// The block (blockIdx.x = NCONS x 64 queries, y = head, z = b * n_split +
-// split): key tiles [split * per, min(n_tiles, (split + 1) * per)) (PER_HEAD:
-// n_tiles below kv_len[b]), or for a causal call (n_split 1) the key tiles
-// of its band. n_split == 1 writes o (bf16) and, with LSE, lse; otherwise
-// the chunk's normalized f32 partial o (n_split slabs of o's shape) and its
-// lse (n_split slabs of [B, H, Lq]) for a merge. LSE false (L1) reads no
-// kv_valid and writes no lse.
+// What a block computes: the NCONS x 64 queries of query tile qt, of batch
+// row b and head h, over key chunk `split`.
+struct Block {
+  int qt, b, h, split;
+};
+
+// The block of a 3-D grid (x = query tile, y = head, z = b * n_split +
+// split), as K1, L1 and L2a launch it.
+__device__ __forceinline__ Block grid_block(int n_split) {
+  return {(int)blockIdx.x, (int)(blockIdx.z / n_split), (int)blockIdx.y, (int)(blockIdx.z % n_split)};
+}
+
+// Block blk: key tiles [split * per, min(n_tiles, (split + 1) * per))
+// (PER_HEAD: n_tiles below kv_len[b]), or for a causal call (n_split 1) the
+// key tiles of its band. n_split == 1 writes o (bf16) and, with LSE, lse;
+// otherwise the chunk's normalized f32 partial o (n_split slabs of o's
+// shape) and its lse (n_split slabs of [B, H, Lq]) for a merge. LSE false
+// (L1) reads no kv_valid and writes no lse.
 template <int NCONS, bool CAUSAL, bool PER_HEAD, int NB, bool DROP, bool LSE>
-__device__ __forceinline__ void fwd_block(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+__device__ __forceinline__ void fwd_block(const Block blk, const CUtensorMap* tq, const CUtensorMap* tk,
+                                          const CUtensorMap* tv,
                                           const int* __restrict__ kv_len, const uint8_t* __restrict__ kv_valid,
                                           const int* __restrict__ seed_p, bf16* __restrict__ o,
                                           float* __restrict__ lse, float* __restrict__ o_part,
@@ -111,11 +127,11 @@ __device__ __forceinline__ void fwd_block(const CUtensorMap* tq, const CUtensorM
                                           int mbk, int window, int n_split, int per, float scale, float rate,
                                           float keep_scale, uint32_t thresh) {
   using namespace hopper;
-  static_assert(PER_HEAD || (NB == 1 && !CAUSAL && LSE), "the head-packed block is K1's: 64 columns, lse out");
+  static_assert(PER_HEAD || (NB == 1 && LSE), "the head-packed block is K1's and K1c's: 64 columns, lse out");
   static_assert(!(PER_HEAD && DROP), "the per-head block has no dropout");
   constexpr int ROWS = 64 * NCONS;
   Smem<NCONS, NB>& sm = smem<NCONS, NB>();
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z / n_split, split = blockIdx.z % n_split;
+  const int qt = blk.qt, h = blk.h, b = blk.b, split = blk.split;
   const int2 at = tile_at<PER_HEAD>(b, h, H);
   // the head-packed block walks every key tile; the per-head one only those below kv_len
   const int n_tiles = ((PER_HEAD ? min(kv_len[b], Lk) : Lk) + BK - 1) / BK;
@@ -126,7 +142,7 @@ __device__ __forceinline__ void fwd_block(const CUtensorMap* tq, const CUtensorM
     kt_lo = split * per;
     kt_hi = min(n_tiles, kt_lo + per) - 1;
   }
-  // K1: >= 1 (the wrapper's split); per-head: <= 0 for a chunk past kv_len or a band with no key tile
+  // K1: >= 1 (the wrapper's split); causal or per-head: <= 0 for a chunk past kv_len or a band with no key tile
   const int n_iter = kt_hi - kt_lo + 1;
   const int wg = threadIdx.x >> 7;
 
@@ -144,7 +160,7 @@ __device__ __forceinline__ void fwd_block(const CUtensorMap* tq, const CUtensorM
     // ---- producer: one warp; the warpgroup gives up its registers
     reg_dealloc<24>();
     const int lane = threadIdx.x;
-    if (lane < 32 && (!PER_HEAD || n_iter > 0)) {
+    if (lane < 32 && ((!PER_HEAD && !CAUSAL) || n_iter > 0)) {
       const bool dropout = DROP && rate > 0.f;
       const int len = min(kv_len[b], Lk);
       const uint8_t* validb = kv_valid + (size_t)b * Lk;
@@ -212,7 +228,7 @@ __device__ __forceinline__ void fwd_block(const CUtensorMap* tq, const CUtensorM
     float m_r[2] = {NEG_INF, NEG_INF};  // running max, log2 domain; NEG_INF until a key is seen
     float l_r[2] = {0.f, 0.f};
 
-    if (!PER_HEAD || n_iter > 0) {
+    if ((!PER_HEAD && !CAUSAL) || n_iter > 0) {
       uint64_t dQ[NB];
 #pragma unroll
       for (int x = 0; x < NB; ++x) dQ[x] = sw128_desc(sm.q[c][x]);
@@ -233,8 +249,7 @@ __device__ __forceinline__ void fwd_block(const CUtensorMap* tq, const CUtensorM
       // in the band of any of its 64 queries.
       auto runs = [&](int it, int st) {
         const int k0 = (kt_lo + it) * BK;
-        return (!PER_HEAD || sm.live[st] != 0) &&
-               (!CAUSAL || (k0 <= q0 + 63 && (window <= 0 || k0 + 63 >= q0 - window)));
+        return (!PER_HEAD || sm.live[st] != 0) && (!CAUSAL || tile_meets_band(q0, k0, window));
       };
       mbar_wait(&sm.qbar, 0);
       mbar_wait(&sm.full[0], 0);

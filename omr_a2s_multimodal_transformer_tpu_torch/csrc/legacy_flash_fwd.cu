@@ -55,9 +55,9 @@ lf_fwd_chunk(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
              const __grid_constant__ CUtensorMap tv, const int* __restrict__ kv_len, bf16* __restrict__ o,
              float* __restrict__ o_part, float* __restrict__ lse_part, int B, int H, int Lq, int Lk, int D, int window,
              int n_split, int per, float scale) {
-  k1::fwd_block<NCONS, CAUSAL, true, NB, false, false>(&tq, &tk, &tv, kv_len, nullptr, nullptr, o, nullptr, o_part,
-                                                       lse_part, B, H, Lq, Lk, D, BQ, BK, window, n_split, per, scale,
-                                                       0.f, 1.f, 0u);
+  k1::fwd_block<NCONS, CAUSAL, true, NB, false, false>(k1::grid_block(n_split), &tq, &tk, &tv, kv_len, nullptr,
+                                                       nullptr, o, nullptr, o_part, lse_part, B, H, Lq, Lk, D, BQ, BK,
+                                                       window, n_split, per, scale, 0.f, 1.f, 0u);
 }
 
 // L2a: kv_valid as well, and lse.
@@ -68,9 +68,9 @@ lf_fwd_lse_chunk(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  const uint8_t* __restrict__ kv_valid, bf16* __restrict__ o, float* __restrict__ lse,
                  float* __restrict__ o_part, float* __restrict__ lse_part, int B, int H, int Lq, int Lk, int D,
                  int window, int n_split, int per, float scale) {
-  k1::fwd_block<NCONS, CAUSAL, true, NB, false, true>(&tq, &tk, &tv, kv_len, kv_valid, nullptr, o, lse, o_part,
-                                                      lse_part, B, H, Lq, Lk, D, BQ, BK, window, n_split, per, scale,
-                                                      0.f, 1.f, 0u);
+  k1::fwd_block<NCONS, CAUSAL, true, NB, false, true>(k1::grid_block(n_split), &tq, &tk, &tv, kv_len, kv_valid,
+                                                      nullptr, o, lse, o_part, lse_part, B, H, Lq, Lk, D, BQ, BK,
+                                                      window, n_split, per, scale, 0.f, 1.f, 0u);
 }
 
 // The merges of L1's and L2a's key chunks by lse, in chunk order (L1 writes

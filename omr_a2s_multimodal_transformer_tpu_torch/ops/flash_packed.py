@@ -14,13 +14,15 @@ Two routes, chosen by where the tensors lie, never by a switch:
 
 - CUDA tensors go through ``FlashAttention`` (a ``torch.autograd.Function``)
   whose forward launches kernel K1 (non-causal: wgmma and TMA, its keys in
-  ``fwd_splits`` chunks merged by lse) or K1c (causal, optionally windowed;
-  both ``csrc/flash_fwd.cu``) and whose backward launches K2
+  ``fwd_splits`` chunks merged by lse) or K1c (causal, optionally windowed:
+  K1's block with the causal band, ``causal_fwd_plan``; both
+  ``csrc/flash_fwd.cu``) and whose backward launches K2
   (``csrc/flash_bwd.cu``, the merged backward of a non-causal call) or K3a
   then K3b (``csrc/flash_dq.cu``, its keys in ``dq_splits`` chunks summed
   in order, and ``csrc/flash_dkv.cu``, K2's block without dq: the split
   backward of every other call), as the JAX backward chooses. ``export_keep_masks``
-  launches K4 (``csrc/keep_mask.cu``). There is no fallback: a kernel that
+  launches K4 (``csrc/keep_mask.cu``, a persistent walk of row strips,
+  ``csrc/keep_mask_plan.h``). There is no fallback: a kernel that
   does not build or launch raises.
 - CPU tensors go through ``flash_attention_plain``, the same function as
   dense masked softmax in PyTorch, differentiated by autograd, and
@@ -36,6 +38,7 @@ of the JAX package returns, bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -48,7 +51,7 @@ NEG_INF = -1e30
 HEAD_DIM = 64
 KERNEL_TILE = 64  # rows per tile in the CUDA flash kernels
 MASK_BQ, MASK_BK = 128, 2048  # the decoder's JAX block sizes, which seed its keep-mask hash
-KEEP_MASK_KEYS = 16  # keys per thread (one 16-byte store) in K4
+KEEP_MASK_KEYS = 16  # keys a lane writes to a row (one 16-byte store) in K4: csrc/keep_mask_plan.h KEYS
 LOG2E = 1.4426950408889634
 _U32 = 0xFFFFFFFF
 
@@ -319,15 +322,31 @@ flash_fwd_cuda.launches = 0
 
 
 def flash_fwd_causal_cuda(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk, window=-1):
-    """Launch K1c (causal; keys k >= q - window too when window > 0).
-    Returns (o, lse) as K1. A query with no key tile to see gets o = 0,
-    lse = 0."""
+    """Launch K1c (causal; keys k >= q - window too when window > 0), one
+    block of ``causal_fwd_plan`` a k1c::CONSUMERS x 64-query tile
+    (csrc/k1c_plan.h).
+    Returns (o, lse) as K1. A query whose band holds no key it may see (a
+    pad query more than ``window`` past the last valid key) gets the mean
+    of v, dropout applied, over the 64-key tiles of its band, with lse
+    about -6.9e29, or o = 0 and lse = 0 where its band holds no key tile
+    (the arithmetic of K1's block)."""
     out = _launch_fwd(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq, mask_bk, True, window)
     flash_fwd_causal_cuda.launches += 1
     return out
 
 
 flash_fwd_causal_cuda.launches = 0
+
+
+def causal_fwd_plan(batch: int, n_heads: int, lq: int) -> dict:
+    """K1c's launch for ``batch`` rows of ``lq`` queries and ``n_heads``
+    heads, as csrc/flash_fwd.cu launches it (flash_fwd_causal_plan):
+    threads, grid, dynamic shared memory bytes and consumer warpgroups of
+    64 queries a block."""
+    out = (ctypes.c_int * 6)()
+    cuda_build.library("flash_fwd").flash_fwd_causal_plan(batch, n_heads, lq, out)
+    threads, gx, gy, gz, smem, consumers = out
+    return dict(threads=threads, grid=[gx, gy, gz], smem_bytes=smem, consumers=consumers)
 
 
 def attention_delta(do: torch.Tensor, o: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -440,13 +459,15 @@ flash_dkv_cuda.launches = 0
 def keep_mask_cuda(seed: torch.Tensor, batch: int, n_heads: int, lq_p: int, lk_p: int, rate: float,
                    mask_bq: int, mask_bk: int) -> torch.Tensor:
     """Launch K4: the [B, H, lq_p, lk_p] bool keep-mask at the mask geometry
-    (mask_bq, mask_bk), for the padded lengths of that geometry."""
+    (mask_bq, mask_bk), for the padded lengths of that geometry. A
+    persistent grid of 4 blocks an SM (the walk of csrc/keep_mask_plan.h),
+    so any size launches."""
+    if mask_bk % KEEP_MASK_KEYS or lk_p % KEEP_MASK_KEYS:
+        raise ValueError(f"K4 writes {KEEP_MASK_KEYS} keys a lane: the k block and Lk_p must be multiples of it")
+    if mask_bq < 1 or lq_p % mask_bq:
+        raise ValueError(f"Lq_p {lq_p} must be a multiple of the q block {mask_bq}")
     if seed.device.type != "cuda" or seed.dtype != torch.int32 or seed.numel() != 1:
         raise ValueError("seed must be a one-element int32 CUDA tensor")
-    if mask_bk % KEEP_MASK_KEYS or lk_p % KEEP_MASK_KEYS:
-        raise ValueError(f"K4 writes {KEEP_MASK_KEYS} keys per thread: the k block and Lk_p must be multiples of it")
-    if lq_p > 65535 or batch * n_heads > 65535:
-        raise ValueError("K4's grid takes at most 65535 query rows and 65535 (batch, head) pairs")
     out = torch.empty((batch, n_heads, lq_p, lk_p), device=seed.device, dtype=torch.bool)
     fn = cuda_build.load("keep_mask")
     stream = torch.cuda.current_stream(seed.device).cuda_stream

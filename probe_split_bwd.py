@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time the split flash backward (K3a dq, K3b dk/dv), K1 and the per-head L1-L2c on one GPU, against another checkout's.
+"""Time the split flash backward (K3a dq, K3b dk/dv), K1, K1c, K4 and the per-head L1-L2c on one GPU, against another checkout's.
 
     python3 probe_split_bwd.py                # from the root of a checkout
     python3 probe_split_bwd.py --parent P     # also time the kernels of the checkout at P, in turns
     python3 probe_split_bwd.py --out-dir D    # results to D (default build/split_bwd_probe/)
+    python3 probe_split_bwd.py --parent P --variant V --parts self,keep_mask
+                                              # also the checkout at V, only the self shape and K4
 
-Each part runs in a process of its own (probe_turns.py), on the port beside
-this file or (--parent) on P's port with this checkout's chip_smoke.py, in
-the order parent, this, this, parent, so that they are compared within one
-call on one card. Each times, with chip_smoke.py's kernel_times (device ms
+Each run is a process of its own (probe_turns.py), on the port beside
+this file or (--parent, --variant) on P's or V's port with this checkout's
+chip_smoke.py, in the order parent, this, the variants, and back (parent,
+this, this, parent without variants), so that they are compared within
+one call on one card. Each times, with chip_smoke.py's kernel_times (device ms
 of the wrapper's kernels in a profiler trace) and device_ms:
 - the flagship cross shape of chip_smoke.py (B 8, Lq 1268, Lk 12,696, the
   images' kv_valid, bf16), the split backward of a merged_bwd=False call
@@ -18,7 +21,14 @@ of the wrapper's kernels in a profiler trace) and device_ms:
   kernel's launch record;
 - the paper's self-attention shape (B 8, L 1268, 4 x 64 heads, ragged
   targets, 128/512 blocks), window 100 at dropout 0.1 and 0 and full causal
-  at 0.1: K3a and K3b;
+  at 0.1: K1c (the causal forward) and K3a and K3b given its lse, and
+  K1c's hash instructions a score by pipe, from the SASS of the library,
+  with the floor they set on the logic pipe over the pairs a query sees;
+- K4, the keep-mask probe, at the cross shape's mask [8, 4, 1280, 14336]
+  (the decoder's 128/2048 blocks) at dropout 0.1 and 0.5, beside the
+  device time of filling the same bool tensor (the card's write floor for
+  those bytes), and K4's instructions in its loop by pipe, from the SASS of
+  the library (cuobjdump), with the floor they set on the logic pipe;
 - the per-head legacy family (tools/legacy_flash: [B, H, L, D] bf16, no
   dropout), L1 and L2a (the forward: its chunk kernel and merge where it
   splits the keys; L2a also at 1-8 chunks), L2b (dq, likewise) and L2c
@@ -41,7 +51,15 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 from probe_turns import build, card, copy_port, run_in_turns  # noqa: E402
 
-LIBS = ["flash_fwd", "flash_bwd", "flash_dq", "flash_dkv", "legacy_flash_fwd", "legacy_flash_dq", "legacy_flash_dkv"]
+# the kernel libraries each part builds
+PART_LIBS = {"cross": ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv"),
+             "self": ("flash_fwd", "flash_dq", "flash_dkv"),
+             "keep_mask": ("keep_mask",),
+             "legacy": ("legacy_flash_fwd", "legacy_flash_dq", "legacy_flash_dkv")}
+# the pipe of each SASS opcode in K4's loop: the INT32 / logic pipe (64 lanes an SM on the H100), the multiply
+# (FMA) pipe, or neither (stores, branches, uniform-datapath and constant loads)
+LOGIC_OPS = ("LOP3", "SHF", "IADD3", "ISETP", "SEL", "VIADD", "LEA", "PRMT", "PLOP3", "IABS", "MOV")
+FMA_OPS = ("IMAD",)
 
 
 def timed(cs, name: str, fn, per_launch: int = 1) -> dict:
@@ -103,14 +121,144 @@ def self_shape(cs, fp, dev) -> dict:
     do = do * kv_valid[:, :, None]
     out = {}
     for window, rate in ((cs.WINDOW, 0.1), (cs.WINDOW, 0.0), (-1, 0.1)):
-        o, lse = fp.flash_fwd_causal_cuda(q, k, v, kv_len, kv_valid, seed, rate, cs.HEADS, bq, bk, window)
+        fwd = lambda: fp.flash_fwd_causal_cuda(q, k, v, kv_len, kv_valid, seed, rate, cs.HEADS, bq, bk, window)  # noqa
+        o, lse = fwd()
         args = (q, k, v, kv_len, kv_valid, seed, do, lse, fp.attention_delta(do, o, cs.HEADS), rate, cs.HEADS, bq,
                 bk, True, window)
         out[f"window {window}, dropout {rate}"] = dict(
+            k1c=timed(cs, "K1c flash fwd causal", fwd),
             k3a=timed(cs, "K3a flash dq", lambda: fp.flash_dq_cuda(*args)),
             k3b=timed(cs, "K3b flash dk/dv", lambda: fp.flash_dkv_cuda(*args)))
+    # K1c's hash from its SASS, and the floor its logic instructions set over the pairs a query sees
+    from omr_a2s_multimodal_transformer_tpu_torch.ops import cuda_build
+
+    hash_ = sass_hash(cuda_build._lib_path("flash_fwd"), cs.KERNELS["K1c flash fwd causal"][3])
+    out["k1c_hash"] = dict(sass=hash_, max_sm_mhz=max_sm_mhz())
+    for window in (cs.WINDOW, -1):
+        pairs = cs.HEADS * int(cs.band_mask(lengths, window, dev).sum())
+        out["k1c_hash"][f"window {window}"] = dict(
+            pairs=pairs, logic_floor_ms=hash_.get("logic_a_score", 0) * pairs / logic_rate(dev, max_sm_mhz()) * 1e3)
     print("[self] " + json.dumps(out), flush=True)
     return out
+
+
+def sass_functions(lib: Path, symbol: str) -> list:
+    """The SASS of each function of library `lib` whose name holds `symbol`
+    (cuobjdump), as lists of (address, opcode, branch target or None,
+    operands)."""
+    import re
+    import subprocess
+
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    funcs = []
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        if symbol not in func.split("\n")[0]:
+            continue
+        ins = []
+        for line in func.split("\n"):
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([^;]*);", line)
+            if m:
+                t = re.search(r"BRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", m.group(2) + m.group(3))
+                ins.append((int(m.group(1), 16), m.group(2), int(t.group(1), 16) if t else None, m.group(3)))
+        funcs.append(ins)
+    return funcs
+
+
+def by_pipe(ops: list) -> dict:
+    """Opcode counts of `ops`, and their sums on the logic and multiply pipes."""
+    counts = {o: ops.count(o) for o in sorted(set(ops))}
+    logic = sum(n for o, n in counts.items() if o.startswith(LOGIC_OPS))
+    fma = sum(n for o, n in counts.items() if o.startswith(FMA_OPS))
+    return dict(opcodes=counts, logic=logic, fma=fma, other=sum(counts.values()) - logic - fma)
+
+
+def sass_loop(lib: Path, symbol: str) -> dict:
+    """Opcode counts of the loop around the 16-byte store (STG.E.128) of
+    `symbol` in library `lib`: from the target of the loop's backward branch
+    to the first branch after the store (the path of a row that starts no
+    mask q-block), or the whole function where there is no loop; of the
+    function's stores, the one whose path holds the most instructions a
+    store (the hash's, not the rate-0 path's)."""
+    best = []
+    for ins in sass_functions(lib, symbol):
+        for i, (addr, op, _, _) in enumerate(ins):
+            if op != "STG":
+                continue
+            back = [t for a, o, t, _ in ins[i:] if o == "BRA" and t is not None and t <= addr]
+            lo = back[0] if back else ins[0][0]
+            hi = next((a for a, o, _, _ in ins[i:] if o == "BRA"), ins[-1][0])
+            ops = [o for a, o, _, _ in ins if lo <= a <= hi]
+            if not best or len(ops) / ops.count("STG") > len(best) / best.count("STG"):
+                best = ops
+    return by_pipe(best)
+
+
+# the finalizer's first multiplier (flash_common.cuh FMIX_MUL1), as SASS may print it
+FMIX_MUL1 = ("0x85ebca6b", "-0x7a143595")
+
+
+def sass_hash(lib: Path, symbol: str) -> dict:
+    """The keep-mask hash of a flash kernel's consumer in its SASS: the
+    straight-line code from the last branch before the first multiply by
+    FMIX_MUL1 to the first branch after the last (the dropout path of a key
+    tile: the hash, and the exponentials and sums it is interleaved with),
+    its opcodes by pipe, and a score's share (one FMIX_MUL1 multiply a
+    score): the integer instructions a score, with a tile's share of its
+    row terms."""
+    ins = sass_functions(lib, symbol)[0]
+    at = [a for a, o, _, x in ins if o.startswith("IMAD") and any(c in x.lower() for c in FMIX_MUL1)]
+    if not at:
+        return dict(error=f"no multiply by FMIX_MUL1 in {symbol}")
+    lo = max((a for a, o, _, _ in ins if o == "BRA" and a < at[0]), default=ins[0][0])
+    hi = min((a for a, o, _, _ in ins if o == "BRA" and a > at[-1]), default=ins[-1][0])
+    r = by_pipe([o for a, o, _, _ in ins if lo < a < hi])
+    r.update(scores=len(at), logic_a_score=r["logic"] / len(at), fma_a_score=r["fma"] / len(at))
+    return r
+
+
+def max_sm_mhz() -> float:
+    """The card's top SM clock (nvidia-smi clocks.max.sm)."""
+    import subprocess
+
+    return float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                capture_output=True, text=True).stdout.split()[0])
+
+
+def logic_rate(dev, mhz: float) -> float:
+    """Logic-pipe instructions a second: 64 lanes an SM at `mhz`."""
+    import torch
+
+    return 64 * torch.cuda.get_device_properties(dev).multi_processor_count * mhz * 1e6
+
+
+def keep_mask(cs, fp, dev) -> dict:
+    """K4 at the cross shape's mask at dropout 0.1 and 0.5, the fill floor of
+    the same bytes and K4's loop from its SASS, with the floor its logic
+    instructions set (16 bytes a store, 64 logic lanes an SM at the card's
+    maximum SM clock)."""
+    import torch
+
+    from omr_a2s_multimodal_transformer_tpu_torch.ops import cuda_build
+
+    seed = torch.tensor([20240611], dtype=torch.int32, device=dev)
+    bq, bk = fp.mask_geometry(cs.LQ, cs.LK)
+    lq_p, lk_p = -(-cs.LQ // bq) * bq, -(-cs.LK // bk) * bk
+    n_bytes = cs.B * cs.HEADS * lq_p * lk_p
+    out = {rate: timed(cs, "K4 keep mask", lambda rate=rate: fp.keep_mask_cuda(seed, cs.B, cs.HEADS, lq_p, lk_p, rate,
+                                                                            bq, bk))
+           for rate in (0.1, 0.5)}
+    mask = torch.empty((cs.B, cs.HEADS, lq_p, lk_p), dtype=torch.bool, device=dev)
+    fill_ms = cs.device_ms(lambda: mask.fill_(True), reps=10)
+    del mask
+    loop = sass_loop(cuda_build._lib_path("keep_mask"), "keep_mask_kernel")
+    mhz = max_sm_mhz()
+    logic_floor_ms = loop["logic"] / (16 * loop["opcodes"]["STG"]) * n_bytes / logic_rate(dev, mhz) * 1e3
+    r = dict(shape=[cs.B, cs.HEADS, lq_p, lk_p], k4={str(k): v for k, v in out.items()}, fill_ms=fill_ms,
+             bytes_bound_ms=n_bytes / cs.PEAK_BYTES * 1e3, sass_loop=loop, max_sm_mhz=mhz,
+             logic_floor_ms=logic_floor_ms)
+    print("[keep mask] " + json.dumps(r), flush=True)
+    return r
 
 
 def legacy(cs, dev) -> dict:
@@ -167,7 +315,10 @@ def legacy(cs, dev) -> dict:
     return out
 
 
-def child(mode: str, out_dir: Path) -> dict:
+PARTS = tuple(PART_LIBS)
+
+
+def child(mode: str, out_dir: Path, parts: list) -> dict:
     import torch
 
     import chip_smoke as cs
@@ -177,16 +328,27 @@ def child(mode: str, out_dir: Path) -> dict:
         raise RuntimeError(f"imported {fp.__file__}, not the port under {ROOT}")
     cs.OUT_DIR = out_dir / f"traces_{mode}"
     cs.OUT_DIR.mkdir(parents=True, exist_ok=True)
+    # K1c's kernel by a name that both its designs carry (flash_fwd_causal_kernel before the redesign)
+    cs.KERNELS["K1c flash fwd causal"] = (*cs.KERNELS["K1c flash fwd causal"][:3], "flash_fwd_causal", 1)
     dev = torch.device("cuda")
-    return dict(mode=mode, cross=cross(cs, fp, dev), self=self_shape(cs, fp, dev), legacy=legacy(cs, dev))
+    run = dict(cross=lambda: cross(cs, fp, dev), self=lambda: self_shape(cs, fp, dev),
+               keep_mask=lambda: keep_mask(cs, fp, dev), legacy=lambda: legacy(cs, dev))
+    return dict(mode=mode, **{part: run[part]() for part in parts})
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", type=Path, default=ROOT / "build" / "split_bwd_probe")
     ap.add_argument("--parent", type=Path, default=None, help="a checkout whose kernels are timed in turns")
+    ap.add_argument("--variant", type=Path, action="append", default=[],
+                    help="another checkout (e.g. this one with a constant changed) timed in turns too, by its "
+                         "directory's name; may be given more than once")
+    ap.add_argument("--parts", default=",".join(PARTS), help="the parts each run times, of " + ",".join(PARTS))
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    parts = args.parts.split(",")
+    if not parts or set(parts) - set(PARTS):
+        ap.error(f"--parts takes some of {','.join(PARTS)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -195,20 +357,23 @@ def main(argv=None) -> int:
     out_dir = args.out_dir.resolve()
     out_dir.mkdir(parents=True, exist_ok=True)
     if args.child:
-        res = child(args.child, out_dir)
+        res = child(args.child, out_dir, parts)
         (out_dir / f"{args.child}.json").write_text(json.dumps(res, indent=1))
         return 0
     results = {"card": card()}
     print(results["card"], flush=True)
     roots = {"this": ROOT}
-    if args.parent:
-        roots["parent"] = copy_port(args.parent.resolve(), ROOT / "build" / "split_bwd_probe_roots" / "parent",
-                                    Path(__file__).name)
-    build({root: LIBS for root in roots.values()})
-    order = ["parent", "this", "this", "parent"] if args.parent else ["this"]
+    others = ([("parent", args.parent)] if args.parent else []) + [(v.resolve().name, v) for v in args.variant]
+    if len({name for name, _ in others} | {"this"}) != len(others) + 1:
+        ap.error("the parent and the variants need directories of distinct names, none of them 'this'")
+    for name, path in others:
+        roots[name] = copy_port(path.resolve(), ROOT / "build" / "split_bwd_probe_roots" / name, Path(__file__).name)
+    build({root: sorted({lib for part in parts for lib in PART_LIBS[part]}) for root in roots.values()})
+    names = [n for n, _ in others[:1] if n == "parent"] + ["this"] + [n for n, _ in others if n != "parent"]
+    order = names + names[::-1] if len(names) > 1 else names  # e.g. parent, this, this, parent
     results["runs"] = [dict(tag=f"{name}_{i}", **res)
                        for i, (name, res) in enumerate(zip(order, run_in_turns(Path(__file__).name, order, roots,
-                                                                               out_dir)))]
+                                                                               out_dir, args=("--parts", args.parts))))]
     (out_dir / "split_bwd_probe.json").write_text(json.dumps(results, indent=1))
     print(json.dumps(results))
     return 0

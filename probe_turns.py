@@ -44,13 +44,13 @@ def build(libs: dict) -> None:
         raise RuntimeError("a build failed")
 
 
-def run_in_turns(probe: str, order: list, roots: dict, out_dir: Path, timeout: int = 900) -> list:
-    """Run `probe` --child NAME in roots[NAME] for each NAME of order, one
-    after another; the children's results, in order."""
+def run_in_turns(probe: str, order: list, roots: dict, out_dir: Path, timeout: int = 900, args: tuple = ()) -> list:
+    """Run `probe` --child NAME [args] in roots[NAME] for each NAME of order,
+    one after another; the children's results, in order."""
     results = []
     for name in order:
-        proc = subprocess.run([sys.executable, str(roots[name] / probe), "--child", name, "--out-dir", str(out_dir)],
-                              cwd=roots[name], timeout=timeout)
+        proc = subprocess.run([sys.executable, str(roots[name] / probe), "--child", name, "--out-dir", str(out_dir),
+                               *args], cwd=roots[name], timeout=timeout)
         if proc.returncode:
             raise RuntimeError(f"{name}: exit code {proc.returncode}")
         results.append(json.loads((out_dir / f"{name}.json").read_text()))

@@ -148,6 +148,14 @@ SPLIT_CASES = [
     dict(b=2, h=2, lq=192, lk=192, causal=True, window=-1, rate=0.1, merged=True),
     # K1 + K3a + K3b: a non-causal call with merged_bwd=False, two mask k-blocks of 512
     dict(b=2, h=4, lq=150, lk=700, causal=False, window=-1, rate=0.1, merged=False),
+    # K1c's band about its 64-key tiles and 192-query blocks (L 450: off both), ragged targets, both rates
+    dict(b=2, h=4, lq=450, lk=450, causal=True, window=1, rate=0.1, merged=True),
+    dict(b=2, h=4, lq=450, lk=450, causal=True, window=63, rate=0.0, merged=True),
+    dict(b=2, h=4, lq=450, lk=450, causal=True, window=64, rate=0.1, merged=True),
+    dict(b=2, h=4, lq=450, lk=450, causal=True, window=65, rate=0.0, merged=True),
+    dict(b=2, h=4, lq=450, lk=450, causal=True, window=191, rate=0.1, merged=True),
+    dict(b=2, h=4, lq=450, lk=450, causal=True, window=192, rate=0.0, merged=True),
+    dict(b=2, h=4, lq=450, lk=450, causal=True, window=-1, rate=0.0, merged=True),
     # the same off the 64-row tiles and K3a's 192-query and K3b's 128-key blocks, over 16 key tiles (8 of
     # K3a's key chunks on 132 SMs),
     # with batch row 0's keys 256-383 (a whole K3b block) invalid, at both rates
@@ -234,6 +242,19 @@ def test_split_backward_is_deterministic_on_gpu(causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [100, -1])
+def test_causal_forward_is_deterministic_on_gpu(window):
+    """K1c writes each o and lse row once: two runs give the same bits."""
+    dev = _cuda()
+    q, k, v, _, kv_len, kv_valid, _ = _split_inputs(SPLIT_CASES[1], dev)
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    bq, bk = fp.mask_geometry(q.shape[1], k.shape[1], 128, 512)
+    first = fp.flash_fwd_causal_cuda(q, k, v, kv_len, kv_valid, seed, 0.1, 4, bq, bk, window)
+    second = fp.flash_fwd_causal_cuda(q, k, v, kv_len, kv_valid, seed, 0.1, 4, bq, bk, window)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
 def test_split_backward_row_without_valid_key_is_finite():
     """A batch row with no valid key: K3a's dq and K3b's dk, dv are finite
     (p is 0 on every key, so all three are 0 there), at 1 and 4 key chunks."""
@@ -254,18 +275,29 @@ def test_split_backward_row_without_valid_key_is_finite():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("geometry", [(128, 512, 200, 700, 0.1, 7), (128, 2048, 130, 2100, 0.3, -7),
-                                      (128, 128, 384, 384, 0.5, 12345)])
+@pytest.mark.parametrize("geometry", [(2, 4, 128, 512, 200, 700, 0.1, 7), (2, 4, 128, 2048, 130, 2100, 0.3, -7),
+                                      (2, 4, 128, 128, 384, 384, 0.5, 12345),
+                                      # more query rows than a grid dimension holds, at B = H = 1 and B x H = 2
+                                      (1, 1, 128, 2048, 70000, 300, 0.1, 5),
+                                      (1, 2, 128, 128, 66000, 200, 0.0, 9),
+                                      # the default grid (4 blocks of 8 warps an SM) with fewer (512-key strip,
+                                      # row) units than warps, and with many more, over a ragged last strip
+                                      (1, 1, 128, 512, 128, 512, 0.2, 11), (2, 3, 128, 2048, 1280, 1100, 0.2, 11)],
+                         ids=lambda g: f"b{g[0]}_h{g[1]}_q{g[4]}_k{g[5]}_r{g[6]}")
 def test_keep_mask_kernel_bits_equal_plain(geometry):
+    """K4 (export_keep_masks at its default grid) against the plain
+    keep-mask (the same function on the card), bit for bit."""
     dev = _cuda()
-    bq, bk, lq, lk, rate, seed = geometry
+    b, h, block_q, block_k, lq, lk, rate, seed = geometry
+    bq, bk = fp.mask_geometry(lq, lk, block_q, block_k)
+    lq_p, lk_p = -(-lq // bq) * bq, -(-lk // bk) * bk
     n = fp.keep_mask_cuda.launches
-    got = fp.export_keep_masks(seed, 2, 4, lq, lk, dropout_rate=rate, block_q=bq, block_k=bk)
-    ref = fp.export_keep_masks(seed, 2, 4, lq, lk, dropout_rate=rate, block_q=bq, block_k=bk, device="cpu")
+    got = fp.export_keep_masks(seed, b, h, lq, lk, dropout_rate=rate, block_q=block_q, block_k=block_k)
+    ref = fp.keep_mask(seed, b, h, lq_p, lk_p, rate, dev, bq, bk)
     torch.cuda.synchronize()
     assert fp.keep_mask_cuda.launches == n + 1
-    assert got.device.type == "cuda" and got.dtype == torch.bool
-    assert torch.equal(got.cpu(), ref)
+    assert got.device.type == "cuda" and got.dtype == torch.bool and got.shape == (b, h, lq_p, lk_p)
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda

@@ -117,7 +117,7 @@ def test_chip_smoke_tells_every_kernel_apart_in_a_trace():
     assert not [(a, b) for a in symbols for b in symbols if a != b and a in b]
     names = {"void flash_fwd_tma_kernel(CUtensorMap_st, CUtensorMap_st, int const*)": "K1 flash fwd",
              "void flash_fwd_tma_merge_kernel(float const*, float const*)": "K1 flash fwd",
-             "void flash_fwd_causal_kernel(__nv_bfloat16 const*)": "K1c flash fwd causal",
+             "void flash_fwd_causal_tma_kernel(CUtensorMap_st, CUtensorMap_st, int const*)": "K1c flash fwd causal",
              "void flash_bwd_kernel(CUtensorMap_st, CUtensorMap_st)": "K2 flash bwd",
              "void flash_dq_kernel<3, false>(CUtensorMap_st, CUtensorMap_st, int const*)": "K3a flash dq",
              "void flash_dq_kernel<2, true>(CUtensorMap_st, CUtensorMap_st, int const*)": "K3a flash dq",
