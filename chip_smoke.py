@@ -51,7 +51,7 @@ Phases, each of which raises on failure (exit code 1):
        dk/dv at the legacy cross shape in float32 D 64, float16 D 64 and
        bf16 D 192, each against the plain version, with its bound, plain
        time and SDPA's forward or backward (event and device time);
-  3. five paths, each with every kernel's launch count set to 0 just
+  3. six paths, each with every kernel's launch count set to 0 just
      before it and read just after:
      - stem path: fused_packed_block forward and backward at the three
        stem block shapes (dropout 0.5); K5a and K5b once per block, no
@@ -73,6 +73,20 @@ Phases, each of which raises on failure (exit code 1):
        K1/K2, LEGACY_ITERS timed calls each) at its own shape, then one
        inference call of flash_attention (L1) at the paper shape: exact
        counts of all twelve kernels.
+     - cli path: the port's entry points as a user calls them. cli.train
+       trains the paper model at full width (attn_window 100, flash
+       cross-attention, packed stem, bf16, b8) on the synthetic corpus at
+       production geometry (30-measure grand renders, 355-362 x 4300-4413
+       px; 32 train, 8 val, 8 test samples) for 2 epochs, validating each
+       by greedy decode, keeping best/ and last/ and testing best/; cli.test
+       evaluates best/ with --save_preds. K1 and K2 must launch 8 times per
+       train step, no other kernel; after the run K1 and K2 are held to their
+       plain version on the inputs of their first call there (Lq 671, the
+       bucket's Lk, the collate's padding as the key mask); losses and SERs
+       finite, 8 preds rows, best/ and last/ round-trip through a Trainer's
+       restore. It logs
+       samples/s, the StepTimer's data and step means, the decode times
+       and steps, peak memory and its wall time.
      K5a and K5b launch on the stem path only: no model calls the fused
      block, as in the JAX package (fused_stem.py:24-35); L1-L2c on the
      legacy path only (no model calls them either).
@@ -85,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -1541,6 +1556,192 @@ def legacy_path(dev):
                 max_abs_err_bench=bench_err)
 
 
+# the cli path's corpus: the synthetic source at production geometry (tools/run_real_shape_e2e.py:60-75,
+# tools/run_convergence.py:46-53), 32 train samples (4 steps of 8 an epoch), 8 val, 8 test
+CLI_CORPUS = dict(n=32, n_val=8, n_test=8, n_measures=30, n_measures_range=[2, 30], render_style="grand",
+                  img_height_range=[355, 362], img_width_range=[4300, 4413])
+CLI_EPOCHS = 2
+
+
+def cli_records(run_dir: Path) -> list:
+    return [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+class FirstCall:
+    """Stands in for a kernel wrapper in ops/flash_packed.py, where the
+    autograd function looks it up: keeps a copy of the arguments of its
+    first call and calls it. The wrapper counts its launches under its
+    module name, which is then this: ``launches`` reads and writes the
+    wrapper's own count."""
+
+    def __init__(self, fn):
+        self.fn, self.args = fn, None
+
+    def __call__(self, *args):
+        if self.args is None:
+            self.args = tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args)
+        return self.fn(*args)
+
+    launches = property(lambda self: self.fn.launches, lambda self, n: setattr(self.fn, "launches", n))
+
+
+class FirstCalls:
+    """K1's and K2's wrappers replaced by FirstCall while the path runs."""
+
+    def __enter__(self):
+        self.saved = fp.flash_fwd_cuda, fp.flash_bwd_cuda
+        fp.flash_fwd_cuda, fp.flash_bwd_cuda = (FirstCall(fn) for fn in self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        self.args = {"K1 flash fwd": fp.flash_fwd_cuda.args, "K2 flash bwd": fp.flash_bwd_cuda.args}
+        fp.flash_fwd_cuda, fp.flash_bwd_cuda = self.saved
+
+
+def check_cli_flash(args: dict) -> dict:
+    """K1 and K2 against their plain version on the inputs of their first
+    call in the cli path: the decoder's cross-attention of the first train
+    step (K2: its last layer's backward), with the memory of the real
+    collate's padding through memory_valid_from_hw. Launches outside the
+    counted run."""
+    q, k, v, kv_len, kv_valid, seed, rate, heads, bq, bk = args["K1 flash fwd"]
+    n_valid, n_keys = int(kv_valid.sum()), kv_valid.numel()
+    log(f"[cli path] K1/K2 at the path's first call: B {q.shape[0]} Lq {q.shape[1]} Lk {k.shape[1]} {q.dtype}, "
+        f"dropout {rate}, valid keys {n_valid} of {n_keys} (per row {kv_valid.sum(1).tolist()})")
+    if n_valid == n_keys:
+        raise AssertionError("cli path: the first K1 call saw no padded key")
+    o_k, lse_k = fp.flash_fwd_cuda(*args["K1 flash fwd"])
+    o_p, lse_p = fp.flash_attention_plain(q, k, v, kv_len, kv_valid, seed, rate, heads, False, -1, bq, bk)
+    errs = {"K1 flash fwd": max(check_vs("K1 o", o_k, o_p), check_lse("K1 lse", lse_k, lse_p))}
+    del o_k, lse_k, o_p, lse_p
+    q, k, v, kv_len, kv_valid, seed, o, lse, do, rate, heads, bq, bk = args["K2 flash bwd"]
+    grads_k = fp.flash_bwd_cuda(*args["K2 flash bwd"])
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_p, _ = fp.flash_attention_plain(qr, kr, vr, kv_len, kv_valid, seed, rate, heads, False, -1, bq, bk)
+    grads_p = torch.autograd.grad(o_p, (qr, kr, vr), do)
+    errs["K2 flash bwd"] = max(check_vs(f"K2 {n}", a, p) for n, a, p in zip(("dq", "dk", "dv"), grads_k, grads_p))
+    del grads_k, grads_p, o_p, qr, kr, vr
+    torch.cuda.empty_cache()
+    return errs
+
+
+def cli_path(dev, out_dir: Path):
+    """The port's entry points as a user calls them, counted from 0:
+    cli.train trains the paper model at full width (attn_window 100, flash
+    cross-attention, packed stem, bf16) on CLI_CORPUS for CLI_EPOCHS epochs,
+    validating each, keeping best/ and last/ and testing best; cli.test then
+    evaluates best/ with --save_preds. K1 and K2 must launch 8 times per
+    train step (the steps from the train loader's length), no other kernel
+    (greedy decode runs none); then check_cli_flash holds them to their plain
+    version on the inputs of their first call in the run."""
+    import shutil
+
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import common
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import test as test_cli
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import train as train_cli
+    from omr_a2s_multimodal_transformer_tpu_torch.training import checkpoint as ckpt_lib
+    from omr_a2s_multimodal_transformer_tpu_torch.training.loop import Trainer
+
+    # the checkpoints (Adam moments of 6.6 M parameters, twice) stay in build/; their logs and preds go to out_dir
+    ws = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(ws, ignore_errors=True)
+    weights, preds = ws / "weights", ws / "preds.jsonl"
+    data = ["--ds_name", "synthetic", "--krn_encoding", "kern", "--synthetic", "--synthetic_config",
+            json.dumps(CLI_CORPUS), "--cache_root", str(ws / "cache"), "--batch_size", "8",
+            "--input_modality", "image"]
+    train_args = data + ["--attn_window", str(WINDOW), "--use_flash_cross", "--epochs", str(CLI_EPOCHS),
+                         "--check_val_every_n_epoch", "1", "--weights_dir", str(weights),
+                         "--run_dir", str(ws / "run")]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FirstCalls() as first:
+        fit = train_cli.main(train_args)
+        t_train = time.perf_counter() - t0
+        test = test_cli.main(data + ["--checkpoint_path", str(weights / "best"), "--save_preds", str(preds),
+                                     "--run_dir", str(ws / "test_run")])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    errs = check_cli_flash(first.args)
+    del first
+
+    dm = common.make_datamodule(train_cli.build_parser().parse_args(train_args), "image")
+    dm.setup("fit")
+    steps_per_epoch = len(dm.train_dataloader())
+    steps = CLI_EPOCHS * steps_per_epoch
+    log(f"[cli path] kernel launches {launches} over {steps} train steps")
+    want = {name: 8 * steps if name in ("K1 flash fwd", "K2 flash bwd") else 0 for name in KERNELS}
+    if launches != want:
+        raise AssertionError(f"cli path launched {launches}, expected {want}")
+
+    recs = cli_records(ws / "run")
+    epochs = [r for r in recs if "train_loss" in r]
+    vals = [r for r in recs if "val_sym-er" in r]
+    decodes = [dict(r, cli="train") for r in recs if "val_decode_s" in r or "test_decode_s" in r] + [
+        dict(r, cli="test") for r in cli_records(ws / "test_run") if "test_decode_s" in r]
+    losses = [r["train_loss"] for r in epochs]
+    if len(epochs) != CLI_EPOCHS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"cli path train losses {losses}")
+    for name, value in (("val_sym-er", [r["val_sym-er"] for r in vals]), ("test_sym-er", [test["test_sym-er"]]),
+                        ("train CLI test_sym-er", [fit["test_sym-er"]])):
+        if not value or not all(map(math.isfinite, value)):
+            raise AssertionError(f"cli path {name} {value}")
+    rows = preds.read_text().splitlines()
+    if len(rows) != CLI_CORPUS["n_test"]:
+        raise AssertionError(f"preds.jsonl has {len(rows)} rows, expected {CLI_CORPUS['n_test']}")
+
+    # best/ and last/ round-trip: a model built from the sidecar holds the saved weights, and a Trainer's
+    # full restore takes the optimizer state and step (no params-only fallback)
+    vocab = dm.get_vocab()
+    for tag in ("best", "last"):
+        saved = ckpt_lib.restore_checkpoint(str(weights / tag))
+        model, hp, _ = common.build_from_checkpoint(str(weights / tag), device=dev)
+        trainer = Trainer(model, vocab, hp, weights_dir=str(weights), run_dir=str(ws / f"restore_{tag}"), device=dev)
+        trainer.init_state()
+        trainer.restore(str(weights / tag))
+        got = model.state_dict()
+        same = all(torch.equal(got[k].cpu(), v) for k, v in saved["params"].items())
+        degraded = any("resume_degraded" in r for r in cli_records(ws / f"restore_{tag}"))
+        if not same or degraded or trainer.state.step != saved["step"] or len(saved["params"]) != len(got):
+            raise AssertionError(f"cli path: {tag}/ does not round-trip (weights equal {same}, "
+                                 f"degraded {degraded}, step {trainer.state.step} vs {saved['step']})")
+        del model, trainer
+    torch.cuda.empty_cache()
+    (out_dir / "cli_path").mkdir(parents=True, exist_ok=True)
+    for src, name in ((ws / "run" / "metrics.jsonl", "train_metrics.jsonl"),
+                      (ws / "test_run" / "metrics.jsonl", "test_metrics.jsonl"), (preds, "preds.jsonl")):
+        shutil.copyfile(src, out_dir / "cli_path" / name)
+
+    # the StepTimer totals are cumulative over the fit: an epoch's share is the difference; its data phase
+    # runs once more than its steps (the fetch that ends the epoch)
+    per_epoch, prev = [], dict(data=0.0, step=0.0)
+    for r in epochs:
+        row = dict(epoch=r["epoch"], train_loss=r["train_loss"], samples_per_sec=r["samples_per_sec"])
+        for ph, n in (("data", steps_per_epoch + 1), ("step", steps_per_epoch)):
+            total = r[f"time_{ph}_total_s"]
+            row[f"{ph}_ms_mean"] = (total - prev[ph]) * 1e3 / n
+            prev[ph] = total
+        row["epoch_s"] = 8 * steps_per_epoch / r["samples_per_sec"]
+        per_epoch.append(row)
+        log(f"[cli path] epoch {row['epoch']}: train_loss {row['train_loss']:.4f}, "
+            f"{row['samples_per_sec']:.2f} samples/s ({row['epoch_s']:.2f} s), StepTimer means (host clock): "
+            f"data {row['data_ms_mean']:.1f} ms, step {row['step_ms_mean']:.1f} ms")
+    for r in decodes:
+        name = "val" if "val_decode_s" in r else "test"
+        ms, n = r[f"{name}_decode_s"] * 1e3, r[f"{name}_decode_steps"]
+        log(f"[cli path] cli.{r['cli']} {name} decode: {ms:.1f} ms, {n} decode steps ({ms / max(n, 1):.2f} "
+            f"ms/step), {r[f'{name}_decode_batches']} batch")
+    log(f"[cli path] val_sym-er {[round(r['val_sym-er'], 4) for r in vals]}, test_sym-er "
+        f"{test['test_sym-er']:.4f}, best epoch {fit['best_epoch']}; peak memory {peak:.2f} GiB; wall "
+        f"{wall:.1f} s (train CLI {t_train:.1f} s, test CLI {wall - t_train:.1f} s)")
+    return dict(corpus=CLI_CORPUS, steps=steps, launches=launches, max_abs_err=errs, epochs=per_epoch,
+                decodes=[{k: v for k, v in r.items() if k not in ("time",)} for r in decodes],
+                val=[{k: r[k] for k in ("epoch", "val_sym-er", "val_seq-er")} for r in vals],
+                test=test, best_epoch=fit["best_epoch"], peak_gib=peak, wall_s=wall, train_cli_s=t_train)
+
+
 def main(argv=None):
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1587,7 +1788,11 @@ def main(argv=None):
     legacy = legacy_path(dev)
     for name, row in legacy_k.items():
         kernels.append(row | dict(launches=legacy["launches"][name]))
-    for k in kernels:
+    cli = cli_path(dev, args.out_dir)
+    for k in kernels:  # K1/K2 held to their plain version at the cross shape and at the cli path's first call
+        if k["name"] in cli["max_abs_err"]:
+            k["max_abs_err_cli_path"] = cli["max_abs_err"][k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_cli_path"])
         k.update(KERNEL_INFO.get(k["name"], {}))
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
@@ -1596,8 +1801,9 @@ def main(argv=None):
         f"(TEARDOWN_CUPTI={os.environ.get('TEARDOWN_CUPTI')})")
     result = dict(card=card, kernels=kernels, flagship=flagship, paper=paper, op_path=ops,
                   stem_path=dict(launches=stem_launches, max_abs_err=stem_errs), legacy_path=legacy,
-                  traces=dict(TRACES))
+                  cli_path=cli, traces=dict(TRACES), wall_s=time.perf_counter() - t0)
     (args.out_dir / "chip_smoke_result.json").write_text(json.dumps(result, indent=1))
+    log(f"[smoke] wall {result['wall_s']:.1f} s, the build included")
     log(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -1,0 +1,158 @@
+"""Shared CLI plumbing.
+
+Port of ``omr_a2s_multimodal_transformer_tpu/cli/common.py``: the same flag
+surface (the reference's fire CLIs, its ``train.py:21-36`` and
+``test.py:19-26``, plus the JAX package's knobs), and ``--device`` (default
+``cuda``), the port's counterpart of ``JAX_PLATFORMS``: without a GPU the
+CLIs raise unless given ``--device cpu``.
+
+Flags whose feature is not ported yet, and flags read only by such a
+feature, are parsed and raise ``NotImplementedError`` when set to anything
+but their default (``check_unported``). ``--threefry_prng``
+picks a JAX PRNG and is accepted and ignored; ``--conv_mode`` is accepted
+and read nowhere, as in ``build_model``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Dict, Optional
+
+from omr_a2s_multimodal_transformer_tpu_torch.data.dataset import ARDataModule
+from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, resolve_device
+from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
+from omr_a2s_multimodal_transformer_tpu_torch.utils.seed import seed_everything
+
+
+def add_data_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--ds_name", required=True,
+                   help="grandstaff|beethoven|chopin|hummel|joplin|mozart|scarlatti-d|synthetic")
+    p.add_argument("--krn_encoding", default="bekern", choices=["kern", "bekern"])
+    p.add_argument("--use_distorted_images", action="store_true")
+    p.add_argument("--img_height", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--eval_batch_size", type=int, default=None)
+    p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--data_root", default=None, help="local grandstaff tree (else HF Hub)")
+    p.add_argument("--cache_root", default=None, help="vocab/max-lens cache dir (default ./grandstaff)")
+    p.add_argument("--synthetic", action="store_true", help="use the synthetic corpus (smoke runs)")
+    p.add_argument("--synthetic_config", default=None,
+                   help="JSON dict of SyntheticSource kwargs (smoke runs)")
+    p.add_argument("--width_buckets", type=int, default=1,
+                   help=">1: geometric width-bucket ladder (fewer padded FLOPs, more distinct shapes)")
+    p.add_argument("--loader_backend", default="threads", choices=["threads", "grain"],
+                   help="'grain' is not ported: the thread loader is the port's")
+
+
+def add_runtime_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--no_bf16", action="store_true", help="disable bf16 compute")
+    p.add_argument("--mesh_model", type=int, default=1, help="tensor-parallel mesh axis size (not ported: 1)")
+    p.add_argument("--use_wandb", action="store_true")
+    p.add_argument("--run_dir", default=None)
+    p.add_argument("--threefry_prng", action="store_true",
+                   help="picks a JAX PRNG: accepted and ignored by the port")
+    p.add_argument("--cache_dtype", default=None,
+                   choices=["float32", "bfloat16", "int8", "int4"],
+                   help="override the decode KV-cache dtype from the checkpoint hparams "
+                        "(int8/int4 are not ported yet)")
+    p.add_argument("--device", default="cuda", help="torch device to run on: cuda (default) or cpu")
+
+
+# each flag of a feature not ported yet -> whether args set it
+def _unported(args) -> Dict[str, bool]:
+    get = lambda name, default=None: getattr(args, name, default)  # noqa: E731
+    return {
+        "--mesh_model > 1 (tensor parallelism)": get("mesh_model", 1) > 1,
+        "--device_cache / --device_cache_u8 (a corpus held in device memory)":
+            bool(get("device_cache") or get("device_cache_u8")),
+        "--remat (rematerialized blocks)": bool(get("remat")),
+        "--init_image_checkpoint / --init_audio_checkpoint (multimodal warm start)":
+            bool(get("init_image_checkpoint") or get("init_audio_checkpoint")),
+        "--beam_size > 1 (beam search)": get("beam_size", 1) > 1,
+        "--compute_mv2h (MV2H)": bool(get("compute_mv2h")),
+        "--cache_dtype int8/int4 (quantized cross-KV decode)": get("cache_dtype") in ("int8", "int4"),
+        "--input_modality audio/both (the audio frontend, the multimodal model)":
+            get("input_modality", "image") != "image",
+        "--loader_backend grain": get("loader_backend") == "grain",
+        # flags that are read only by a path above: set, they would change nothing
+        "--mixer_type / --mixer_residual / --init_decoder_from audio / --teacher_forcing_modality_prob "
+        "(the multimodal model)": get("mixer_type") is not None or bool(get("mixer_residual"))
+        or get("init_decoder_from", "image") != "image" or get("teacher_forcing_modality_prob", 0.2) != 0.2,
+        "--length_penalty (beam search)": get("length_penalty", 0.0) != 0.0,
+        "--keep_cache (the preprocess disk cache: the port has none)": bool(get("keep_cache")),
+    }
+
+
+def check_unported(args) -> None:
+    asked = [flag for flag, on in _unported(args).items() if on]
+    if asked:
+        raise NotImplementedError(f"not ported yet: {'; '.join(asked)}")
+
+
+def make_datamodule(args, input_modality: str) -> ARDataModule:
+    return ARDataModule(
+        ds_name=args.ds_name,
+        krn_encoding=args.krn_encoding,
+        input_modality=input_modality,
+        use_distorted_images=args.use_distorted_images,
+        img_height=args.img_height,
+        batch_size=args.batch_size,
+        eval_batch_size=args.eval_batch_size,
+        num_workers=args.num_workers,
+        data_root=args.data_root,
+        synthetic=args.synthetic or args.ds_name == "synthetic",
+        synthetic_kwargs=json.loads(args.synthetic_config) if args.synthetic_config else None,
+        cache_root=args.cache_root,
+        seed=args.seed,
+        loader_backend=args.loader_backend,
+        width_buckets=args.width_buckets,
+    )
+
+
+def model_name_from_args(args, input_modality: str, mixer_type: Optional[str]) -> str:
+    """Reference checkpoint naming (train.py:107-112)."""
+    name = input_modality
+    if input_modality == "image" and args.use_distorted_images:
+        name += "_distorted"
+    if input_modality == "image" and args.img_height is not None:
+        name += f"_height{args.img_height}"
+    if mixer_type is not None and input_modality == "both":
+        name += f"_{mixer_type}"
+    name += f"_{args.krn_encoding}"
+    return name
+
+
+def build_from_checkpoint(checkpoint_path: str, hparams_override: Optional[Dict] = None,
+                          device: DeviceLike = None):
+    """Load hparams + weights from a checkpoint dir -> (model on ``device``,
+    hparams, multimodal flag).
+
+    hparams_override entries (with non-None values) replace the stored
+    hparams — e.g. {"cache_dtype": "float32"} switches the decode cache
+    dtype without retraining (runtime knob, not an architecture change)."""
+    from omr_a2s_multimodal_transformer_tpu_torch.training import checkpoint as ckpt_lib
+
+    hp = ckpt_lib.load_hparams(checkpoint_path)
+    for k, v in (hparams_override or {}).items():
+        if v is not None:
+            hp[k] = v
+    model, multimodal = build_model(hp, device=device)
+    state = ckpt_lib.restore_checkpoint(checkpoint_path, map_location=next(model.parameters()).device)
+    model.load_state_dict(state["params"] if "params" in state else state)
+    return model, hp, multimodal
+
+
+def init_cli(args) -> None:
+    resolve_device(args.device)  # without a GPU, fail before any work unless --device cpu
+    seed_everything(args.seed)
+
+
+def dump_args(args) -> Dict:
+    return {k: v for k, v in vars(args).items() if not k.startswith("_")}
+
+
+def print_config(title: str, args) -> None:
+    print(title)
+    print(json.dumps(dump_args(args), indent=2, default=str))

@@ -1,0 +1,328 @@
+"""Training runtime: the epoch loop, validation, checkpoints and test.
+
+Port of ``Trainer`` from ``omr_a2s_multimodal_transformer_tpu/training/loop.py``
+(the reference's Lightning Trainer, its ``train.py:115-158``): epoch loop,
+validation every N epochs by greedy decode + SER/seq-ER, best-checkpoint
+tracking on val_sym-er (min), early stopping (min_delta 0.01), resume from
+``weights_dir/last``, final reload of the best weights, test, metric logging.
+
+The train step is the port's eager step (``training/train_state.py``); the
+host runs ahead of the device, as the JAX loop does: no step waits for the
+device, and the epoch's train loss is one read of the mean of the step
+losses. Batches go to the device from pinned memory without a wait, and the
+image is cast to bf16 there under bf16 compute. Per-step randomness (token
+corruption, dropout) comes from one ``torch.Generator`` seeded with
+``seed + 1``, the counterpart of the JAX loop's ``PRNGKey(seed + 1)``; its
+bits differ from JAX's.
+
+Not ported yet, and raising ``NotImplementedError``: the multimodal model,
+a mesh, beam search, the device-resident corpus, MV2H and the warm start
+from unimodal checkpoints.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import logging
+import os
+import time
+from typing import Dict, Optional
+
+import torch
+
+from omr_a2s_multimodal_transformer_tpu_torch.data.vocab import Vocabulary
+from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, check_module_device
+from omr_a2s_multimodal_transformer_tpu_torch.training import checkpoint as ckpt_lib
+from omr_a2s_multimodal_transformer_tpu_torch.training.decode import cut_at_eos, greedy_decode_fn
+from omr_a2s_multimodal_transformer_tpu_torch.training.train_state import (
+    TrainState,
+    make_train_step,
+    param_groups,
+    trainable_parameters,
+)
+from omr_a2s_multimodal_transformer_tpu_torch.utils.logging import MetricsLogger
+from omr_a2s_multimodal_transformer_tpu_torch.utils.metrics import compute_metrics
+from omr_a2s_multimodal_transformer_tpu_torch.utils.profiling import StepTimer, trace
+
+
+class Trainer:
+    def __init__(
+        self,
+        model,
+        vocab: Vocabulary,
+        hparams: Dict,
+        weights_dir: str,
+        run_dir: str = "runs/default",
+        epochs: int = 1000,
+        patience: int = 20,
+        min_delta: float = 0.01,
+        check_val_every_n_epoch: int = 5,
+        learning_rate: float = 1e-4,
+        warmup_steps: int = 0,
+        decay_steps: int = 0,
+        clip_norm: float = 0.0,  # >0: global-norm gradient clipping (post-LN spike guard)
+        train_only=None,  # e.g. ("decoder",): freeze all other top-level param groups
+        teacher_forcing_prob: float = 0.2,
+        teacher_forcing_modality_prob: float = 0.2,  # the JAX Trainer's surface: it reads it nowhere either
+        bf16_compute: bool = True,
+        multimodal: bool = False,
+        mesh=None,
+        use_wandb: bool = False,
+        wandb_group: Optional[str] = None,
+        wandb_name: Optional[str] = None,
+        seed: int = 42,
+        ytest_i2w: Optional[Dict[int, str]] = None,
+        compute_mv2h: bool = False,
+        profile_first_epoch: bool = False,
+        beam_size: int = 1,
+        length_penalty: float = 0.0,
+        device_cache: bool = False,
+        device_cache_u8: bool = False,
+        device: DeviceLike = None,  # cuda unless the caller asks for another device
+    ):
+        unported = dict(multimodal=multimodal, mesh=mesh is not None, beam_size=beam_size > 1,
+                        device_cache=device_cache or device_cache_u8, compute_mv2h=compute_mv2h)
+        for name, asked in unported.items():
+            if asked:
+                raise NotImplementedError(f"Trainer({name}=...) is not ported yet")
+        self.device = check_module_device(model, device)
+        self.model = model
+        self.vocab = vocab
+        self.hparams = hparams
+        self.weights_dir = weights_dir
+        self.epochs = epochs
+        self.patience = patience
+        self.min_delta = min_delta
+        self.check_every = check_val_every_n_epoch
+        self.seed = seed
+        self.ytest_i2w = ytest_i2w  # cross-domain eval: GT decoded in test vocab
+        self.profile_first_epoch = profile_first_epoch
+        self.learning_rate, self.warmup_steps, self.decay_steps = learning_rate, warmup_steps, decay_steps
+        self.clip_norm = clip_norm
+        self.train_only = tuple(train_only) if train_only else None
+        trainable_parameters(model, self.train_only)  # a name that matches no group raises here
+        self.logger = MetricsLogger(
+            run_dir, use_wandb=use_wandb, wandb_group=wandb_group, wandb_name=wandb_name, config=hparams
+        )
+        self.train_step = make_train_step(
+            model, vocab_size=len(vocab), teacher_forcing_prob=teacher_forcing_prob,
+            bf16_compute=bf16_compute, device=self.device,
+        )
+        self.bf16_compute = bf16_compute
+        self._decode = None
+        self.state: Optional[TrainState] = None
+        self.last_eval: Dict[str, float] = {}  # decode time and steps of the last evaluate
+
+    # ------------------------------------------------------------------ setup
+    def init_state(self, sample_batch: Optional[Dict] = None) -> TrainState:
+        """Adam over the model's current weights (random from build_model's
+        seed, or loaded). ``sample_batch`` is taken for the JAX signature:
+        the port's model holds its weights before the first batch."""
+        self.state = TrainState.create(self.model, self.learning_rate, self.warmup_steps, self.decay_steps,
+                                       self.clip_norm, self.train_only)
+        # model summary (the reference prints torchinfo tables at init)
+        groups = param_groups(self.model)
+        n_params = sum(p.numel() for ps in groups.values() for p in ps)
+        per_top = {k: sum(p.numel() for p in ps) for k, ps in groups.items()}
+        self.logger.log({"trainable_params": n_params, **{f"params_{k}": v for k, v in per_top.items()}},
+                        step=0, quiet=False)
+        return self.state
+
+    def restore(self, path: str) -> None:
+        """Restore params (+ optimizer state and step when present and
+        structurally compatible — full resume semantics)."""
+        restored = ckpt_lib.restore_checkpoint(path, map_location=self.device)
+        if self.state is not None:
+            try:  # full resume
+                self.model.load_state_dict(restored["params"])
+                self.state.optimizer.load_state_dict(restored["opt_state"])
+                self.state.step = int(restored["step"])
+                return
+            except Exception as e:
+                # LOUD fallback: silently resetting Adam moments mid-run after
+                # a structural mismatch (e.g. an optimizer/model refactor)
+                # would corrupt a resumed training trajectory undetected.
+                msg = (
+                    f"full resume from {path} failed ({type(e).__name__}: {e}); "
+                    "falling back to PARAMS-ONLY restore — optimizer state and "
+                    "step counter are reset"
+                )
+                logging.getLogger(__name__).warning(msg)
+                if self.logger is not None:
+                    self.logger.log({"resume_degraded": msg}, step=0)
+        params = restored["params"] if "params" in restored else restored
+        self.model.load_state_dict(params)
+        if self.state is None:
+            self.state = TrainState.create(self.model, self.learning_rate, self.warmup_steps, self.decay_steps,
+                                           self.clip_norm, self.train_only)
+
+    # ------------------------------------------------------------------ train
+    # float32 inputs the bf16 train step reads in bf16 anyway: cast on the
+    # device after the transfer (the JAX loop casts them on the host)
+    _BF16_SHIP_KEYS = ("x", "xi", "xa")
+
+    def _put(self, batch: Dict, bf16_inputs: bool = False) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(v)
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            else:
+                t = t.to(self.device)
+            if bf16_inputs and k in self._BF16_SHIP_KEYS and t.dtype == torch.float32:
+                t = t.to(torch.bfloat16)
+            out[k] = t
+        return out
+
+    def fit(self, datamodule, auto_resume: bool = True) -> Dict[str, float]:
+        datamodule.setup("fit")
+        train_loader = datamodule.train_dataloader()
+        val_loader = datamodule.val_dataloader()
+        start_epoch = 1
+        best = float("inf")
+        best_epoch = -1
+        if self.state is None:
+            sample = next(iter(train_loader))
+            self.init_state(sample)
+            last = os.path.join(self.weights_dir, "last")
+            if auto_resume and os.path.exists(last):
+                # crash/restart recovery: resume the latest full state AND
+                # the epoch/best-metric bookkeeping from the hparams sidecars
+                # (otherwise a resumed run restarts epoch numbering at 1 —
+                # retraining self.epochs MORE epochs — and best=inf lets the
+                # first post-resume val overwrite a better pre-crash 'best').
+                self.restore(last)
+                meta = ckpt_lib.load_hparams(last)
+                start_epoch = int(meta.get("epoch", 0)) + 1
+                best_path = os.path.join(self.weights_dir, "best")
+                if os.path.exists(best_path):
+                    bmeta = ckpt_lib.load_hparams(best_path)
+                    if "val_sym-er" in bmeta:
+                        best = float(bmeta["val_sym-er"])
+                        best_epoch = int(bmeta.get("epoch", -1))
+                self.logger.log(
+                    {"resumed_from": last, "resumed_step": int(self.state.step),
+                     "resumed_epoch": start_epoch - 1, "resumed_best": best},
+                    step=int(self.state.step),
+                )
+        # where this fit starts: epoch, best val_sym-er and its epoch (from the sidecars on resume)
+        self.start_epoch, self.best, self.best_epoch = start_epoch, best, best_epoch
+
+        generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        bad_checks = 0
+        step = int(self.state.step)
+        timer = StepTimer()
+
+        for epoch in range(start_epoch, self.epochs + 1):
+            t0 = time.time()
+            losses = []
+            it = iter(train_loader)
+            ctx = (
+                trace(self.logger.path + "_trace.json")
+                if (self.profile_first_epoch and epoch == 1)
+                else contextlib.nullcontext()
+            )
+            with ctx:
+                while True:
+                    with timer.phase("data"):
+                        batch = next(it, None)
+                    if batch is None:
+                        break
+                    with timer.phase("step"):
+                        b = self._put(batch, bf16_inputs=self.bf16_compute)
+                        self.state, loss = self.train_step(self.state, b, generator)
+                    losses.append(loss)
+                    step += 1
+            train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+            dt = time.time() - t0
+            n_samples = len(losses) * train_loader.batch_size
+            self.logger.log(
+                {"epoch": epoch, "train_loss": train_loss,
+                 "samples_per_sec": n_samples / max(dt, 1e-9), **timer.summary()},
+                step=step,
+            )
+
+            if epoch % self.check_every == 0:
+                metrics = self.evaluate(val_loader, name="val")
+                self.logger.log({"epoch": epoch, **metrics}, step=step)
+                score = metrics["val_sym-er"]
+                self.save(tag="last", extra={"val_sym-er": score, "epoch": epoch})
+                if score < best - self.min_delta:
+                    best, best_epoch, bad_checks = score, epoch, 0
+                    self.save(tag="best", extra={"val_sym-er": score, "epoch": epoch})
+                else:
+                    bad_checks += 1
+                    if bad_checks >= self.patience:
+                        self.logger.log({"early_stop_epoch": epoch, "best_val_sym-er": best}, step=step)
+                        break
+
+        # reload best weights (reference train.py:156-158)
+        best_path = os.path.join(self.weights_dir, "best")
+        if os.path.exists(best_path):
+            self.restore(best_path)
+        return {"best_val_sym-er": best, "best_epoch": best_epoch}
+
+    # ------------------------------------------------------------------- eval
+    def _get_decode(self):
+        if self._decode is None:
+            self._decode = greedy_decode_fn(self.model, max_len=self.model.max_seq_len,
+                                            sos_id=self.vocab.sos_id, eos_id=self.vocab.eos_id)
+        return self._decode
+
+    def evaluate(self, loader, name: str = "val", gt_i2w: Optional[Dict[int, str]] = None,
+                 save_preds: Optional[str] = None) -> Dict[str, float]:
+        decode = self._get_decode()
+        i2w = self.vocab.i2w
+        gt_i2w = gt_i2w or (self.ytest_i2w if name == "test" and self.ytest_i2w else i2w)
+        eos = self.vocab.eos_id
+        y_true, y_pred = [], []
+        t0 = time.perf_counter()
+        # Keep decode outputs on device while the loop streams batches; one
+        # bulk transfer at the end.
+        pending = []
+        for batch in loader:
+            b = self._put(batch)
+            tokens, _ = decode(b["x"], b["x_hw"])
+            pending.append((tokens, batch["y_out"]))
+        host = [(tokens.cpu().numpy(), y_out) for tokens, y_out in pending]
+        decode_s = time.perf_counter() - t0
+        steps = max((int((tokens != 0).any(0).sum()) for tokens, _ in host), default=0)
+        for tokens, y_out in host:
+            pred_ids, _ = cut_at_eos(tokens, tokens, eos)
+            gt_ids, _ = cut_at_eos(y_out, y_out, eos)
+            # GT rows are padded with 0s; strip pads when no eos was found
+            for p_row, g_row in zip(pred_ids, gt_ids):
+                g_row = [g for g in g_row if g != 0]
+                y_pred.append([i2w[i] for i in p_row])
+                y_true.append([gt_i2w[i] for i in g_row])
+        self.last_eval = {f"{name}_decode_s": decode_s, f"{name}_decode_steps": steps,
+                          f"{name}_decode_batches": len(host)}
+        self.logger.log(self.last_eval, step=int(self.state.step) if self.state is not None else 0, quiet=True)
+        metrics = compute_metrics(y_true, y_pred)
+        if save_preds:
+            os.makedirs(os.path.dirname(save_preds) or ".", exist_ok=True)
+            with open(save_preds, "w") as f:
+                for g, p in zip(y_true, y_pred):
+                    f.write(json.dumps({"y_true": g, "y_pred": p}) + "\n")
+        return {f"{name}_{k}": v for k, v in metrics.items()}
+
+    def test(self, datamodule, save_preds: Optional[str] = None) -> Dict[str, float]:
+        datamodule.setup("test")
+        metrics = self.evaluate(datamodule.test_dataloader(), name="test", save_preds=save_preds)
+        self.logger.log(metrics, step=int(self.state.step))
+        return metrics
+
+    # ------------------------------------------------------------------- ckpt
+    def save(self, tag: str = "best", extra: Optional[Dict] = None) -> str:
+        path = os.path.join(self.weights_dir, tag)
+        hp = dict(self.hparams)
+        if extra:
+            hp.update(extra)
+        state = {
+            "params": self.model.state_dict(),
+            "opt_state": self.state.optimizer.state_dict(),
+            "step": int(self.state.step),
+        }
+        ckpt_lib.save_checkpoint(path, state, hparams=hp)
+        return path

@@ -8,14 +8,19 @@ runs the teacher-forced forward with dropout and takes one update.
 bf16 compute mode casts the whole parameter tree and the image to bf16 for
 the forward, as the JAX step does (``_cast_tree``); it is not
 ``torch.autocast``. Gradients reach the float32 parameters through the
-casts, and Adam's state stays float32. ``train_only`` is not ported yet.
+casts, and Adam's state stays float32.
+
+``train_only`` names the top-level parameter groups that train (the JAX
+param tree's top-level keys, which are the port model's top-level modules
+by ``training/jax_import.py``'s layout: ``encoder``, ``decoder``); the
+others stay frozen, with no Adam moments, as under ``optax.set_to_zero``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.func import functional_call
@@ -38,6 +43,28 @@ def warmup_cosine(count: int, lr: float, warmup_steps: int, decay_steps: int) ->
     return lr * ((1.0 - 0.1) * cosine + 0.1)
 
 
+def param_groups(model: torch.nn.Module) -> Dict[str, List[torch.nn.Parameter]]:
+    """Parameters by top-level group (the first part of each name)."""
+    groups: Dict[str, List[torch.nn.Parameter]] = {}
+    for name, p in model.named_parameters():
+        groups.setdefault(name.split(".")[0], []).append(p)
+    return groups
+
+
+def trainable_parameters(model: torch.nn.Module, train_only: Optional[Sequence[str]] = None
+                         ) -> List[torch.nn.Parameter]:
+    """Every parameter, or those of the groups named in ``train_only``. A
+    name that matches no group raises (the JAX package freezes everything
+    then, silently)."""
+    if not train_only:
+        return list(model.parameters())
+    groups = param_groups(model)
+    unknown = sorted(set(train_only) - set(groups))
+    if unknown:
+        raise ValueError(f"train_only names {unknown}, which match no parameter group of {sorted(groups)}")
+    return [p for name, ps in groups.items() if name in train_only for p in ps]
+
+
 @dataclass
 class TrainState:
     """The model (its parameters) and Adam, with the schedule and clip."""
@@ -52,8 +79,9 @@ class TrainState:
 
     @classmethod
     def create(cls, model: torch.nn.Module, lr: float = 1e-4, warmup_steps: int = 0, decay_steps: int = 0,
-               clip_norm: float = 0.0) -> "TrainState":
-        opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+               clip_norm: float = 0.0, train_only: Optional[Sequence[str]] = None) -> "TrainState":
+        """Adam over every parameter, or over the groups in ``train_only``."""
+        opt = torch.optim.Adam(trainable_parameters(model, train_only), lr=lr, betas=(0.9, 0.999), eps=1e-8)
         return cls(model, opt, lr, warmup_steps, decay_steps, clip_norm)
 
     def current_lr(self) -> float:
@@ -64,7 +92,12 @@ class TrainState:
     @torch.no_grad()
     def apply_gradients(self) -> None:
         """Clip (optax.clip_by_global_norm: scale by clip/norm when norm >=
-        clip), set the scheduled lr and take the Adam step."""
+        clip), set the scheduled lr and take the Adam step.
+
+        The norm runs over the gradients of every parameter, frozen groups
+        included, as the JAX package's chain clips before it zeroes the
+        frozen groups: a known fault of the reference (frozen gradients
+        shrink the trainable step), matched here for parity."""
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         if self.clip_norm and self.clip_norm > 0:
             norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -100,7 +133,7 @@ def make_train_step(model: torch.nn.Module, vocab_size: int, teacher_forcing_pro
         if state.model is not model:
             raise ValueError("the train state holds another model than the step was built for")
         y_in = corrupt_tokens(generator, batch["y_in"], vocab_size, teacher_forcing_prob, pad_id)
-        state.optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)  # frozen groups too: their gradients enter the clip's norm
         loss = loss_fn(batch, y_in, generator)
         loss.backward()
         state.apply_gradients()

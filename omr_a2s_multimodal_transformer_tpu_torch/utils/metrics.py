@@ -1,0 +1,40 @@
+"""Evaluation metrics: Symbol/Sequence Error Rate.
+
+Port of ``omr_a2s_multimodal_transformer_tpu/utils/metrics.py`` (parity
+with the reference's ``src/utils/metrics.py``):
+- sym-er = 100 * sum(edit_distance) / sum(len(ground_truth))
+- seq-er = 100 * (#sequences with any error) / #sequences
+MV2H (``compute_mv2h=True``) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+from omr_a2s_multimodal_transformer_tpu_torch.utils.edit_distance import levenshtein
+
+
+def compute_ed_metrics(y_true: Sequence[List[str]], y_pred: Sequence[List[str]]) -> Dict[str, float]:
+    ed_acc = 0
+    length_acc = 0
+    wrong_seqs = 0
+    for t, h in zip(y_true, y_pred):
+        ed = levenshtein(t, h)
+        ed_acc += ed
+        length_acc += len(t)
+        if ed > 0:
+            wrong_seqs += 1
+    return {
+        "sym-er": 100.0 * ed_acc / max(length_acc, 1),
+        "seq-er": 100.0 * wrong_seqs / max(len(y_pred), 1),
+    }
+
+
+def compute_metrics(
+    y_true: Sequence[List[str]],
+    y_pred: Sequence[List[str]],
+    compute_mv2h: bool = False,
+) -> Dict[str, float]:
+    if compute_mv2h:
+        raise NotImplementedError("MV2H (compute_mv2h=True) is not ported yet")
+    return compute_ed_metrics(y_true, y_pred)
