@@ -68,18 +68,11 @@ def _unported(args) -> Dict[str, bool]:
         "--device_cache / --device_cache_u8 (a corpus held in device memory)":
             bool(get("device_cache") or get("device_cache_u8")),
         "--remat (rematerialized blocks)": bool(get("remat")),
-        "--init_image_checkpoint / --init_audio_checkpoint (multimodal warm start)":
-            bool(get("init_image_checkpoint") or get("init_audio_checkpoint")),
         "--beam_size > 1 (beam search)": get("beam_size", 1) > 1,
         "--compute_mv2h (MV2H)": bool(get("compute_mv2h")),
         "--cache_dtype int8/int4 (quantized cross-KV decode)": get("cache_dtype") in ("int8", "int4"),
-        "--input_modality audio/both (the audio frontend, the multimodal model)":
-            get("input_modality", "image") != "image",
         "--loader_backend grain": get("loader_backend") == "grain",
         # flags that are read only by a path above: set, they would change nothing
-        "--mixer_type / --mixer_residual / --init_decoder_from audio / --teacher_forcing_modality_prob "
-        "(the multimodal model)": get("mixer_type") is not None or bool(get("mixer_residual"))
-        or get("init_decoder_from", "image") != "image" or get("teacher_forcing_modality_prob", 0.2) != 0.2,
         "--length_penalty (beam search)": get("length_penalty", 0.0) != 0.0,
         "--keep_cache (the preprocess disk cache: the port has none)": bool(get("keep_cache")),
     }
@@ -140,7 +133,7 @@ def build_from_checkpoint(checkpoint_path: str, hparams_override: Optional[Dict]
             hp[k] = v
     model, multimodal = build_model(hp, device=device)
     state = ckpt_lib.restore_checkpoint(checkpoint_path, map_location=next(model.parameters()).device)
-    model.load_state_dict(state["params"] if "params" in state else state)
+    ckpt_lib.load_params(model, ckpt_lib.params_of(state))
     return model, hp, multimodal
 
 

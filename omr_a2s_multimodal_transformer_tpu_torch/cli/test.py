@@ -1,8 +1,8 @@
 """Test CLI — evaluate a checkpoint on (possibly another) dataset.
 
 Port of ``omr_a2s_multimodal_transformer_tpu/cli/test.py`` (the reference's
-src/test.py:19-80, incl. cross-domain ytest_i2w handling), image modality.
-Runs on ``cuda`` unless given ``--device cpu``.
+src/test.py:19-80, incl. cross-domain ytest_i2w handling), for image, audio
+and multimodal checkpoints. Runs on ``cuda`` unless given ``--device cpu``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,10 @@
 """Train CLI — reference-parity flag surface (the reference's src/train.py:21-36).
 
-Port of ``omr_a2s_multimodal_transformer_tpu/cli/train.py``, image modality.
+Port of ``omr_a2s_multimodal_transformer_tpu/cli/train.py``: image, audio
+and the early-fusion multimodal model (``--input_modality both`` with
+``--mixer_type``/``--mixer_residual``, modality dropout by
+``--teacher_forcing_modality_prob``, warm start from unimodal checkpoints by
+``--init_image_checkpoint``/``--init_audio_checkpoint``/``--init_decoder_from``).
 Example (paper config, the reference's run_experiments.sh:13), on the card:
   python -m omr_a2s_multimodal_transformer_tpu_torch.cli.train \
     --ds_name grandstaff --krn_encoding kern --input_modality image \
@@ -149,6 +153,15 @@ def main(argv=None) -> dict:
         print(f"Resuming from checkpoint: {args.checkpoint_path}")
         trainer.init_state()
         trainer.restore(args.checkpoint_path)
+    elif args.init_image_checkpoint or args.init_audio_checkpoint:
+        if not multimodal:
+            raise SystemExit("--init_{image,audio}_checkpoint require --input_modality both")
+        print(f"Warm start: image={args.init_image_checkpoint or '-'} "
+              f"audio={args.init_audio_checkpoint or '-'} decoder_from={args.init_decoder_from}")
+        trainer.init_state()
+        trainer.warm_start_from_unimodal(
+            args.init_image_checkpoint or None, args.init_audio_checkpoint or None,
+            decoder_from=args.init_decoder_from)
 
     result = trainer.fit(dm)
     print(f"Best val_sym-er: {result['best_val_sym-er']:.4f} (epoch {result['best_epoch']})")

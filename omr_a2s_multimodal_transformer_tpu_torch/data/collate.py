@@ -133,6 +133,22 @@ def collate_unimodal(
     return {"x": x, "x_hw": x_hw, "frames": frames, "y_in": y_in, "y_out": y_out}
 
 
-def collate_multimodal(*args, **kwargs) -> Dict[str, np.ndarray]:
-    """Batch of {'xi','xa','y'}: the multimodal path is not ported yet."""
-    raise NotImplementedError("multimodal batches are not ported yet")
+def collate_multimodal(
+    samples: List[Dict],
+    target_img: Optional[Tuple[int, int]] = None,
+    target_audio: Optional[Tuple[int, int]] = None,
+    target_len: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """Batch of {'xi','xa','y'} -> static-shape arrays for both modalities."""
+    ti = target_img or (None, None)
+    ta = target_audio or (None, None)
+    xi, xi_hw = _stack_inputs([s["xi"] for s in samples], IMAGE_PAD_VALUE, *ti)
+    xa, xa_hw = _stack_inputs([s["xa"] for s in samples], AUDIO_PAD_VALUE, *ta)
+    y_in, y_out = _stack_transcripts([s["y"] for s in samples], target_len)
+    fi = np.asarray([num_frames(h, w) for h, w in xi_hw], dtype=np.int32)
+    fa = np.asarray([num_frames(h, w) for h, w in xa_hw], dtype=np.int32)
+    return {
+        "xi": xi, "xi_hw": xi_hw, "frames_i": fi,
+        "xa": xa, "xa_hw": xa_hw, "frames_a": fa,
+        "y_in": y_in, "y_out": y_out,
+    }

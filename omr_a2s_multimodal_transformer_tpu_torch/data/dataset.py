@@ -7,9 +7,11 @@ reference's ``ARDataset``/``ARDataModule``, its
 the device. A background thread pool renders and collates the next batches
 while the device runs the current one.
 
-Image modality only: ``input_modality`` "audio" and "both" raise until the
-audio frontend and the multimodal model are ported. The thread loader is
-the port's only loader (``loader_backend="grain"`` raises).
+Samples are {"x", "y"} for the image and the audio modality and
+{"xi", "xa", "y"} for both; the audio frontend is the host numpy
+``preprocess_audio``, as in the JAX package, and no frontend output is
+cached on disk. The thread loader is the port's only loader
+(``loader_backend="grain"`` raises).
 """
 
 from __future__ import annotations
@@ -24,7 +26,11 @@ import numpy as np
 
 from omr_a2s_multimodal_transformer_tpu_torch.data import collate as C
 from omr_a2s_multimodal_transformer_tpu_torch.data.encoding import KrnParser
-from omr_a2s_multimodal_transformer_tpu_torch.data.frontends import preprocess_image, spectrogram_shape
+from omr_a2s_multimodal_transformer_tpu_torch.data.frontends import (
+    preprocess_audio,
+    preprocess_image,
+    spectrogram_shape,
+)
 from omr_a2s_multimodal_transformer_tpu_torch.data.sources import MODALITIES, make_source
 from omr_a2s_multimodal_transformer_tpu_torch.data.vocab import (
     Vocabulary,
@@ -52,8 +58,6 @@ class ARDataset:
         cache_root: Optional[str] = None,
     ) -> None:
         assert input_modality in MODALITIES, f"Invalid input_modality: {input_modality}"
-        if input_modality.lower() != "image":
-            raise NotImplementedError(f"input_modality={input_modality!r}: only 'image' is ported yet")
         self.ds_name = ds_name.lower()
         self.partition_type = partition_type
         self.input_modality = input_modality.lower()
@@ -140,7 +144,15 @@ class ARDataset:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         s = self.source[idx]
         y = self.transcript_ids(s["transcript"])
-        return {"x": preprocess_image(s["image"], self.img_height), "y": y}
+        if self.input_modality == "image":
+            return {"x": preprocess_image(s["image"], self.img_height), "y": y}
+        if self.input_modality == "audio":
+            return {"x": preprocess_audio(s["audio"]["array"], s["audio"]["sampling_rate"]), "y": y}
+        return {
+            "xi": preprocess_image(s["image"], self.img_height),
+            "xa": preprocess_audio(s["audio"]["array"], s["audio"]["sampling_rate"]),
+            "y": y,
+        }
 
 
 class Loader:
@@ -187,6 +199,15 @@ class Loader:
 
     def _collate(self, samples: List[Dict]) -> Dict[str, np.ndarray]:
         m = self.ds.input_modality
+        if m == "both":
+            hi = max(s["xi"].shape[1] for s in samples)
+            wi = max(s["xi"].shape[2] for s in samples)
+            ha = max(s["xa"].shape[1] for s in samples)
+            wa = max(s["xa"].shape[2] for s in samples)
+            ly = max(len(s["y"]) for s in samples)
+            ti = self.image_bucket.pick(hi, wi, ly)
+            ta = self.audio_bucket.pick(ha, wa, ly)
+            return C.collate_multimodal(samples, (ti[0], ti[1]), (ta[0], ta[1]), ti[2])
         pad = C.IMAGE_PAD_VALUE if m == "image" else C.AUDIO_PAD_VALUE
         h = max(s["x"].shape[1] for s in samples)
         w = max(s["x"].shape[2] for s in samples)

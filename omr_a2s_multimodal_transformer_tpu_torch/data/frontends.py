@@ -1,19 +1,23 @@
-"""Host-side image frontend (parity path).
+"""Host-side image/audio frontends (parity path).
 
-Port of ``omr_a2s_multimodal_transformer_tpu/data/frontends.py``, image
-only: grayscale, optional aspect-preserving resize to a target height,
-scale to [0, 1]; output [1, H, W] float32, the same values as the JAX
-package's ``preprocess_image`` (which calls PIL's ``convert("L")`` and
-``resize``).
+Port of ``omr_a2s_multimodal_transformer_tpu/data/frontends.py``:
+- image: grayscale, optional aspect-preserving resize to a target height,
+  scale to [0, 1]; output [1, H, W] float32, the same values as the JAX
+  package's ``preprocess_image`` (which calls PIL's ``convert("L")`` and
+  ``resize``);
+- audio: resample to 22.05 kHz, band-limited log-STFT in [0, 1]; output
+  [1, 195, T] float32, ``ops/stft.py``'s numpy ``log_spectrogram_np``.
 
 The grayscale conversion is numpy, so the synthetic corpus needs neither
 PIL nor joblib: a uint8 L image passes through, and RGB takes PIL's own
 integer ITU-R 601-2 luma. PIL is imported only for the ``img_height``
 resize (PIL's bicubic, which the reference calls) and for PIL images of
-other modes. There is no disk cache of frontend outputs.
+other modes. There is no disk cache of frontend outputs: the data loader
+computes each sample anew, so there is no cache entry that can go missing
+and no fallback for one.
 
-``preprocess_audio`` waits for the audio path; ``spectrogram_shape`` gives
-the shape it will have, which the max-lens scan needs.
+``spectrogram_shape`` gives ``preprocess_audio``'s output shape from the
+waveform's length alone, which the max-lens scan needs.
 """
 
 from __future__ import annotations
@@ -23,10 +27,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-SAMPLE_RATE = 22050
-HOP_LENGTH = 512
-# Bins with freq k * sr / n_fft <= 2093 Hz at n_fft 2048 (the JAX package's ops/stft.py NUM_FREQ_BINS)
-NUM_FREQ_BINS = 195
+from omr_a2s_multimodal_transformer_tpu_torch.ops.stft import HOP_LENGTH, NUM_FREQ_BINS, SAMPLE_RATE, log_spectrogram_np
 
 
 def _require_pil(what: str):
@@ -84,4 +85,6 @@ def spectrogram_shape(num_samples: int, sr: float) -> Tuple[int, int]:
 
 
 def preprocess_audio(raw_audio: np.ndarray, sr: float) -> np.ndarray:
-    raise NotImplementedError("the audio frontend (log spectrogram) is not ported yet")
+    """Waveform -> [1, NUM_FREQ_BINS, T] float32 log-spectrogram in [0, 1]."""
+    x = log_spectrogram_np(np.asarray(raw_audio, np.float32), sr=sr)
+    return x[None, ...].astype(np.float32)

@@ -1,20 +1,23 @@
-"""End-to-end image transcription (serving path).
+"""End-to-end transcription (serving path).
 
-Port of ``make_image_transcriber`` from
-``omr_a2s_multimodal_transformer_tpu/inference.py``: raw uint8 score images
--> device preprocess (``ops/image.py``) -> conv-stem encode -> KV-cached
-greedy decode -> token ids. The audio, multimodal and fused transcribers
-are not ported yet.
+Port of ``make_image_transcriber``, ``make_audio_transcriber`` and
+``make_multimodal_transcriber`` from
+``omr_a2s_multimodal_transformer_tpu/inference.py``: raw inputs (uint8
+score images / 22.05 kHz waveforms) -> device frontends (``ops/image.py``,
+``ops/stft.py``'s float32 ``log_spectrogram``) -> conv-stem encode ->
+KV-cached greedy decode -> token ids, all on the model's device. The fused
+transcriber waits for weighted decoding.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, check_module_device
 from omr_a2s_multimodal_transformer_tpu_torch.ops.image import preprocess_image_batch
+from omr_a2s_multimodal_transformer_tpu_torch.ops.stft import HOP_LENGTH, NUM_FREQ_BINS, log_spectrogram
 from omr_a2s_multimodal_transformer_tpu_torch.training.decode import greedy_decode_fn
 
 
@@ -33,5 +36,44 @@ def make_image_transcriber(model, sos_id: int, eos_id: int, img_height: Optional
     def transcribe(raw: torch.Tensor, hw: torch.Tensor):
         x, hw2 = preprocess_image_batch(raw.to(dev), hw.to(dev), target_height=img_height)
         return decode(x, hw2)
+
+    return transcribe
+
+
+def audio_batch(wave: torch.Tensor, n_samples: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wave [B, L] (zero padded), n_samples [B] -> (spectrograms [B, 195, T, 1]
+    laid out [bins (height), frames (width)] like the reference, NHWC;
+    hw [B, 2] = (195, 1 + n_samples // 512))."""
+    x = log_spectrogram(wave, n_samples)[..., None]
+    frames = 1 + n_samples // HOP_LENGTH
+    return x, torch.stack([torch.full_like(frames, NUM_FREQ_BINS), frames], dim=1)
+
+
+def make_audio_transcriber(model, sos_id: int, eos_id: int, device: DeviceLike = None) -> Callable:
+    """f(wave [B, L] f32, n_samples [B]) -> (tokens [B, L], scores), the
+    model on ``device`` (``cuda`` unless the caller says otherwise)."""
+    dev = check_module_device(model, device)
+    decode = greedy_decode_fn(model, model.max_seq_len, sos_id, eos_id)
+
+    @torch.no_grad()
+    def transcribe(wave: torch.Tensor, n_samples: torch.Tensor):
+        return decode(*audio_batch(wave.to(dev), n_samples.to(dev)))
+
+    return transcribe
+
+
+def make_multimodal_transcriber(model, sos_id: int, eos_id: int, img_height: Optional[int] = None,
+                                device: DeviceLike = None) -> Callable:
+    """f(raw_img_u8 [B, H, W], img_hw [B, 2], wave [B, L], n_samples [B]) ->
+    (tokens, scores), the model on ``device`` (``cuda`` unless the caller
+    says otherwise). ``img_height`` raises as in ``make_image_transcriber``."""
+    dev = check_module_device(model, device)
+    decode = greedy_decode_fn(model, model.max_seq_len, sos_id, eos_id, multimodal=True)
+
+    @torch.no_grad()
+    def transcribe(raw_img: torch.Tensor, img_hw: torch.Tensor, wave: torch.Tensor, n_samples: torch.Tensor):
+        xi, hwi = preprocess_image_batch(raw_img.to(dev), img_hw.to(dev), target_height=img_height)
+        xa, hwa = audio_batch(wave.to(dev), n_samples.to(dev))
+        return decode(xi, hwi, xa, hwa)
 
     return transcribe

@@ -45,6 +45,24 @@ def memory_valid_from_hw(hw: torch.Tensor, grid_h: int, grid_w: int, prefix_sema
     return M.rect_valid_mask(torch.stack([rh, rw], dim=1), grid_h, grid_w)
 
 
+def encode_memory(model: nn.Module, encoder: ConvStemEncoder, x: torch.Tensor, hw: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One conv stem + PE2D + positional dropout -> (memory [B, S, C],
+    memory_valid [B, S] or None), with ``model``'s masked_norm,
+    pos_dropout and prefix_memory_mask; generator=None is deterministic."""
+    valid = None
+    if hw is not None and model.masked_norm:
+        hh = torch.arange(x.shape[1], device=x.device)[None, :, None] < hw[:, 0][:, None, None]
+        ww = torch.arange(x.shape[2], device=x.device)[None, None, :] < hw[:, 1][:, None, None]
+        valid = hh & ww
+    feats = encoder(x, generator=generator, valid=valid)
+    mem = dropout(add_pos2d_and_flatten(feats), model.pos_dropout, generator)
+    mem_valid = None
+    if hw is not None:
+        mem_valid = memory_valid_from_hw(hw, feats.shape[1], feats.shape[2], model.prefix_memory_mask)
+    return mem, mem_valid
+
+
 class UnimodalTransformer(nn.Module):
     """Encoder + PE2D + decoder."""
 
@@ -65,17 +83,7 @@ class UnimodalTransformer(nn.Module):
     def encode(self, x: torch.Tensor, hw: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x [B, H, W, 1], hw [B, 2] original dims. Returns (memory [B, S, C], memory_valid [B, S] or None)."""
-        valid = None
-        if hw is not None and self.masked_norm:
-            hh = torch.arange(x.shape[1], device=x.device)[None, :, None] < hw[:, 0][:, None, None]
-            ww = torch.arange(x.shape[2], device=x.device)[None, None, :] < hw[:, 1][:, None, None]
-            valid = hh & ww
-        feats = self.encoder(x, generator=generator, valid=valid)
-        mem = dropout(add_pos2d_and_flatten(feats), self.pos_dropout, generator)
-        mem_valid = None
-        if hw is not None:
-            mem_valid = memory_valid_from_hw(hw, feats.shape[1], feats.shape[2], self.prefix_memory_mask)
-        return mem, mem_valid
+        return encode_memory(self, self.encoder, x, hw, generator)
 
     def forward(self, x: torch.Tensor, hw: Optional[torch.Tensor], y_in: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

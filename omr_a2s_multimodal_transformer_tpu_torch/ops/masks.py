@@ -44,3 +44,12 @@ def key_padding_additive(valid: torch.Tensor, dtype=torch.float32, torch_float_p
     """
     pad_bias = 1.0 if torch_float_parity else NEG_INF
     return torch.where(valid, 0.0, pad_bias).to(dtype)[:, None, None, :]
+
+
+def corner_attn_mask(q_valid: torch.Tensor, k_valid: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """[B, Lq], [B, Lk] bool -> [B, 1, Lq, Lk] additive mask blocking only
+    the (pad query x pad key) corner, the reference's CrossAttention
+    semantics (its model.py:343-351): valid queries still see pad keys and
+    vice versa."""
+    blocked = (~q_valid)[:, :, None] & (~k_valid)[:, None, :]
+    return torch.where(blocked, NEG_INF, 0.0).to(dtype)[:, None, :, :]

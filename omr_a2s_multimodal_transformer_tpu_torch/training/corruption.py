@@ -1,8 +1,17 @@
-"""Teacher-forcing token corruption (port of
-``omr_a2s_multimodal_transformer_tpu/training/corruption.py``)."""
+"""Training-time stochastic curriculum (port of
+``omr_a2s_multimodal_transformer_tpu/training/corruption.py``).
+
+- Token corruption ("teacher forcing" in the reference's naming): with
+  probability p, replace each non-pad decoder-input token with a uniform
+  random vocab id, from a ``torch.Generator``.
+- Modality dropout draw (reference model.py:561-575): with probability p
+  use a single modality (50/50 image/audio) for this step. Drawn on the
+  host from a numpy ``Generator``, the same draws as the JAX package's.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +26,10 @@ def corrupt_tokens(generator: torch.Generator, y_in: torch.Tensor, vocab_size: i
     random_ids = torch.randint(0, vocab_size, y_in.shape, generator=generator, device=y_in.device,
                                dtype=y_in.dtype)
     return torch.where(flip & (y_in != pad_id), random_ids, y_in)
+
+
+def draw_modality(rng: np.random.Generator, prob: float) -> str:
+    """Host-side modality-dropout draw: 'image' | 'audio' | 'both'."""
+    if rng.random() < prob:
+        return "image" if rng.random() < 0.5 else "audio"
+    return "both"

@@ -4,7 +4,8 @@ Port of ``greedy_decode_fn`` and ``cut_at_eos`` from
 ``omr_a2s_multimodal_transformer_tpu/training/decode.py``. The JAX
 ``lax.while_loop`` becomes a Python loop over ``decode_step`` that stops
 when every row has emitted <eos> (one host read of the done flags per
-step). Weighted and beam decoding are not ported yet.
+step), for the unimodal and the multimodal model. Weighted and beam
+decoding are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,29 +16,45 @@ import numpy as np
 import torch
 
 
-def greedy_decode_fn(model, max_len: int, sos_id: int, eos_id: int) -> Callable:
-    """f(x [B, H, W, 1], hw [B, 2] or None) -> (tokens [B, max_len] int32,
-    scores [B, max_len] f32: the top-1 raw logit per step). Positions after
-    the loop stops stay 0."""
+def _greedy_loop(model, prefill, b: int, device, max_len: int, sos_id: int, eos_id: int):
+    cross, mem_valid = prefill
+    cache = model.decode_init_cache(b)
+    tokens = torch.zeros((b, max_len), dtype=torch.int32, device=device)
+    scores = torch.zeros((b, max_len), dtype=torch.float32, device=device)
+    tok = torch.full((b,), sos_id, dtype=torch.int64, device=device)
+    done = torch.zeros((b,), dtype=torch.bool, device=device)
+    for pos in range(max_len):
+        logits, cache = model.decode_step(tok, pos, cache, cross, mem_valid)
+        score, tok = logits.max(dim=-1)
+        tokens[:, pos] = tok.to(torch.int32)
+        scores[:, pos] = score.float()
+        done |= tok == eos_id
+        if bool(done.all()):
+            break
+    return tokens, scores
+
+
+def greedy_decode_fn(model, max_len: int, sos_id: int, eos_id: int, multimodal: bool = False) -> Callable:
+    """Unimodal:   f(x [B, H, W, 1], hw [B, 2] or None) -> (tokens, scores).
+    Multimodal: f(xi, xi_hw, xa, xa_hw) -> (tokens, scores).
+
+    tokens [B, max_len] int32, scores [B, max_len] f32: the top-1 raw logit
+    per step. Positions after the loop stops stay 0. hw arguments may be
+    None (no memory padding, no mask)."""
+
+    if multimodal:
+        @torch.no_grad()
+        def decode_mm(xi: torch.Tensor, xi_hw: Optional[torch.Tensor], xa: torch.Tensor,
+                      xa_hw: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+            prefill = model.decode_prefill(xi, xa, xi_hw, xa_hw)
+            return _greedy_loop(model, prefill, xi.shape[0], xi.device, max_len, sos_id, eos_id)
+
+        return decode_mm
 
     @torch.no_grad()
     def decode(x: torch.Tensor, hw: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        b = x.shape[0]
-        cross, mem_valid = model.decode_prefill(x, hw)
-        cache = model.decode_init_cache(b)
-        tokens = torch.zeros((b, max_len), dtype=torch.int32, device=x.device)
-        scores = torch.zeros((b, max_len), dtype=torch.float32, device=x.device)
-        tok = torch.full((b,), sos_id, dtype=torch.int64, device=x.device)
-        done = torch.zeros((b,), dtype=torch.bool, device=x.device)
-        for pos in range(max_len):
-            logits, cache = model.decode_step(tok, pos, cache, cross, mem_valid)
-            score, tok = logits.max(dim=-1)
-            tokens[:, pos] = tok.to(torch.int32)
-            scores[:, pos] = score.float()
-            done |= tok == eos_id
-            if bool(done.all()):
-                break
-        return tokens, scores
+        prefill = model.decode_prefill(x, hw)
+        return _greedy_loop(model, prefill, x.shape[0], x.device, max_len, sos_id, eos_id)
 
     return decode
 

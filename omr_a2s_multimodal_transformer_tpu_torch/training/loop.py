@@ -10,14 +10,17 @@ The train step is the port's eager step (``training/train_state.py``); the
 host runs ahead of the device, as the JAX loop does: no step waits for the
 device, and the epoch's train loss is one read of the mean of the step
 losses. Batches go to the device from pinned memory without a wait, and the
-image is cast to bf16 there under bf16 compute. Per-step randomness (token
-corruption, dropout) comes from one ``torch.Generator`` seeded with
-``seed + 1``, the counterpart of the JAX loop's ``PRNGKey(seed + 1)``; its
-bits differ from JAX's.
+inputs (image, spectrogram) are cast to bf16 there under bf16 compute.
+Per-step randomness (token corruption, dropout) comes from one
+``torch.Generator`` seeded with ``seed + 1``, the counterpart of the JAX
+loop's ``PRNGKey(seed + 1)``; its bits differ from JAX's. The multimodal
+model's per-step modality (modality dropout, ``draw_modality``) is drawn
+from ``np.random.default_rng(seed)`` as in the JAX loop, draw for draw.
+``warm_start_from_unimodal`` loads trained unimodal encoders and decoder
+into the multimodal model before ``fit``.
 
-Not ported yet, and raising ``NotImplementedError``: the multimodal model,
-a mesh, beam search, the device-resident corpus, MV2H and the warm start
-from unimodal checkpoints.
+Not ported yet, and raising ``NotImplementedError``: a mesh, beam search,
+the device-resident corpus and MV2H.
 """
 
 from __future__ import annotations
@@ -29,11 +32,13 @@ import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from omr_a2s_multimodal_transformer_tpu_torch.data.vocab import Vocabulary
 from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, check_module_device
 from omr_a2s_multimodal_transformer_tpu_torch.training import checkpoint as ckpt_lib
+from omr_a2s_multimodal_transformer_tpu_torch.training.corruption import draw_modality
 from omr_a2s_multimodal_transformer_tpu_torch.training.decode import cut_at_eos, greedy_decode_fn
 from omr_a2s_multimodal_transformer_tpu_torch.training.train_state import (
     TrainState,
@@ -62,9 +67,9 @@ class Trainer:
         warmup_steps: int = 0,
         decay_steps: int = 0,
         clip_norm: float = 0.0,  # >0: global-norm gradient clipping (post-LN spike guard)
-        train_only=None,  # e.g. ("decoder",): freeze all other top-level param groups
+        train_only=None,  # e.g. ("cross_attn", "mix_gate"): freeze all other top-level param groups
         teacher_forcing_prob: float = 0.2,
-        teacher_forcing_modality_prob: float = 0.2,  # the JAX Trainer's surface: it reads it nowhere either
+        teacher_forcing_modality_prob: float = 0.2,  # multimodal: the chance of a single-modality step
         bf16_compute: bool = True,
         multimodal: bool = False,
         mesh=None,
@@ -81,7 +86,7 @@ class Trainer:
         device_cache_u8: bool = False,
         device: DeviceLike = None,  # cuda unless the caller asks for another device
     ):
-        unported = dict(multimodal=multimodal, mesh=mesh is not None, beam_size=beam_size > 1,
+        unported = dict(mesh=mesh is not None, beam_size=beam_size > 1,
                         device_cache=device_cache or device_cache_u8, compute_mv2h=compute_mv2h)
         for name, asked in unported.items():
             if asked:
@@ -95,6 +100,8 @@ class Trainer:
         self.patience = patience
         self.min_delta = min_delta
         self.check_every = check_val_every_n_epoch
+        self.multimodal = multimodal
+        self.tf_modality_prob = teacher_forcing_modality_prob
         self.seed = seed
         self.ytest_i2w = ytest_i2w  # cross-domain eval: GT decoded in test vocab
         self.profile_first_epoch = profile_first_epoch
@@ -107,7 +114,7 @@ class Trainer:
         )
         self.train_step = make_train_step(
             model, vocab_size=len(vocab), teacher_forcing_prob=teacher_forcing_prob,
-            bf16_compute=bf16_compute, device=self.device,
+            bf16_compute=bf16_compute, multimodal=multimodal, device=self.device,
         )
         self.bf16_compute = bf16_compute
         self._decode = None
@@ -119,8 +126,7 @@ class Trainer:
         """Adam over the model's current weights (random from build_model's
         seed, or loaded). ``sample_batch`` is taken for the JAX signature:
         the port's model holds its weights before the first batch."""
-        self.state = TrainState.create(self.model, self.learning_rate, self.warmup_steps, self.decay_steps,
-                                       self.clip_norm, self.train_only)
+        self.state = self._new_state()
         # model summary (the reference prints torchinfo tables at init)
         groups = param_groups(self.model)
         n_params = sum(p.numel() for ps in groups.values() for p in ps)
@@ -129,33 +135,57 @@ class Trainer:
                         step=0, quiet=False)
         return self.state
 
+    def _new_state(self) -> TrainState:
+        return TrainState.create(self.model, self.learning_rate, self.warmup_steps, self.decay_steps,
+                                 self.clip_norm, self.train_only)
+
     def restore(self, path: str) -> None:
         """Restore params (+ optimizer state and step when present and
-        structurally compatible — full resume semantics)."""
+        structurally compatible — full resume semantics). Params that do
+        not fit the model (a name or a shape, e.g. a ``mix_gate`` of
+        another mixer) raise ``ValueError`` naming the leaf."""
         restored = ckpt_lib.restore_checkpoint(path, map_location=self.device)
-        if self.state is not None:
-            try:  # full resume
-                self.model.load_state_dict(restored["params"])
-                self.state.optimizer.load_state_dict(restored["opt_state"])
-                self.state.step = int(restored["step"])
-                return
-            except Exception as e:
-                # LOUD fallback: silently resetting Adam moments mid-run after
-                # a structural mismatch (e.g. an optimizer/model refactor)
-                # would corrupt a resumed training trajectory undetected.
-                msg = (
-                    f"full resume from {path} failed ({type(e).__name__}: {e}); "
-                    "falling back to PARAMS-ONLY restore — optimizer state and "
-                    "step counter are reset"
-                )
-                logging.getLogger(__name__).warning(msg)
-                if self.logger is not None:
-                    self.logger.log({"resume_degraded": msg}, step=0)
-        params = restored["params"] if "params" in restored else restored
-        self.model.load_state_dict(params)
+        ckpt_lib.load_params(self.model, ckpt_lib.params_of(restored))
         if self.state is None:
-            self.state = TrainState.create(self.model, self.learning_rate, self.warmup_steps, self.decay_steps,
-                                           self.clip_norm, self.train_only)
+            self.state = self._new_state()
+            return
+        try:  # full resume
+            self.state.optimizer.load_state_dict(restored["opt_state"])
+            self.state.step = int(restored["step"])
+        except (KeyError, ValueError) as e:
+            # LOUD fallback: silently resetting Adam moments mid-run after
+            # a structural mismatch (e.g. an optimizer/model refactor)
+            # would corrupt a resumed training trajectory undetected.
+            msg = (
+                f"full resume from {path} failed ({type(e).__name__}: {e}); "
+                "falling back to PARAMS-ONLY restore — optimizer state and "
+                "step counter are reset"
+            )
+            logging.getLogger(__name__).warning(msg)
+            if self.logger is not None:
+                self.logger.log({"resume_degraded": msg}, step=0)
+
+    def warm_start_from_unimodal(self, image_ckpt: Optional[str] = None, audio_ckpt: Optional[str] = None,
+                                 decoder_from: str = "image") -> None:
+        """Overwrite the multimodal encoders/decoder with trained unimodal
+        checkpoints (ckpt_lib.stitch_multimodal_params); mixer params
+        (cross_attn, mix_gate) keep their fresh init and the optimizer
+        restarts from step 0. Call after init_state, before fit."""
+        if self.state is None:
+            raise RuntimeError("init_state first")
+        if not self.multimodal:
+            raise ValueError("warm start targets the multimodal model")
+
+        def _load(path):
+            return ckpt_lib.params_of(ckpt_lib.restore_checkpoint(path, map_location=self.device)) if path else None
+
+        stitched = ckpt_lib.stitch_multimodal_params(
+            self.model.state_dict(), _load(image_ckpt), _load(audio_ckpt), decoder_from,
+            mixer_type=self.model.mixer_type if self.model.mixer_residual else None)
+        ckpt_lib.load_params(self.model, stitched)
+        self.state = self._new_state()
+        self.logger.log({"warm_start_image": image_ckpt or "", "warm_start_audio": audio_ckpt or "",
+                         "warm_start_decoder_from": decoder_from}, step=0, quiet=False)
 
     # ------------------------------------------------------------------ train
     # float32 inputs the bf16 train step reads in bf16 anyway: cast on the
@@ -209,6 +239,7 @@ class Trainer:
         # where this fit starts: epoch, best val_sym-er and its epoch (from the sidecars on resume)
         self.start_epoch, self.best, self.best_epoch = start_epoch, best, best_epoch
 
+        host_rng = np.random.default_rng(self.seed)
         generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         bad_checks = 0
         step = int(self.state.step)
@@ -231,7 +262,11 @@ class Trainer:
                         break
                     with timer.phase("step"):
                         b = self._put(batch, bf16_inputs=self.bf16_compute)
-                        self.state, loss = self.train_step(self.state, b, generator)
+                        if self.multimodal:
+                            modality = draw_modality(host_rng, self.tf_modality_prob)
+                            self.state, loss = self.train_step(self.state, b, generator, modality)
+                        else:
+                            self.state, loss = self.train_step(self.state, b, generator)
                     losses.append(loss)
                     step += 1
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
@@ -267,7 +302,8 @@ class Trainer:
     def _get_decode(self):
         if self._decode is None:
             self._decode = greedy_decode_fn(self.model, max_len=self.model.max_seq_len,
-                                            sos_id=self.vocab.sos_id, eos_id=self.vocab.eos_id)
+                                            sos_id=self.vocab.sos_id, eos_id=self.vocab.eos_id,
+                                            multimodal=self.multimodal)
         return self._decode
 
     def evaluate(self, loader, name: str = "val", gt_i2w: Optional[Dict[int, str]] = None,
@@ -283,7 +319,10 @@ class Trainer:
         pending = []
         for batch in loader:
             b = self._put(batch)
-            tokens, _ = decode(b["x"], b["x_hw"])
+            if self.multimodal:
+                tokens, _ = decode(b["xi"], b["xi_hw"], b["xa"], b["xa_hw"])
+            else:
+                tokens, _ = decode(b["x"], b["x_hw"])
             pending.append((tokens, batch["y_out"]))
         host = [(tokens.cpu().numpy(), y_out) for tokens, y_out in pending]
         decode_s = time.perf_counter() - t0

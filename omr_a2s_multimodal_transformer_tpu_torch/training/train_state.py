@@ -5,15 +5,18 @@ Adam(0.9, 0.999, 1e-8) with an optional warmup-cosine schedule and an
 optional global-norm clip, and a step that corrupts the decoder input,
 runs the teacher-forced forward with dropout and takes one update.
 
-bf16 compute mode casts the whole parameter tree and the image to bf16 for
+bf16 compute mode casts the whole parameter tree and the inputs (the image
+or spectrogram ``x``; ``xi`` and ``xa`` of a multimodal batch) to bf16 for
 the forward, as the JAX step does (``_cast_tree``); it is not
 ``torch.autocast``. Gradients reach the float32 parameters through the
 casts, and Adam's state stays float32.
 
 ``train_only`` names the top-level parameter groups that train (the JAX
 param tree's top-level keys, which are the port model's top-level modules
-by ``training/jax_import.py``'s layout: ``encoder``, ``decoder``); the
-others stay frozen, with no Adam moments, as under ``optax.set_to_zero``.
+and parameters by ``training/jax_import.py``'s layout: ``encoder``,
+``decoder``; for a multimodal model ``image_encoder``, ``audio_encoder``,
+``decoder``, ``cross_attn`` and ``mix_gate``); the others stay frozen, with
+no Adam moments, as under ``optax.set_to_zero``.
 """
 
 from __future__ import annotations
@@ -97,7 +100,16 @@ class TrainState:
         The norm runs over the gradients of every parameter, frozen groups
         included, as the JAX package's chain clips before it zeroes the
         frozen groups: a known fault of the reference (frozen gradients
-        shrink the trainable step), matched here for parity."""
+        shrink the trainable step), matched here for parity.
+
+        Adam steps every trainable parameter, as optax does: one that the
+        forward did not reach (the encoder of the modality not drawn in a
+        multimodal step) takes a zero gradient, so its moments decay and it
+        moves by them."""
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         if self.clip_norm and self.clip_norm > 0:
             norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -110,8 +122,11 @@ class TrainState:
 
 
 def make_train_step(model: torch.nn.Module, vocab_size: int, teacher_forcing_prob: float = 0.2,
-                    bf16_compute: bool = True, pad_id: int = 0, device: DeviceLike = None) -> Callable:
-    """step(state, batch{x, x_hw, y_in, y_out}, generator) -> (state, loss).
+                    bf16_compute: bool = True, pad_id: int = 0, multimodal: bool = False,
+                    device: DeviceLike = None) -> Callable:
+    """Unimodal:   step(state, batch{x, x_hw, y_in, y_out}, generator) -> (state, loss).
+    Multimodal: step(state, batch{xi, xi_hw, xa, xa_hw, y_in, y_out}, generator,
+                     modality) with modality in {image, audio, both}.
 
     ``generator`` (a torch.Generator on the model's device) drives token
     corruption and every dropout site. The model must live on ``device``
@@ -119,25 +134,35 @@ def make_train_step(model: torch.nn.Module, vocab_size: int, teacher_forcing_pro
     """
     check_module_device(model, device)
 
-    def loss_fn(batch: Dict[str, torch.Tensor], y_in: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    def loss_fn(batch: Dict[str, torch.Tensor], y_in: torch.Tensor, generator: torch.Generator,
+                modality: Optional[str]) -> torch.Tensor:
+        def cast(x):
+            return x.to(torch.bfloat16) if bf16_compute else x
+
+        if multimodal:
+            args = (cast(batch["xi"]), batch["xi_hw"], cast(batch["xa"]), batch["xa_hw"], y_in, modality)
+        else:
+            args = (cast(batch["x"]), batch["x_hw"], y_in)
         if bf16_compute:
             params = {n: p.to(torch.bfloat16) if p.is_floating_point() else p
                       for n, p in model.named_parameters()}
-            x = batch["x"].to(torch.bfloat16)
-            logits = functional_call(model, params, (x, batch["x_hw"], y_in), {"generator": generator})
+            logits = functional_call(model, params, args, {"generator": generator})
         else:
-            logits = model(batch["x"], batch["x_hw"], y_in, generator=generator)
+            logits = model(*args, generator=generator)
         return cross_entropy_ignore_pad(logits, batch["y_out"], pad_id)
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Tuple[TrainState, torch.Tensor]:
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,
+             modality: Optional[str] = None) -> Tuple[TrainState, torch.Tensor]:
         if state.model is not model:
             raise ValueError("the train state holds another model than the step was built for")
+        if multimodal != (modality is not None):
+            raise ValueError(f"a {'multi' if multimodal else 'uni'}modal step takes "
+                             f"{'a' if multimodal else 'no'} modality, got {modality!r}")
         y_in = corrupt_tokens(generator, batch["y_in"], vocab_size, teacher_forcing_prob, pad_id)
         model.zero_grad(set_to_none=True)  # frozen groups too: their gradients enter the clip's norm
-        loss = loss_fn(batch, y_in, generator)
+        loss = loss_fn(batch, y_in, generator, modality)
         loss.backward()
         state.apply_gradients()
         return state, loss.detach()
 
     return step
-

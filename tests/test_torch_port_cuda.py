@@ -19,7 +19,8 @@ K3a/K3b cases lengths off the 128-row blocks, four key chunks of K3a, a
 whole invalid 128-key block of K3b, a batch row with no valid key (finite,
 zero gradients) and dq, dk, dv bit-equal across runs. The train CLI on
 a tiny corpus with flash cross-attention launches K1 and K2 8 times per
-train step and no other kernel.
+train step and no other kernel, for the image, the audio and the
+multimodal model.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels are
 built with nvcc on first use) and skip elsewhere. They import nothing of
@@ -923,6 +924,42 @@ def test_train_cli_runs_k1_k2_each_step_on_gpu(tmp_path):
     out = train_cli.main(argv)
     launched = [k.launches - n for k, n in zip(kernels, before)]
     dm = common.make_datamodule(train_cli.build_parser().parse_args(argv), "image")
+    dm.setup("fit")
+    steps = 2 * len(dm.train_dataloader())
+    assert steps == 4 and launched == [8 * steps, 8 * steps, 0, 0, 0, 0]
+    assert all(math.isfinite(out[k]) for k in ("best_val_sym-er", "test_sym-er"))
+    losses = [json.loads(line)["train_loss"] for line in open(tmp_path / "r" / "metrics.jsonl")
+              if "train_loss" in line]
+    assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modality", ["audio", "both"])
+def test_audio_and_multimodal_train_cli_run_k1_k2_each_step_on_gpu(tmp_path, modality):
+    """cli.train of the audio model and of the gated attn_both multimodal
+    model on the card (the same tiny corpus, its 0.3-0.5 s audio): K1 and K2
+    launch 8 times per train step whatever modality a step draws (the
+    decoder runs on every one), no other kernel; losses and SERs finite."""
+    import math
+
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import common
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import train as train_cli
+
+    _cuda()
+    syn = dict(n=6, img_height_range=[32, 33], img_width_range=[64, 96], audio_seconds_range=[0.3, 0.5],
+               n_measures=1)
+    argv = ["--ds_name", "synthetic", "--krn_encoding", "kern", "--synthetic", "--synthetic_config",
+            json.dumps(syn), "--cache_root", str(tmp_path / "cache"), "--batch_size", "3", "--num_workers", "2",
+            "--input_modality", modality, "--attn_window", "100", "--use_flash_cross", "--epochs", "2",
+            "--check_val_every_n_epoch", "1", "--weights_dir", str(tmp_path / "w"), "--run_dir", str(tmp_path / "r")]
+    if modality == "both":
+        argv += ["--mixer_type", "attn_both", "--mixer_residual", "--teacher_forcing_modality_prob", "0.5"]
+    kernels = (fp.flash_fwd_cuda, fp.flash_bwd_cuda, fp.flash_fwd_causal_cuda, fp.flash_dq_cuda,
+               fp.flash_dkv_cuda, fp.keep_mask_cuda)
+    before = [k.launches for k in kernels]
+    out = train_cli.main(argv)
+    launched = [k.launches - n for k, n in zip(kernels, before)]
+    dm = common.make_datamodule(train_cli.build_parser().parse_args(argv), modality)
     dm.setup("fit")
     steps = 2 * len(dm.train_dataloader())
     assert steps == 4 and launched == [8 * steps, 8 * steps, 0, 0, 0, 0]

@@ -22,7 +22,6 @@ from omr_a2s_multimodal_transformer_tpu.data import dataset as jds
 from omr_a2s_multimodal_transformer_tpu.data import frontends as jfe
 from omr_a2s_multimodal_transformer_tpu.data import sources as jsrc
 from omr_a2s_multimodal_transformer_tpu.utils import metrics as jmetrics
-from omr_a2s_multimodal_transformer_tpu_torch.data import collate as pcollate
 from omr_a2s_multimodal_transformer_tpu_torch.data import dataset as pds
 from omr_a2s_multimodal_transformer_tpu_torch.data import frontends as pfe
 from omr_a2s_multimodal_transformer_tpu_torch.data import sources as psrc
@@ -187,16 +186,15 @@ def test_compute_ed_metrics_equals_jax(seed):
 
 
 def test_unported_data_paths_raise(tmp_path):
+    """MV2H and the grain loader raise; the audio frontend, the multimodal
+    collate and the audio/both datasets are ported
+    (tests/test_torch_port_audio.py holds them against the JAX package)."""
     with pytest.raises(NotImplementedError):
         pmetrics.compute_metrics([["a"]], [["a"]], compute_mv2h=True)
-    with pytest.raises(NotImplementedError):
-        pfe.preprocess_audio(np.zeros(100, np.float32), 22050)
-    with pytest.raises(NotImplementedError):
-        pcollate.collate_multimodal([])
     for modality in ("audio", "both"):
-        with pytest.raises(NotImplementedError):
-            pds.ARDataset("synthetic", "train", krn_encoding="kern", input_modality=modality, synthetic=True,
-                          synthetic_kwargs=SYN, cache_root=str(tmp_path))
+        ds = pds.ARDataset("synthetic", "train", krn_encoding="kern", input_modality=modality, synthetic=True,
+                           synthetic_kwargs=SYN, cache_root=str(tmp_path))
+        assert set(ds[0]) == ({"x", "y"} if modality == "audio" else {"xi", "xa", "y"})
     with pytest.raises(NotImplementedError):
         pds.ARDataModule("synthetic", input_modality="image", loader_backend="grain")
 

@@ -53,7 +53,11 @@ def test_package_imports_with_jax_blocked():
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back():
-    from omr_a2s_multimodal_transformer_tpu_torch.inference import make_image_transcriber
+    from omr_a2s_multimodal_transformer_tpu_torch.inference import (
+        make_audio_transcriber,
+        make_image_transcriber,
+        make_multimodal_transcriber,
+    )
     from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
     from omr_a2s_multimodal_transformer_tpu_torch.training.train_state import make_train_step
 
@@ -70,16 +74,24 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         make_image_transcriber(model, 1, 2)
     make_train_step(model, 11, device="cpu")
     make_image_transcriber(model, 1, 2, device="cpu")
+    mm, _ = build_model(dict(hp, input_modality="both"), device="cpu")
+    for make, m in ((make_audio_transcriber, model), (make_multimodal_transcriber, mm)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(m, 1, 2)
+        make(m, 1, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(mm, 11, multimodal=True)
 
 
 def test_unported_options_raise():
     from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
 
     base = dict(vocab_size=11, max_seq_len=4, input_modality="image")
-    for over in (dict(input_modality="both"), dict(cache_dtype="int8"), dict(cache_dtype="int4"), dict(remat=True),
+    for over in (dict(cache_dtype="int8"), dict(cache_dtype="int4"), dict(remat=True),
                  dict(memory_partition=("data", "model", None))):
-        with pytest.raises(NotImplementedError):
-            build_model({**base, **over}, device="cpu")
+        for modality in ("image", "audio", "both"):
+            with pytest.raises(NotImplementedError):
+                build_model({**base, **over, "input_modality": modality}, device="cpu")
     for mode in ("widened", "patched", "auto"):  # a TPU layout of the same convolutions: accepted, read nowhere
         build_model({**base, "packed_stem": True, "conv_mode": mode, "remat": False, "memory_partition": None},
                     device="cpu")

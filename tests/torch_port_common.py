@@ -65,3 +65,59 @@ def assert_rel_l2(actual, desired, tol, name=""):
     err = np.linalg.norm(actual - desired)
     ref = np.linalg.norm(desired)
     assert err <= tol * ref + 1e-12, f"{name}: relative L2 error {err / max(ref, 1e-30):.3g} > {tol}"
+
+
+# ---------------------------------------------------------------- multimodal
+# a tiny image + audio model: 32x64 images, 195 x AUDIO_T spectrograms (the audio frontend's fixed height)
+AUDIO_T = 24
+MM_KEYS = ("xi", "xi_hw", "xa", "xa_hw", "y_in")
+
+
+def mm_hparams(**over):
+    return hparams(input_modality="both", **over)
+
+
+def jax_mm_model(**over):
+    from omr_a2s_multimodal_transformer_tpu.models.multimodal import MultimodalTransformer as JaxMultimodal
+
+    hp = mm_hparams(**over)
+    hp.pop("input_modality")
+    return JaxMultimodal(**hp)
+
+
+def mm_state_dict_to_jax(sd):
+    """Port multimodal state_dict -> JAX param tree: the JAX package's
+    converter, plus mix_gate, which it does not map."""
+    from omr_a2s_multimodal_transformer_tpu.training.torch_import import convert_multimodal_state_dict
+
+    sd = {k: v.detach().clone() for k, v in sd.items()}
+    tree = convert_multimodal_state_dict(sd)
+    if "mix_gate" in sd:
+        tree["mix_gate"] = sd["mix_gate"].numpy()
+    return tree
+
+
+def mm_port_and_jax_params(seed=0, gate=(0.7, -1.3), **over):
+    """(port MultimodalTransformer on the CPU, JAX params {"params": tree})
+    with equal weights; a residual mixer's gate is set to ``gate`` (nonzero,
+    so that it is read)."""
+    model, _ = build_model(mm_hparams(**over), device="cpu", seed=seed)
+    if hasattr(model, "mix_gate"):
+        with torch.no_grad():
+            model.mix_gate.copy_(torch.tensor(gate[:model.mix_gate.numel()]))
+    return model, {"params": jax.tree.map(jnp.asarray, mm_state_dict_to_jax(model.state_dict()))}
+
+
+def mm_batch(seed=0, b=2, length=MAXLEN):
+    """Images in [0, 1] and spectrograms in [0, 1] with ragged hw (the
+    spectrogram's padded frames 0.0, as the collate pads), token rows as in
+    ``batch``."""
+    rng = np.random.default_rng(seed)
+    xi = rng.uniform(size=(b, IMG_H, IMG_W, 1)).astype(np.float32)
+    xa = rng.uniform(size=(b, 195, AUDIO_T, 1)).astype(np.float32)
+    hwi = np.array([[IMG_H, IMG_W]] + [[IMG_H - 7, IMG_W - 20]] * (b - 1), np.int32)
+    hwa = np.array([[195, AUDIO_T]] + [[195, AUDIO_T - 9]] * (b - 1), np.int32)
+    xa[1:, :, AUDIO_T - 9:] = 0.0
+    y = rng.integers(2, V, size=(b, length + 1)).astype(np.int32)
+    y[0, length - max(3, length // 4):] = 0
+    return {"xi": xi, "xi_hw": hwi, "xa": xa, "xa_hw": hwa, "y_in": y[:, :-1], "y_out": y[:, 1:]}
