@@ -51,8 +51,9 @@ Phases, each of which raises on failure (exit code 1):
        dk/dv at the legacy cross shape in float32 D 64, float16 D 64 and
        bf16 D 192, each against the plain version, with its bound, plain
        time and SDPA's forward or backward (event and device time);
-  3. six paths, each with every kernel's launch count set to 0 just
-     before it and read just after:
+  3. seven paths, each with every kernel's launch count set to 0 just
+     before it (the serve path: before each of its steps) and read just
+     after:
      - stem path: fused_packed_block forward and backward at the three
        stem block shapes (dropout 0.5); K5a and K5b once per block, no
        other kernel, gradients within tolerance of plain autograd;
@@ -95,6 +96,28 @@ Phases, each of which raises on failure (exit code 1):
        launched). It logs samples/s, the StepTimer's data and step means,
        the decode times and steps, peak memory and the wall time of each
        run.
+     - serve path: the inference and serving layer on the cli path's
+       checkpoints, each step counted from 0 and launching no kernel:
+       cli.test --beam_size 4 --length_penalty 0.6 --compute_mv2h on the
+       image best/ (8 test samples, 32 beam rows; MV2H by the native
+       route), cli.weighted_test --alpha 0.5 and cli.sw_test on the image
+       and audio best/ (the Smith-Waterman host time logged apart from the
+       decodes), cli.split_ckpt of the multimodal best/ and cli.transcribe
+       of 4 test waves written as .wav with the split audio checkpoint
+       (and, where PIL imports, of .png renders and image/wave pairs);
+       then a TranscriptionServer for images and one for the fused pair
+       (alpha 0.5) at the serve CLI's default ladders (canvas 368, widths
+       1104/2208/4416, 5/10/19 s), each taking 4 requests from 4 threads
+       (test and val samples in the largest buckets: wider than 2208 px,
+       longer than 10 s) and one POST to its HTTP front in one batching
+       window: every batch
+       it builds, decoded again by the direct transcriber, gives equal
+       tokens, and each result is a row of one; last
+       make_image_transcriber(img_height=256) on a b4 batch of raw images
+       on a 361 x 4416 canvas: the resized batch within 1e-5 of the same
+       function on the CPU, tokens (4, max_seq_len). It logs decode ms,
+       steps and ms a step, each request's latency, batch_stats, peak
+       memory and the path's wall time.
      K5a and K5b launch on the stem path only: no model calls the fused
      block, as in the JAX package (fused_stem.py:24-35); L1-L2c on the
      legacy path only (no model calls them either).
@@ -106,6 +129,7 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1867,7 +1891,388 @@ def cli_path(dev, out_dir: Path):
                             out_dir / "cli_path" / f"test_metrics_{tag}.jsonl")
             shutil.copyfile(CLI_WS / f"preds_{tag}.jsonl", out_dir / "cli_path" / f"preds_{tag}.jsonl")
     errs = {name: max(r["max_abs_err"][name] for r in runs.values()) for name in ("K1 flash fwd", "K2 flash bwd")}
-    return dict(corpus=CLI_CORPUS, runs=runs, serve=serve, max_abs_err=errs, wall_s=wall, image_run_s=t_image)
+    return dict(corpus=CLI_CORPUS, runs=runs, serve=serve, max_abs_err=errs, wall_s=wall, image_run_s=t_image,
+                vocab=vocabs["both"])
+
+
+# the serve path: the JAX serve CLI's default ladders (cli/serve.py): canvas height 368 and widths 1104/2208/4416
+# hold the corpus's 355-362 x 4300-4413 renders; 5/10/19 s buckets its 17-18.7 s waves
+SERVE_HEIGHT, SERVE_WIDTHS, SERVE_SECONDS = 368, (1104, 2208, 4416), (5, 10, 19)
+SERVE_REQUESTS = 4  # a server's requests, each from a thread of its own (and one more over HTTP)
+SERVE_WAIT_MS = 3000  # the batching window: every request of a server lands in one device call
+RESIZE_HEIGHT, RESIZE_TOL = 256, 1e-5
+MV2H_KEYS = ("multi-pitch", "voice", "meter", "note_value", "mv2h")
+
+
+class Timed:
+    """Wraps a decode function factory of a CLI module: every decode it
+    builds is timed (host clock to a synchronize) and its steps counted."""
+
+    def __init__(self, factory):
+        self.factory, self.calls = factory, []
+
+    def __call__(self, *args, **kw):
+        decode = self.factory(*args, **kw)
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens, scores = decode(*a)
+            torch.cuda.synchronize()
+            self.calls.append(dict(ms=(time.perf_counter() - t0) * 1e3, steps=int((tokens != 0).any(0).sum()),
+                                   batch=int(tokens.shape[0])))
+            return tokens, scores
+
+        return timed
+
+    def summary(self) -> list:
+        return [dict(c, ms_per_step=c["ms"] / max(c["steps"], 1)) for c in self.calls]
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield value
+    finally:
+        setattr(module, name, saved)
+
+
+def counted(tag: str, fn):
+    """Runs fn with every kernel's launch count set to 0 first; raises if a
+    kernel launched (no decode or frontend runs one)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"serve {tag}: kernels launched {launches}")
+    return out, wall
+
+
+def finite_metrics(tag: str, metrics: dict, keys) -> None:
+    bad = {k: metrics.get(k) for k in keys if not (k in metrics and math.isfinite(metrics[k]))}
+    if bad:
+        raise AssertionError(f"serve {tag}: metrics {bad} of {metrics}")
+
+
+def log_decodes(tag: str, calls: list) -> None:
+    for c in calls:
+        log(f"[serve {tag}] decode b{c['batch']}: {c['ms']:.1f} ms, {c['steps']} steps "
+            f"({c['ms'] / max(c['steps'], 1):.2f} ms/step)")
+
+
+def serve_cli_evals(dev, out_dir: Path) -> dict:
+    """cli.test with beam search and MV2H, cli.weighted_test and cli.sw_test
+    on the cli path's image and audio best/."""
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import sw_test, weighted_test
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import test as test_cli
+    from omr_a2s_multimodal_transformer_tpu_torch.training import loop
+
+    img, aud = str(CLI_WS / "weights_image" / "best"), str(CLI_WS / "weights_audio" / "best")
+    out = {}
+    with patched(loop, "beam_decode_fn", Timed(loop.beam_decode_fn)) as beam:
+        metrics, wall = counted("beam", lambda: test_cli.main(cli_data("image") + [
+            "--device", dev.type, "--checkpoint_path", img, "--run_dir", str(CLI_WS / "test_run_beam"), "--beam_size", "4",
+            "--length_penalty", "0.6", "--compute_mv2h", "--save_preds", str(out_dir / "preds_beam.jsonl")]))
+    finite_metrics("beam", metrics, ["test_sym-er", "test_seq-er"] + [f"test_{k}" for k in MV2H_KEYS])
+    if not beam.calls or beam.calls[0]["batch"] != CLI_CORPUS["n_test"]:
+        raise AssertionError(f"serve beam: decodes {beam.calls}")
+    log_decodes("beam k4", beam.calls)
+    log(f"[serve beam] cli.test --beam_size 4 --length_penalty 0.6 --compute_mv2h: "
+        f"{ {k: round(v, 4) for k, v in metrics.items()} }, {4 * beam.calls[0]['batch']} beam rows; wall {wall:.1f} s")
+    out["beam"] = dict(metrics=metrics, decodes=beam.summary(), wall_s=wall)
+
+    both = cli_data("both")[:-2] + ["--device", dev.type]  # the fusion CLIs take no --input_modality
+    with patched(weighted_test, "weighted_decode_fn", Timed(weighted_test.weighted_decode_fn)) as weighted:
+        metrics, wall = counted("weighted", lambda: weighted_test.main(both + [
+            "--image_checkpoint_path", img, "--audio_checkpoint_path", aud, "--alpha", "0.5",
+            "--run_dir", str(CLI_WS / "run_weighted"), "--save_preds", str(out_dir / "preds_weighted.jsonl")]))
+    finite_metrics("weighted", metrics, ["sym-er", "seq-er"])
+    log_decodes("weighted a=0.5", weighted.calls)
+    log(f"[serve weighted] cli.weighted_test --alpha 0.5: {metrics}; wall {wall:.1f} s")
+    out["weighted"] = dict(metrics=metrics, decodes=weighted.summary(), wall_s=wall)
+
+    sw_s = []
+
+    def timed_fuse(*a, _fuse=sw_test.fuse_predictions):
+        t0 = time.perf_counter()
+        fused = _fuse(*a)
+        sw_s.append(time.perf_counter() - t0)
+        return fused
+
+    with patched(sw_test, "greedy_decode_fn", Timed(sw_test.greedy_decode_fn)) as greedy, \
+            patched(sw_test, "fuse_predictions", timed_fuse):
+        metrics, wall = counted("sw", lambda: sw_test.main(both + [
+            "--image_checkpoint_path", img, "--audio_checkpoint_path", aud, "--run_dir", str(CLI_WS / "run_sw")]))
+    finite_metrics("sw", metrics, ["sym-er", "seq-er"])
+    if len(sw_s) != CLI_CORPUS["n_test"]:
+        raise AssertionError(f"serve sw: {len(sw_s)} fused pairs")
+    log_decodes("sw greedy", greedy.calls)
+    log(f"[serve sw] cli.sw_test: {metrics}; Smith-Waterman on the host {sum(sw_s):.2f} s for {len(sw_s)} pairs "
+        f"({max(sw_s):.3f} s the longest), decodes {sum(c['ms'] for c in greedy.calls) / 1e3:.1f} s; wall {wall:.1f} s")
+    out["sw"] = dict(metrics=metrics, decodes=greedy.summary(), host_sw_s=sw_s, wall_s=wall)
+    return out
+
+
+def serve_files(dev) -> dict:
+    """cli.split_ckpt of the multimodal best/, then cli.transcribe of 4 test
+    waves written as .wav with the split audio checkpoint (and, where PIL
+    imports, of .png renders with the split image checkpoint and of the
+    image/wave pairs): one .krn per input."""
+    import shutil
+
+    from scipy.io import wavfile
+
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import split_ckpt, transcribe
+    from omr_a2s_multimodal_transformer_tpu_torch.data.sources import make_source
+    from omr_a2s_multimodal_transformer_tpu_torch.utils.mv2h import seq2kern_lines
+
+    (img_ckpt, aud_ckpt), wall = counted("split", lambda: split_ckpt.main([
+        "--ckpt_path", str(CLI_WS / "weights_both" / "best"), "--out_prefix", str(CLI_WS / "split")]))
+    log(f"[serve split] cli.split_ckpt: {Path(img_ckpt).name}, {Path(aud_ckpt).name} in {wall:.1f} s")
+    files = CLI_WS / "files"
+    shutil.rmtree(files, ignore_errors=True)
+    files.mkdir(parents=True)
+    src = make_source("synthetic", "test", encoding="kern", synthetic=True, synthetic_kwargs=dict(CLI_CORPUS))
+    samples = [src[i] for i in range(SERVE_REQUESTS)]
+    for i, s in enumerate(samples):
+        wavfile.write(str(files / f"s{i}.wav"), s["audio"]["sampling_rate"], s["audio"]["array"])
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    runs = [("wav", ["--checkpoint_path", aud_ckpt, "--inputs", str(files / "*.wav")])]
+    if Image is None:
+        log("[serve transcribe] PIL does not import on this machine: no .png run of cli.transcribe; the servers "
+            "below take images and image/wave pairs as arrays")
+    else:
+        for i, s in enumerate(samples):
+            Image.fromarray(s["image"]).save(files / f"s{i}.png")
+        runs += [("png", ["--checkpoint_path", img_ckpt, "--inputs", str(files / "*.png")]),
+                 ("fused", ["--checkpoint_path", img_ckpt, "--audio_checkpoint_path", aud_ckpt, "--inputs",
+                            str(files / "*.png"), "--audio_inputs", str(files / "*.wav")])]
+    (vocab_path,) = (CLI_WS / "cache" / "vocabs").glob("*.json")
+    out = dict(split=[img_ckpt, aud_ckpt], pil=Image is not None)
+    for tag, argv in runs:
+        out_dir, written = files / f"krn_{tag}", {}
+
+        def recording(tokens, path, _write=transcribe.seq2kern):
+            written[Path(path).name] = tokens
+            _write(tokens, path)
+
+        with patched(transcribe, "seq2kern", recording):
+            n, wall = counted(f"transcribe {tag}", lambda: transcribe.main(argv + [
+                "--vocab_path", str(vocab_path), "--out_dir", str(out_dir), "--batch_size", "8",
+                "--device", dev.type]))
+        krn = sorted(out_dir.glob("*.krn"))
+        # each file holds the kern lines of the tokens decoded for it
+        wrong = [p.name for p in krn if p.read_text() != "\n".join(seq2kern_lines(written.get(p.name, []))) + "\n"]
+        if n != SERVE_REQUESTS or [p.name for p in krn] != sorted(written) or len(krn) != SERVE_REQUESTS or wrong:
+            raise AssertionError(f"serve transcribe {tag}: {n} transcribed, files {[p.name for p in krn]}, "
+                                 f"written {sorted(written)}, wrong {wrong}")
+        lines = [len(p.read_text().splitlines()) for p in krn]
+        tokens = [len(written[p.name]) for p in krn]
+        log(f"[serve transcribe {tag}] cli.transcribe: {[p.name for p in krn]}, {tokens} tokens, {lines} kern "
+            f"lines; wall {wall:.1f} s")
+        out[tag] = dict(files=[p.name for p in krn], tokens=tokens, lines=lines, wall_s=wall)
+    return out
+
+
+def serve_arrays(n):
+    """n samples of the test split, then the val split, in the ladders'
+    largest buckets (images wider than 2208, waves longer than 10 s): u8
+    images and float32 waveforms. The corpus's 2-30 measure renders span
+    293-4257 px and 1.2-18 s; one bucket pair keeps each server to one
+    device call (its routing is held by the CPU tests)."""
+    from omr_a2s_multimodal_transformer_tpu_torch.data.sources import make_source
+
+    out = []
+    for split in ("test", "val"):
+        src = make_source("synthetic", split, encoding="kern", synthetic=True, synthetic_kwargs=dict(CLI_CORPUS))
+        for i in range(len(src)):
+            img, wave = src[i]["image"], src[i]["audio"]["array"]
+            if img.shape[1] > SERVE_WIDTHS[-2] and len(wave) > SERVE_SECONDS[-2] * 22050 and len(out) < n:
+                out.append((img, wave))
+    if len(out) < n:
+        raise AssertionError(f"serve: {len(out)} samples of the test and val splits in the largest buckets")
+    log(f"[serve samples] images {[img.shape for img, _ in out]}, waves {[round(len(w) / 22050, 2) for _, w in out]} s")
+    return out
+
+
+def serve_server(dev, tag: str, models, vocab, samples) -> dict:
+    """A TranscriptionServer (image, or fused at alpha 0.5) at the serve
+    CLI's default ladders and its HTTP front: SERVE_REQUESTS requests from
+    as many threads and one POST, released together. Every batch the
+    server builds is recorded on its way to the device, then decoded again
+    by the direct transcriber: the tokens must be equal, and each result
+    must be a row of its batch."""
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from omr_a2s_multimodal_transformer_tpu_torch import inference
+    from omr_a2s_multimodal_transformer_tpu_torch.serving import TranscriptionServer, serve_http
+    from omr_a2s_multimodal_transformer_tpu_torch.training.decode import cut_at_eos
+
+    kw = dict(image_height=SERVE_HEIGHT, image_widths=SERVE_WIDTHS)
+    if tag == "fused":
+        kw.update(audio_model=models[1], alpha=0.5, audio_samples=[int(s * 22050) for s in SERVE_SECONDS])
+    server = TranscriptionServer(models[0], tag, vocab=vocab, max_wait_ms=SERVE_WAIT_MS, device=dev, **kw)
+    calls, transcribe = [], server._transcribe
+
+    def recording(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = transcribe(*a)
+        torch.cuda.synchronize()
+        calls.append((a, out, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    server._transcribe = recording
+    payloads = [(img, wave) if tag == "fused" else img for img, wave in samples]
+    buf = io.BytesIO()
+    if tag == "fused":
+        np.savez(buf, image=samples[-1][0], wave=samples[-1][1])
+    else:
+        np.save(buf, samples[-1][0])
+    httpd = serve_http(server, host="127.0.0.1", port=0)
+    results, errors, posted = [None] * SERVE_REQUESTS, [], {}
+    start = threading.Barrier(SERVE_REQUESTS + 1)
+
+    def client(i):
+        try:
+            start.wait(timeout=60)
+            results[i] = server.transcribe(payloads[i], timeout=600)
+        except Exception as e:  # handed to the main thread, which raises it
+            errors.append(e)
+
+    def poster():
+        try:
+            start.wait(timeout=60)
+            req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/transcribe",
+                                         data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                posted.update(status=r.status, body=json.loads(r.read()))
+        except Exception as e:
+            errors.append(e)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_REQUESTS)]
+        threads.append(threading.Thread(target=poster))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads) or None in results:
+            raise AssertionError(f"serve {tag} server: errors {errors}, results {[r is not None for r in results]}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{httpd.server_address[1]}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        stats = server.batch_stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop(timeout=600)
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"serve {tag} server: kernels launched {launches}")
+    if posted.get("status") != 200 or health != {"ok": True, "batches": stats}:
+        raise AssertionError(f"serve {tag}: POST {posted.get('status')}, healthz {health}")
+    # each recorded batch decoded again by the direct transcriber, out of the server
+    if tag == "fused":
+        direct = inference.make_fused_transcriber(models[0], models[1], vocab.sos_id, vocab.eos_id, device=dev)
+    else:
+        direct = inference.make_image_transcriber(models[0], vocab.sos_id, vocab.eos_id, device=dev)
+    rows, max_score_err = [], 0.0
+    for args, (tokens, scores), ms in calls:
+        tokens2, scores2 = direct(*args)
+        if not torch.equal(tokens2, tokens):
+            raise AssertionError(f"serve {tag}: the direct transcriber's tokens differ from the server's batch")
+        max_score_err = max(max_score_err, float((scores2 - scores).abs().max()))
+        rows += cut_at_eos(tokens, tokens, vocab.eos_id)[0]
+    served = [r.token_ids for r in results] + [posted["body"]["token_ids"]]
+    if any(ids not in rows for ids in served):
+        raise AssertionError(f"serve {tag}: a result is no row of the batches the server built")
+    shapes = [tuple(a[0].shape) for a, _, _ in calls]
+    latency = [r.latency_s for r in results] + [posted["body"]["latency_s"]]
+    log(f"[serve {tag} server] {len(served)} requests ({SERVE_REQUESTS} threads + 1 POST): batch_stats {stats}, "
+        f"batches {shapes}, device calls {[round(ms, 1) for _, _, ms in calls]} ms, latency per request "
+        f"{[round(x, 2) for x in latency]} s, tokens equal to the direct transcriber's (scores within "
+        f"{max_score_err:.2e}), POST 200 with {len(posted['body']['token_ids'])} tokens; wall {wall:.1f} s")
+    return dict(batch_stats=stats, batches=shapes, device_call_ms=[ms for _, _, ms in calls], latency_s=latency,
+                max_score_err=max_score_err, steps=[int((t != 0).any(0).sum()) for _, (t, _), _ in calls],
+                wall_s=wall)
+
+
+def serve_resize(dev, model, vocab, samples) -> dict:
+    """make_image_transcriber(img_height=RESIZE_HEIGHT) on a b4 batch of raw
+    u8 images on a 361 x 4416 canvas (white): the resized batch on the card
+    within RESIZE_TOL of the same function on the CPU, tokens (4, max_seq_len)."""
+    from omr_a2s_multimodal_transformer_tpu_torch import inference
+
+    hw = torch.tensor([img.shape for img, _ in samples], dtype=torch.int32)
+    raw = torch.full((len(samples), max(IMG_H, int(hw[:, 0].max())), IMG_W), 255, dtype=torch.uint8)
+    for i, (img, _) in enumerate(samples):
+        raw[i, :img.shape[0], :img.shape[1]] = torch.from_numpy(img)
+    seen = []
+
+    def recording(*a, _pre=inference.preprocess_image_batch, **kw):
+        seen.append(_pre(*a, **kw))
+        return seen[-1]
+
+    transcribe = inference.make_image_transcriber(model, vocab.sos_id, vocab.eos_id, img_height=RESIZE_HEIGHT,
+                                                  device=dev)
+    with patched(inference, "preprocess_image_batch", recording):
+        (tokens, scores), wall = counted("resize", lambda: transcribe(raw, hw))
+    (x, hw2), = seen
+    x_cpu, hw_cpu = preprocess_image_batch(raw, hw, target_height=RESIZE_HEIGHT)
+    err = float((x.cpu() - x_cpu).abs().max())
+    steps = int((tokens != 0).any(0).sum())
+    log(f"[serve resize] raw {tuple(raw.shape)} -> x {tuple(x.shape)} on {x.device}, hw {hw2.tolist()}; max |card - "
+        f"CPU| {err:.2e} (limit {RESIZE_TOL}); tokens {tuple(tokens.shape)}, {steps} steps in {wall * 1e3:.1f} ms "
+        f"({wall * 1e3 / max(steps, 1):.2f} ms/step)")
+    if (err > RESIZE_TOL or not torch.equal(hw2.cpu(), hw_cpu) or x.device.type != dev.type
+            or tokens.shape != (len(samples), model.max_seq_len) or not torch.isfinite(scores).all()):
+        raise AssertionError(f"serve resize: err {err}, hw {hw2.tolist()} vs {hw_cpu.tolist()}, tokens "
+                             f"{tuple(tokens.shape)}")
+    return dict(raw_shape=list(raw.shape), x_shape=list(x.shape), max_abs_err_vs_cpu=err, steps=steps,
+                decode_ms=wall * 1e3)
+
+
+def serve_path(dev, out_dir: Path, vocab) -> dict:
+    """The inference and serving layer on the cli path's checkpoints (the
+    paper model at full width, vocab and max_seq_len of the corpus), each
+    step counted from 0 and launching no kernel: serve_cli_evals (beam +
+    MV2H, weighted, Smith-Waterman), serve_files (split, transcribe),
+    serve_server (image and fused, with HTTP), serve_resize."""
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import common
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    (out_dir / "serve_path").mkdir(parents=True, exist_ok=True)
+    out = serve_cli_evals(dev, out_dir / "serve_path")
+    out["files"] = serve_files(dev)
+    models = [common.build_from_checkpoint(str(CLI_WS / f"weights_{tag}" / "best"), device=dev)[0]
+              for tag in ("image", "audio")]
+    samples = serve_arrays(SERVE_REQUESTS)
+    out["image_server"] = serve_server(dev, "image", models, vocab, samples)
+    out["fused_server"] = serve_server(dev, "fused", models, vocab, samples)
+    out["resize"] = serve_resize(dev, models[0], vocab, samples)
+    del models
+    torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[serve path] peak memory {out['peak_gib']:.2f} GiB; wall {out['wall_s']:.1f} s")
+    return out
 
 
 def main(argv=None):
@@ -1917,6 +2322,7 @@ def main(argv=None):
     for name, row in legacy_k.items():
         kernels.append(row | dict(launches=legacy["launches"][name]))
     cli = cli_path(dev, args.out_dir)
+    serve = serve_path(dev, args.out_dir, cli.pop("vocab"))
     for k in kernels:  # K1/K2 held to their plain version at the cross shape and at each cli run's first call
         if k["name"] in cli["max_abs_err"]:
             k["max_abs_err_cli_path"] = cli["max_abs_err"][k["name"]]  # the largest of the three runs
@@ -1932,7 +2338,7 @@ def main(argv=None):
         f"(TEARDOWN_CUPTI={os.environ.get('TEARDOWN_CUPTI')})")
     result = dict(card=card, kernels=kernels, flagship=flagship, paper=paper, op_path=ops,
                   stem_path=dict(launches=stem_launches, max_abs_err=stem_errs), legacy_path=legacy,
-                  cli_path=cli, traces=dict(TRACES), wall_s=time.perf_counter() - t0)
+                  cli_path=cli, serve_path=serve, traces=dict(TRACES), wall_s=time.perf_counter() - t0)
     (args.out_dir / "chip_smoke_result.json").write_text(json.dumps(result, indent=1))
     log(f"[smoke] wall {result['wall_s']:.1f} s, the build included")
     log(card)

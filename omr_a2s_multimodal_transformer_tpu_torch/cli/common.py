@@ -19,6 +19,8 @@ import argparse
 import json
 from typing import Dict, Optional
 
+import torch
+
 from omr_a2s_multimodal_transformer_tpu_torch.data.dataset import ARDataModule
 from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, resolve_device
 from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
@@ -68,12 +70,9 @@ def _unported(args) -> Dict[str, bool]:
         "--device_cache / --device_cache_u8 (a corpus held in device memory)":
             bool(get("device_cache") or get("device_cache_u8")),
         "--remat (rematerialized blocks)": bool(get("remat")),
-        "--beam_size > 1 (beam search)": get("beam_size", 1) > 1,
-        "--compute_mv2h (MV2H)": bool(get("compute_mv2h")),
         "--cache_dtype int8/int4 (quantized cross-KV decode)": get("cache_dtype") in ("int8", "int4"),
         "--loader_backend grain": get("loader_backend") == "grain",
         # flags that are read only by a path above: set, they would change nothing
-        "--length_penalty (beam search)": get("length_penalty", 0.0) != 0.0,
         "--keep_cache (the preprocess disk cache: the port has none)": bool(get("keep_cache")),
     }
 
@@ -135,6 +134,11 @@ def build_from_checkpoint(checkpoint_path: str, hparams_override: Optional[Dict]
     state = ckpt_lib.restore_checkpoint(checkpoint_path, map_location=next(model.parameters()).device)
     ckpt_lib.load_params(model, ckpt_lib.params_of(state))
     return model, hp, multimodal
+
+
+def to_device(batch: Dict, keys, device) -> list:
+    """The host batch's arrays under ``keys`` as tensors on ``device``."""
+    return [torch.from_numpy(batch[k]).to(device) for k in keys]
 
 
 def init_cli(args) -> None:

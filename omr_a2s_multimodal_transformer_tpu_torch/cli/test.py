@@ -20,8 +20,9 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_runtime_args(p)
     p.add_argument("--checkpoint_path", required=True)
     p.add_argument("--input_modality", default="audio", choices=["audio", "image", "both"])
-    p.add_argument("--compute_mv2h", action="store_true", help="MV2H metrics (not ported yet)")
-    p.add_argument("--beam_size", type=int, default=1, help=">1: beam search instead of greedy (not ported yet)")
+    p.add_argument("--compute_mv2h", action="store_true",
+                   help="MV2H metrics (pyMV2H if installed, else utils/mv2h_native.py)")
+    p.add_argument("--beam_size", type=int, default=1, help=">1: beam search instead of greedy")
     p.add_argument("--length_penalty", type=float, default=0.0,
                    help="GNMT length penalty for beam search (score / ((5+len)/6)^lp)")
     p.add_argument("--save_preds", default="",

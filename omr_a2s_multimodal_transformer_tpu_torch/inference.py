@@ -1,12 +1,11 @@
 """End-to-end transcription (serving path).
 
-Port of ``make_image_transcriber``, ``make_audio_transcriber`` and
-``make_multimodal_transcriber`` from
-``omr_a2s_multimodal_transformer_tpu/inference.py``: raw inputs (uint8
-score images / 22.05 kHz waveforms) -> device frontends (``ops/image.py``,
-``ops/stft.py``'s float32 ``log_spectrogram``) -> conv-stem encode ->
-KV-cached greedy decode -> token ids, all on the model's device. The fused
-transcriber waits for weighted decoding.
+Port of ``omr_a2s_multimodal_transformer_tpu/inference.py``: raw inputs
+(uint8 score images / 22.05 kHz waveforms) -> device frontends
+(``ops/image.py`` with its bicubic resize, ``ops/stft.py``'s float32
+``log_spectrogram``) -> conv-stem encode -> KV-cached greedy decode, or
+the weighted late fusion of two unimodal models -> token ids, all on the
+models' device.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import torch
 from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, check_module_device
 from omr_a2s_multimodal_transformer_tpu_torch.ops.image import preprocess_image_batch
 from omr_a2s_multimodal_transformer_tpu_torch.ops.stft import HOP_LENGTH, NUM_FREQ_BINS, log_spectrogram
-from omr_a2s_multimodal_transformer_tpu_torch.training.decode import greedy_decode_fn
+from omr_a2s_multimodal_transformer_tpu_torch.training.decode import greedy_decode_fn, weighted_decode_fn
 
 
 def make_image_transcriber(model, sos_id: int, eos_id: int, img_height: Optional[int] = None,
@@ -26,8 +25,8 @@ def make_image_transcriber(model, sos_id: int, eos_id: int, img_height: Optional
     """f(raw_u8 [B, H, W], hw [B, 2]) -> (tokens [B, L], scores).
 
     The model must live on ``device`` (``cuda`` unless the caller says
-    otherwise); inputs are moved there. ``img_height`` (the resize) is not
-    ported yet and raises when it differs from the image height.
+    otherwise); inputs are moved there. ``img_height`` resizes the batch to
+    that height on the device (``ops/image.py``).
     """
     dev = check_module_device(model, device)
     decode = greedy_decode_fn(model, model.max_seq_len, sos_id, eos_id)
@@ -66,7 +65,7 @@ def make_multimodal_transcriber(model, sos_id: int, eos_id: int, img_height: Opt
                                 device: DeviceLike = None) -> Callable:
     """f(raw_img_u8 [B, H, W], img_hw [B, 2], wave [B, L], n_samples [B]) ->
     (tokens, scores), the model on ``device`` (``cuda`` unless the caller
-    says otherwise). ``img_height`` raises as in ``make_image_transcriber``."""
+    says otherwise). ``img_height`` as in ``make_image_transcriber``."""
     dev = check_module_device(model, device)
     decode = greedy_decode_fn(model, model.max_seq_len, sos_id, eos_id, multimodal=True)
 
@@ -75,5 +74,30 @@ def make_multimodal_transcriber(model, sos_id: int, eos_id: int, img_height: Opt
         xi, hwi = preprocess_image_batch(raw_img.to(dev), img_hw.to(dev), target_height=img_height)
         xa, hwa = audio_batch(wave.to(dev), n_samples.to(dev))
         return decode(xi, hwi, xa, hwa)
+
+    return transcribe
+
+
+def make_fused_transcriber(img_model, audio_model, sos_id: int, eos_id: int, img_height: Optional[int] = None,
+                           device: DeviceLike = None) -> Callable:
+    """Weighted late-fusion serving path: two unimodal models decoded in
+    lockstep, next-token dist = alpha*softmax(img) + (1-alpha)*softmax(audio)
+    (reference weighted_multimodal/test.py:21-70).
+
+    f(raw_img_u8 [B, H, W], img_hw [B, 2], wave [B, N] f32, n_samples [B],
+      alpha) -> (tokens [B, L], scores), L the image model's max_seq_len.
+    Both models must live on ``device`` (``cuda`` unless the caller says
+    otherwise)."""
+    dev, audio_dev = check_module_device(img_model, device), check_module_device(audio_model, device)
+    if audio_dev != dev:
+        raise ValueError(f"the audio model lives on {audio_dev}, the image model on {dev}")
+    decode = weighted_decode_fn(img_model, audio_model, img_model.max_seq_len, sos_id, eos_id)
+
+    @torch.no_grad()
+    def transcribe(raw_img: torch.Tensor, img_hw: torch.Tensor, wave: torch.Tensor, n_samples: torch.Tensor,
+                   alpha: float):
+        xi, hwi = preprocess_image_batch(raw_img.to(dev), img_hw.to(dev), target_height=img_height)
+        xa, hwa = audio_batch(wave.to(dev), n_samples.to(dev))
+        return decode(xi, hwi, xa, hwa, alpha)
 
     return transcribe

@@ -279,8 +279,12 @@ class KernDecoder(nn.Module):
     def step(self, token_ids: torch.Tensor, pos: int, cache, cross,
              memory_valid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
         """One greedy-decode step at position ``pos`` (a Python int).
-        Returns (logits [B, V], cache); the caches are updated in place."""
-        x = self._embed(token_ids)[:, None, :] + self.pe[pos][None, None]
+        Returns (logits [B, V], cache); the caches are updated in place.
+
+        Past ``max_seq_len`` (a lockstep decode of two models of different
+        lengths) the positional row and the cache slot clamp to the last
+        ones, as JAX's dynamic slices clamp their start."""
+        x = self._embed(token_ids)[:, None, :] + self.pe[min(pos, self.max_seq_len - 1)][None, None]
         c_len, w = self.cache_len, self.attn_window
         slot = torch.arange(c_len, device=x.device)[None, :]
         if w > 0 and c_len < self.max_seq_len:
@@ -290,7 +294,7 @@ class KernDecoder(nn.Module):
             p_s = pos - (pos - slot) % c_len
             allowed = (p_s >= 0) & (p_s >= pos - w)
         else:
-            write_at = pos
+            write_at = min(pos, c_len - 1)
             allowed = slot <= pos
             if w > 0:
                 allowed &= slot >= pos - w

@@ -17,10 +17,12 @@ loop's ``PRNGKey(seed + 1)``; its bits differ from JAX's. The multimodal
 model's per-step modality (modality dropout, ``draw_modality``) is drawn
 from ``np.random.default_rng(seed)`` as in the JAX loop, draw for draw.
 ``warm_start_from_unimodal`` loads trained unimodal encoders and decoder
-into the multimodal model before ``fit``.
+into the multimodal model before ``fit``. Evaluation decodes greedily, or
+by beam search with ``beam_size > 1``, and adds MV2H with
+``compute_mv2h``.
 
-Not ported yet, and raising ``NotImplementedError``: a mesh, beam search,
-the device-resident corpus and MV2H.
+Not ported yet, and raising ``NotImplementedError``: a mesh and the
+device-resident corpus.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from omr_a2s_multimodal_transformer_tpu_torch.data.vocab import Vocabulary
 from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, check_module_device
 from omr_a2s_multimodal_transformer_tpu_torch.training import checkpoint as ckpt_lib
 from omr_a2s_multimodal_transformer_tpu_torch.training.corruption import draw_modality
-from omr_a2s_multimodal_transformer_tpu_torch.training.decode import cut_at_eos, greedy_decode_fn
+from omr_a2s_multimodal_transformer_tpu_torch.training.decode import beam_decode_fn, cut_at_eos, greedy_decode_fn
 from omr_a2s_multimodal_transformer_tpu_torch.training.train_state import (
     TrainState,
     make_train_step,
@@ -80,14 +82,13 @@ class Trainer:
         ytest_i2w: Optional[Dict[int, str]] = None,
         compute_mv2h: bool = False,
         profile_first_epoch: bool = False,
-        beam_size: int = 1,
-        length_penalty: float = 0.0,
+        beam_size: int = 1,  # >1: beam search at eval (the reference is greedy-only)
+        length_penalty: float = 0.0,  # GNMT length penalty for beam search
         device_cache: bool = False,
         device_cache_u8: bool = False,
         device: DeviceLike = None,  # cuda unless the caller asks for another device
     ):
-        unported = dict(mesh=mesh is not None, beam_size=beam_size > 1,
-                        device_cache=device_cache or device_cache_u8, compute_mv2h=compute_mv2h)
+        unported = dict(mesh=mesh is not None, device_cache=device_cache or device_cache_u8)
         for name, asked in unported.items():
             if asked:
                 raise NotImplementedError(f"Trainer({name}=...) is not ported yet")
@@ -105,6 +106,8 @@ class Trainer:
         self.seed = seed
         self.ytest_i2w = ytest_i2w  # cross-domain eval: GT decoded in test vocab
         self.profile_first_epoch = profile_first_epoch
+        self.compute_mv2h = compute_mv2h
+        self.beam_size, self.length_penalty = beam_size, length_penalty
         self.learning_rate, self.warmup_steps, self.decay_steps = learning_rate, warmup_steps, decay_steps
         self.clip_norm = clip_norm
         self.train_only = tuple(train_only) if train_only else None
@@ -301,9 +304,13 @@ class Trainer:
     # ------------------------------------------------------------------- eval
     def _get_decode(self):
         if self._decode is None:
-            self._decode = greedy_decode_fn(self.model, max_len=self.model.max_seq_len,
-                                            sos_id=self.vocab.sos_id, eos_id=self.vocab.eos_id,
-                                            multimodal=self.multimodal)
+            kw = dict(max_len=self.model.max_seq_len, sos_id=self.vocab.sos_id, eos_id=self.vocab.eos_id,
+                      multimodal=self.multimodal)
+            if self.beam_size > 1:
+                self._decode = beam_decode_fn(self.model, beam_size=self.beam_size,
+                                              length_penalty=self.length_penalty, **kw)
+            else:
+                self._decode = greedy_decode_fn(self.model, **kw)
         return self._decode
 
     def evaluate(self, loader, name: str = "val", gt_i2w: Optional[Dict[int, str]] = None,
@@ -338,7 +345,7 @@ class Trainer:
         self.last_eval = {f"{name}_decode_s": decode_s, f"{name}_decode_steps": steps,
                           f"{name}_decode_batches": len(host)}
         self.logger.log(self.last_eval, step=int(self.state.step) if self.state is not None else 0, quiet=True)
-        metrics = compute_metrics(y_true, y_pred)
+        metrics = compute_metrics(y_true, y_pred, compute_mv2h=self.compute_mv2h)
         if save_preds:
             os.makedirs(os.path.dirname(save_preds) or ".", exist_ok=True)
             with open(save_preds, "w") as f:

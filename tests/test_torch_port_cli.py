@@ -8,6 +8,14 @@ image and audio checkpoints with only its mixer trained, then ``cli.test
 --input_modality both``; each multimodal flag is shown read. Every flag of
 a feature not ported yet raises ``NotImplementedError``; without a GPU and
 without ``--device cpu`` both CLIs raise before any work.
+
+Then the inference and serving CLIs on those checkpoints: ``cli.test
+--beam_size 2 --length_penalty 0.6 --compute_mv2h``, ``cli.weighted_test``,
+``cli.sw_test``, ``cli.split_ckpt`` of the multimodal best/,
+``cli.transcribe`` of .wav files, of .png files (where PIL imports) and of
+image/wave pairs, and ``cli.serve``'s fused server over HTTP; their metrics
+and outputs equal what the port's decode functions give called directly,
+and their flags are the JAX CLIs' plus ``--device``.
 """
 
 import json
@@ -73,9 +81,6 @@ UNPORTED = {
     "keep_cache": ["--keep_cache"],
 }
 UNPORTED_TEST = {
-    "length_penalty": ["--length_penalty", "0.6"],
-    "beam_size": ["--beam_size", "4"],
-    "compute_mv2h": ["--compute_mv2h"],
     "cache_dtype_int4": ["--cache_dtype", "int4"],
 }
 
@@ -229,3 +234,296 @@ def test_warm_start_needs_both_modalities(trained, tmp_path):
         train_cli.main(_common(ws) + ["--device", "cpu", "--weights_dir", str(tmp_path / "w"), "--no_bf16",
                                       "--run_dir", str(tmp_path / "r"),
                                       "--init_image_checkpoint", str(ws / "weights" / "best")])
+
+
+# ---------------------------------------------------------- inference and serving CLIs
+
+
+@pytest.fixture(scope="module")
+def rand(av):
+    """Checkpoints of the image and audio runs' hparams (one vocabulary, one
+    max_seq_len) with random weights from a seed: the fixture's 2-epoch
+    models emit eos first, these decode every step, so the fusion and
+    transcription outputs below are not empty."""
+    from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
+
+    out = {}
+    for tag, src, seed in (("image", av["ws"] / "weights" / "best", 31), ("audio", av["ws"] / "w_audio" / "best", 32)):
+        hp = ckpt_lib.load_hparams(str(src))
+        model, _ = build_model(hp, device="cpu", seed=seed)
+        out[tag] = av["ws"] / f"rand_{tag}"
+        ckpt_lib.save_checkpoint(str(out[tag]), {"params": model.state_dict()}, hp)
+    return out
+
+
+def _data(ws):
+    """The data flags of the fusion CLIs, which take no --input_modality."""
+    return _common(ws)[:-2]
+
+
+def _test_batches(ws, modality):
+    """(datamodule args, vocab, test loader) of the fixture's corpus."""
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import weighted_test
+
+    args = weighted_test.build_parser().parse_args(_data(ws) + [
+        "--image_checkpoint_path", "-", "--audio_checkpoint_path", "-"])
+    dm = common.make_datamodule(args, modality)
+    dm.setup("test")
+    return dm.get_vocab(), dm.test_ds.i2w, dm.test_dataloader()
+
+
+def _rows(tokens, eos):
+    from omr_a2s_multimodal_transformer_tpu_torch.training.decode import cut_at_eos
+
+    return cut_at_eos(tokens, tokens, eos)[0]
+
+
+def _gt(batch, i2w, eos):
+    return [[i2w[g] for g in row if g != 0] for row in _rows(batch["y_out"], eos)]
+
+
+def test_test_cli_beam_search_and_mv2h(av, rand, tmp_path):
+    """cli.test --beam_size 2 --length_penalty 0.6 --compute_mv2h gives the
+    metrics of beam_decode_fn over the test split and compute_metrics with
+    MV2H (the native route: music21 and pyMV2H are not installed), on the
+    trained best/ and on random weights."""
+    from omr_a2s_multimodal_transformer_tpu_torch.training.decode import beam_decode_fn
+    from omr_a2s_multimodal_transformer_tpu_torch.utils.metrics import compute_metrics
+
+    ws = av["ws"]
+    for ckpt in (ws / "weights" / "best", rand["image"]):
+        got = test_cli.main(_common(ws) + ["--checkpoint_path", str(ckpt), "--run_dir", str(tmp_path / "t"),
+                                           "--no_bf16", "--device", "cpu", "--beam_size", "2", "--length_penalty",
+                                           "0.6", "--compute_mv2h"])
+        model, _, _ = common.build_from_checkpoint(str(ckpt), device="cpu")
+        vocab, i2w, loader = _test_batches(ws, "image")
+        decode = beam_decode_fn(model, model.max_seq_len, vocab.sos_id, vocab.eos_id, beam_size=2,
+                                length_penalty=0.6)
+        y_true, y_pred = [], []
+        for b in loader:
+            tokens, scores = decode(torch.from_numpy(b["x"]), torch.from_numpy(b["x_hw"]))
+            assert scores.shape == (tokens.shape[0],)
+            y_pred += [[vocab.i2w[i] for i in row] for row in _rows(tokens, vocab.eos_id)]
+            y_true += _gt(b, i2w, vocab.eos_id)
+        want = {f"test_{k}": v for k, v in compute_metrics(y_true, y_pred, compute_mv2h=True).items()}
+        assert got == want and "test_mv2h" in got and all(map(math.isfinite, got.values()))
+    assert max(map(len, y_pred)) > 2  # the random weights' rows are not empty
+
+
+def test_weighted_test_cli(av, rand, tmp_path):
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import weighted_test
+    from omr_a2s_multimodal_transformer_tpu_torch.training.decode import weighted_decode_fn
+    from omr_a2s_multimodal_transformer_tpu_torch.utils.metrics import compute_metrics
+
+    ws = av["ws"]
+    img, aud = rand["image"], rand["audio"]
+    preds = tmp_path / "preds.jsonl"
+    got = weighted_test.main(_data(ws) + ["--image_checkpoint_path", str(img), "--audio_checkpoint_path",
+                                                    str(aud), "--alpha", "0.3", "--device", "cpu", "--run_dir",
+                                                    str(tmp_path / "r"), "--save_preds", str(preds)])
+    mi, _, _ = common.build_from_checkpoint(str(img), device="cpu")
+    ma, _, _ = common.build_from_checkpoint(str(aud), device="cpu")
+    vocab, i2w, loader = _test_batches(ws, "both")
+    decode = weighted_decode_fn(mi, ma, max(mi.max_seq_len, ma.max_seq_len), vocab.sos_id, vocab.eos_id)
+    y_true, y_pred = [], []
+    for b in loader:
+        tokens, _ = decode(*common.to_device(b, ("xi", "xi_hw", "xa", "xa_hw"), "cpu"), 0.3)
+        y_pred += [[vocab.i2w[i] for i in row] for row in _rows(tokens, vocab.eos_id)]
+        y_true += _gt(b, i2w, vocab.eos_id)
+    assert got == compute_metrics(y_true, y_pred) and all(map(math.isfinite, got.values()))
+    assert min(map(len, y_pred)) > 2
+    rows = [json.loads(line) for line in preds.read_text().splitlines()]
+    assert rows == [{"y_true": t, "y_pred": p} for t, p in zip(y_true, y_pred)]
+
+
+def test_sw_test_cli(av, rand, tmp_path):
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import sw_test
+    from omr_a2s_multimodal_transformer_tpu_torch.fusion.smith_waterman import fuse_predictions
+    from omr_a2s_multimodal_transformer_tpu_torch.training.decode import cut_at_eos, greedy_decode_fn
+    from omr_a2s_multimodal_transformer_tpu_torch.utils.metrics import compute_metrics
+
+    ws = av["ws"]
+    img, aud = rand["image"], rand["audio"]
+    pen = ["--match", "3", "--mismatch", "-2", "--gap_penalty", "-1", "--gap_extension_penalty", "-2"]
+    got = sw_test.main(_data(ws) + ["--image_checkpoint_path", str(img), "--audio_checkpoint_path", str(aud),
+                                              "--device", "cpu", "--run_dir", str(tmp_path / "r")] + pen)
+    vocab, i2w, loader = _test_batches(ws, "both")
+    decoded = {}
+    for tag, path, keys in (("image", img, ("xi", "xi_hw")), ("audio", aud, ("xa", "xa_hw"))):
+        model, _, _ = common.build_from_checkpoint(str(path), device="cpu")
+        decode = greedy_decode_fn(model, model.max_seq_len, vocab.sos_id, vocab.eos_id)
+        rows, y_true = [], []
+        for b in loader:
+            t, s = decode(*common.to_device(b, keys, "cpu"))
+            rows += list(zip(*cut_at_eos(t, s, vocab.eos_id)))
+            y_true += _gt(b, i2w, vocab.eos_id)
+        decoded[tag] = rows
+    y_pred = [fuse_predictions([vocab.i2w[i] for i in it], isc, [vocab.i2w[i] for i in at], asc, 3, -2, -1, -2)
+              for (it, isc), (at, asc) in zip(decoded["image"], decoded["audio"])]
+    assert got == compute_metrics(y_true, y_pred) and all(map(math.isfinite, got.values()))
+    assert min(len(ids) for ids, _ in decoded["image"]) > 2  # random weights: no early eos
+
+
+def test_split_ckpt_cli(av, tmp_path):
+    """cli.split_ckpt of the multimodal best/: an image and an audio
+    checkpoint that build unimodal models holding its encoders and decoder."""
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import split_ckpt
+
+    ws = av["ws"]
+    img, aud = split_ckpt.main(["--ckpt_path", str(ws / "w_both" / "best"), "--out_prefix", str(tmp_path / "split")])
+    both = _params(ws / "w_both" / "best")
+    for path, modality, enc in ((img, "image", "image_encoder."), (aud, "audio", "audio_encoder.")):
+        model, hp, multimodal = common.build_from_checkpoint(path, device="cpu")
+        assert hp["input_modality"] == modality and not multimodal and "mixer_type" not in hp
+        for k, v in model.state_dict().items():
+            src = enc + k[len("encoder."):] if k.startswith("encoder.") else k
+            assert torch.equal(v, both[src]), k
+
+
+def _vocab_path(ws):
+    (path,) = (ws / "cache" / "vocabs").glob("*.json")
+    return str(path)
+
+
+def _test_inputs(n=3):
+    """The fixture corpus's first test samples: u8 images and waveforms."""
+    from omr_a2s_multimodal_transformer_tpu_torch.data.sources import make_source
+
+    src = make_source("synthetic", "test", encoding="kern", synthetic=True, synthetic_kwargs=dict(SYN))
+    return [(src[i]["image"], src[i]["audio"]["array"]) for i in range(n)]
+
+
+def _want_krn(model, xs, pad, vocab):
+    """The .krn lines the greedy decode of host frontend outputs gives."""
+    from omr_a2s_multimodal_transformer_tpu_torch.cli.transcribe import _pad
+    from omr_a2s_multimodal_transformer_tpu_torch.training.decode import greedy_decode_fn
+    from omr_a2s_multimodal_transformer_tpu_torch.utils.mv2h import seq2kern_lines
+
+    tokens, _ = greedy_decode_fn(model, model.max_seq_len, vocab.sos_id, vocab.eos_id)(
+        *_pad([(None, x) for x in xs], pad, "cpu"))
+    return ["\n".join(seq2kern_lines(vocab.tokens(r, strip_special=True))) + "\n" for r in _rows(tokens, vocab.eos_id)]
+
+
+@pytest.mark.parametrize("kind", ["wav", "png", "fused"])
+def test_transcribe_cli(av, rand, tmp_path, kind):
+    """cli.transcribe writes one .krn per input (batch size 2 over 3 inputs),
+    the greedy (or weighted, for image/wave pairs) decode of the host
+    frontends' outputs; .wav read by scipy, .png by PIL."""
+    from scipy.io import wavfile
+
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import transcribe
+    from omr_a2s_multimodal_transformer_tpu_torch.data import collate
+    from omr_a2s_multimodal_transformer_tpu_torch.data.frontends import preprocess_audio, preprocess_image
+    from omr_a2s_multimodal_transformer_tpu_torch.data.vocab import Vocabulary
+
+    if kind != "wav":
+        pytest.importorskip("PIL", reason="image inputs need PIL")
+        from PIL import Image
+    ws = av["ws"]
+    samples = _test_inputs()
+    for i, (img, wave) in enumerate(samples):
+        wavfile.write(str(tmp_path / f"s{i}.wav"), 22050, wave)
+        if kind != "wav":
+            Image.fromarray(img).save(tmp_path / f"s{i}.png")
+    vocab = Vocabulary.load(_vocab_path(ws))
+    img_ckpt, aud_ckpt = rand["image"], rand["audio"]
+    argv = ["--vocab_path", _vocab_path(ws), "--out_dir", str(tmp_path / "out"), "--batch_size", "2",
+            "--device", "cpu"]
+    images = [preprocess_image(img) for img, _ in samples]
+    spectrograms = [preprocess_audio(wave, 22050) for _, wave in samples]
+    if kind == "wav":
+        argv += ["--checkpoint_path", str(aud_ckpt), "--inputs", str(tmp_path / "*.wav")]
+        model, _, _ = common.build_from_checkpoint(str(aud_ckpt), device="cpu")
+        want = (_want_krn(model, spectrograms[:2], collate.AUDIO_PAD_VALUE, vocab)
+                + _want_krn(model, spectrograms[2:], collate.AUDIO_PAD_VALUE, vocab))
+    elif kind == "png":
+        argv += ["--checkpoint_path", str(img_ckpt), "--inputs", str(tmp_path / "*.png")]
+        model, _, _ = common.build_from_checkpoint(str(img_ckpt), device="cpu")
+        want = (_want_krn(model, images[:2], collate.IMAGE_PAD_VALUE, vocab)
+                + _want_krn(model, images[2:], collate.IMAGE_PAD_VALUE, vocab))
+    else:
+        from omr_a2s_multimodal_transformer_tpu_torch.cli.transcribe import _pad
+        from omr_a2s_multimodal_transformer_tpu_torch.training.decode import weighted_decode_fn
+        from omr_a2s_multimodal_transformer_tpu_torch.utils.mv2h import seq2kern_lines
+
+        argv += ["--checkpoint_path", str(img_ckpt), "--audio_checkpoint_path", str(aud_ckpt), "--inputs",
+                 str(tmp_path / "*.png"), "--audio_inputs", str(tmp_path / "*.wav"), "--alpha", "0.4"]
+        mi, _, _ = common.build_from_checkpoint(str(img_ckpt), device="cpu")
+        ma, _, _ = common.build_from_checkpoint(str(aud_ckpt), device="cpu")
+        decode = weighted_decode_fn(mi, ma, mi.max_seq_len, vocab.sos_id, vocab.eos_id)
+        want = []
+        for sl in (slice(0, 2), slice(2, 3)):
+            tokens, _ = decode(*_pad([(None, x) for x in images[sl]], collate.IMAGE_PAD_VALUE, "cpu"),
+                               *_pad([(None, x) for x in spectrograms[sl]], collate.AUDIO_PAD_VALUE, "cpu"), 0.4)
+            want += ["\n".join(seq2kern_lines(vocab.tokens(r, strip_special=True))) + "\n"
+                     for r in _rows(tokens, vocab.eos_id)]
+    assert transcribe.main(argv) == 3
+    got = [(tmp_path / "out" / f"s{i}.krn").read_text() for i in range(3)]
+    assert got == want and all(g.startswith("**kern") for g in got)
+
+
+def test_serve_cli_fused_over_http(av, rand):
+    """cli.serve with an image and an audio checkpoint serves the fused
+    pair: a POSTed .npz gives the server's own result, /healthz its stats."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import serve
+
+    ws = av["ws"]
+    args = serve.build_parser().parse_args([
+        "--checkpoint_path", str(rand["image"]), "--audio_checkpoint_path", str(rand["audio"]),
+        "--vocab_path", _vocab_path(ws), "--port", "0", "--image_height", "64", "--image_widths", "48,96",
+        "--audio_seconds", "0.6", "--device", "cpu", "--threefry_prng"])
+    server, httpd, modality = serve.start(args)
+    try:
+        assert modality == "fused" and server.audio_samples == (13312,)
+        img, wave = _test_inputs(1)[0]
+        buf = io.BytesIO()
+        np.savez(buf, image=img, wave=wave)
+        req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/transcribe", data=buf.getvalue(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out = json.loads(r.read())
+        direct = server.transcribe((img, wave), timeout=120)
+        assert out["token_ids"] == direct.token_ids and out["tokens"] == direct.tokens and direct.tokens
+        assert server.batch_stats() == {"bucket96x13312_b1": 2}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop(timeout=120)
+
+
+NEW_CLIS = ("weighted_test", "sw_test", "transcribe", "serve")
+
+
+@pytest.mark.parametrize("name", NEW_CLIS)
+def test_inference_cli_flags_are_the_jax_ones_and_device(name):
+    import importlib
+
+    jax_flags = {a.dest for a in importlib.import_module(f"omr_a2s_multimodal_transformer_tpu.cli.{name}")
+                 .build_parser()._actions}
+    port_flags = {a.dest for a in importlib.import_module(f"omr_a2s_multimodal_transformer_tpu_torch.cli.{name}")
+                  .build_parser()._actions}
+    assert jax_flags <= port_flags and port_flags - jax_flags == {"device"}
+
+
+@pytest.mark.parametrize("name", NEW_CLIS)
+def test_inference_clis_need_a_gpu_unless_told_cpu_and_refuse_int4(tmp_path, name):
+    import importlib
+
+    cli = importlib.import_module(f"omr_a2s_multimodal_transformer_tpu_torch.cli.{name}")
+    if name in ("weighted_test", "sw_test"):
+        argv = _data(tmp_path) + ["--image_checkpoint_path", str(tmp_path), "--audio_checkpoint_path",
+                                            str(tmp_path)]
+    else:
+        argv = ["--checkpoint_path", str(tmp_path), "--vocab_path", str(tmp_path / "v.json")]
+        argv += ["--inputs", str(tmp_path / "*.wav")] if name == "transcribe" else []
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        cli.main(argv + ["--device", "cpu", "--cache_dtype", "int4"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    assert not (tmp_path / "cache").exists()

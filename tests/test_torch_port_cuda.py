@@ -20,7 +20,9 @@ whole invalid 128-key block of K3b, a batch row with no valid key (finite,
 zero gradients) and dq, dk, dv bit-equal across runs. The train CLI on
 a tiny corpus with flash cross-attention launches K1 and K2 8 times per
 train step and no other kernel, for the image, the audio and the
-multimodal model.
+multimodal model. The inference layer on a tiny model: beam search, an
+image and a fused TranscriptionServer give the CPU's tokens, and the
+bicubic resize lies within 1e-5 of the CPU's, with no kernel launched.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels are
 built with nvcc on first use) and skip elsewhere. They import nothing of
@@ -967,3 +969,60 @@ def test_audio_and_multimodal_train_cli_run_k1_k2_each_step_on_gpu(tmp_path, mod
     losses = [json.loads(line)["train_loss"] for line in open(tmp_path / "r" / "metrics.jsonl")
               if "train_loss" in line]
     assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+
+
+# ------------------------------------------------------------ inference and serving
+
+
+@pytest.mark.cuda
+def test_beam_server_and_resize_on_gpu_match_cpu():
+    """A tiny random image model and audio model (float32, TF32 off, as
+    build_model sets it) on the card and on the CPU from one seed: beam 4
+    with length penalty 0.6 gives the CPU's tokens (scores within 1e-4);
+    an image and a fused TranscriptionServer on the card give, request for
+    request, the CPU servers' tokens; preprocess_image_batch's bicubic
+    resize on the card lies within 1e-5 of the CPU's, its hw equal. No
+    kernel launches (decoding runs none)."""
+    from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
+    from omr_a2s_multimodal_transformer_tpu_torch.ops.image import preprocess_image_batch
+    from omr_a2s_multimodal_transformer_tpu_torch.serving import TranscriptionServer
+    from omr_a2s_multimodal_transformer_tpu_torch.training.decode import beam_decode_fn
+
+    dev = _cuda()
+    hp = dict(vocab_size=31, max_seq_len=12, encoder_dropout=0.0, decoder_dropout=0.0, pos_dropout=0.0)
+    rng = np.random.default_rng(9)
+    imgs = [rng.integers(0, 256, size=(h, w), dtype=np.uint8) for h, w in ((32, 60), (30, 90), (32, 41))]
+    waves = [(0.1 * rng.standard_normal(n)).astype(np.float32) for n in (4000, 9000, 6000)]
+    raw = torch.full((3, 32, 96), 255, dtype=torch.uint8)
+    for i, img in enumerate(imgs):
+        raw[i, :img.shape[0], :img.shape[1]] = torch.from_numpy(img)
+    hw = torch.tensor([img.shape for img in imgs], dtype=torch.int32)
+    kernels = [fn for fn in (fp.flash_fwd_cuda, fp.flash_bwd_cuda, fp.flash_fwd_causal_cuda, fp.flash_dq_cuda,
+                             fp.flash_dkv_cuda, fp.keep_mask_cuda)]
+    before = [k.launches for k in kernels]
+    out = {}
+    for device in ("cpu", dev):
+        img_model = build_model(dict(hp, input_modality="image"), device=device, seed=4)[0]
+        aud_model = build_model(dict(hp, input_modality="audio"), device=device, seed=5)[0]
+        x, hw2 = preprocess_image_batch(raw.to(device), hw.to(device), target_height=24)
+        beam = beam_decode_fn(img_model, 12, 1, 30, beam_size=4, length_penalty=0.6)(x, hw2)
+        results = {}
+        for modality in ("image", "fused"):
+            kw = dict(audio_model=aud_model, audio_samples=(8000, 12000)) if modality == "fused" else {}
+            server = TranscriptionServer(img_model, modality, sos_id=1, eos_id=30, image_height=32,
+                                         image_widths=(64, 96), max_wait_ms=500, device=device, **kw)
+            try:
+                futures = [server.submit((img, w) if modality == "fused" else img) for img, w in zip(imgs, waves)]
+                results[modality] = [f.result(timeout=300).token_ids for f in futures]
+                results[modality + "_stats"] = server.batch_stats()
+            finally:
+                server.stop(timeout=300)
+        out[str(device)] = dict(x=x.cpu(), hw=hw2.cpu(), beam=[t.cpu() for t in beam], **results)
+    cpu, gpu = out["cpu"], out[str(dev)]
+    assert [k.launches for k in kernels] == before
+    assert gpu["x"].shape == (3, 24, 72, 1) and float((gpu["x"] - cpu["x"]).abs().max()) <= 1e-5
+    assert torch.equal(gpu["hw"], cpu["hw"])
+    assert torch.equal(gpu["beam"][0], cpu["beam"][0])
+    torch.testing.assert_close(gpu["beam"][1], cpu["beam"][1], rtol=0, atol=1e-4)
+    for key in ("image", "fused", "image_stats", "fused_stats"):
+        assert gpu[key] == cpu[key], key

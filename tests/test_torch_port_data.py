@@ -186,11 +186,13 @@ def test_compute_ed_metrics_equals_jax(seed):
 
 
 def test_unported_data_paths_raise(tmp_path):
-    """MV2H and the grain loader raise; the audio frontend, the multimodal
+    """The grain loader raises; MV2H, the audio frontend, the multimodal
     collate and the audio/both datasets are ported
-    (tests/test_torch_port_audio.py holds them against the JAX package)."""
-    with pytest.raises(NotImplementedError):
-        pmetrics.compute_metrics([["a"]], [["a"]], compute_mv2h=True)
+    (tests/test_torch_port_mv2h.py and test_torch_port_audio.py hold them
+    against the JAX package)."""
+    rows = [["*clefG2", "<cor>", "4c", "<cor>", "=", "<cor>"]]
+    got = pmetrics.compute_metrics(rows, rows, compute_mv2h=True)
+    assert got == jmetrics.compute_metrics(rows, rows, compute_mv2h=True) and got["mv2h"] == 1.0
     for modality in ("audio", "both"):
         ds = pds.ARDataset("synthetic", "train", krn_encoding="kern", input_modality=modality, synthetic=True,
                            synthetic_kwargs=SYN, cache_root=str(tmp_path))

@@ -69,8 +69,12 @@ def test_preprocess_image_batch_u8():
     assert xt.shape == (3, 17, 29, 1) and xt.dtype == torch.float32
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), **F32_TOL)
     np.testing.assert_array_equal(hwt.numpy(), np.asarray(hwj))
-    with pytest.raises(NotImplementedError):
-        t_preprocess(_t(raw), _t(hw), target_height=8)
+    # the bicubic resize is ported (tests/test_torch_port_decode_fusion.py holds more shapes)
+    xj, hwj = j_preprocess(jnp.asarray(raw), jnp.asarray(hw), target_height=8)
+    xt, hwt = t_preprocess(_t(raw), _t(hw), target_height=8)
+    assert xt.shape == (3, 8, 14, 1)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), **F32_TOL)
+    np.testing.assert_array_equal(hwt.numpy(), np.asarray(hwj))
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -29,7 +29,8 @@ float32 (``bf16_compute=False``).
   epoch-2 loss then moves by up to 1.6e-3 between JAX's float32 and
   float64 runs, more than the tolerance.
 - ``evaluate`` before training (JAX in float32, as the port): the same
-  val_sym-er / val_seq-er, exactly, and the same decoded token rows.
+  val_sym-er / val_seq-er, exactly, and the same decoded token rows; also
+  with beam search (beam 2, length penalty 0.6) and MV2H.
 - Resume, checkpoint restore and its loud params-only fallback, and the
   arguments that raise.
 """
@@ -259,6 +260,18 @@ def test_evaluate_matches_jax_before_training(start):
     assert pt.last_eval["val_decode_batches"] == 1 and pt.last_eval["val_decode_steps"] > 0
 
 
+def test_evaluate_with_beam_and_mv2h_matches_jax(start):
+    """evaluate with beam_size 2, length_penalty 0.6 and compute_mv2h (JAX
+    in float32, as the port): the same metrics, MV2H's among them, and the
+    same decoded rows."""
+    tmp, dj, dp, hp, p0 = start
+    jt, pt = _pair(start, "beam", beam_size=2, length_penalty=0.6, compute_mv2h=True)
+    mj = jt.evaluate(dj.val_dataloader(), name="val", save_preds=str(tmp / "beam_j.jsonl"))
+    mp = pt.evaluate(dp.val_dataloader(), name="val", save_preds=str(tmp / "beam_p.jsonl"))
+    assert mp == mj and "val_mv2h" in mp
+    assert (tmp / "beam_p.jsonl").read_text() == (tmp / "beam_j.jsonl").read_text()
+
+
 def _port_trainer(start, weights, run, epochs, **over):
     tmp, dj, dp, hp, p0 = start
     model, _ = build_model(hp, device="cpu", seed=3)
@@ -346,10 +359,13 @@ def test_trainer_arguments_that_raise(start, tmp_path):
     tmp, dj, dp, hp, p0 = start
     with pytest.raises(ValueError, match="nope"):
         _port_trainer(start, tmp_path / "w", tmp_path / "r", epochs=1, train_only=("nope",))
-    for over in (dict(mesh=object()), dict(beam_size=4), dict(device_cache=True),
-                 dict(device_cache_u8=True), dict(compute_mv2h=True)):
+    for over in (dict(mesh=object()), dict(device_cache=True), dict(device_cache_u8=True)):
         with pytest.raises(NotImplementedError):
             _port_trainer(start, tmp_path / "w", tmp_path / "r", epochs=1, **over)
+    # beam search and MV2H are ported (test_evaluate_with_beam_and_mv2h_matches_jax)
+    pt = _port_trainer(start, tmp_path / "w", tmp_path / "r", epochs=1, beam_size=4, length_penalty=0.6,
+                       compute_mv2h=True)
+    assert pt.compute_mv2h and "beam_decode_fn" in pt._get_decode().__qualname__
     if not torch.cuda.is_available():
         model, _ = build_model(hp, device="cpu")
         with pytest.raises(RuntimeError, match="no CUDA device"):
