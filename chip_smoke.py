@@ -51,7 +51,7 @@ Phases, each of which raises on failure (exit code 1):
        dk/dv at the legacy cross shape in float32 D 64, float16 D 64 and
        bf16 D 192, each against the plain version, with its bound, plain
        time and SDPA's forward or backward (event and device time);
-  3. seven paths, each with every kernel's launch count set to 0 just
+  3. eight paths, each with every kernel's launch count set to 0 just
      before it (the serve path: before each of its steps) and read just
      after:
      - stem path: fused_packed_block forward and backward at the three
@@ -62,10 +62,17 @@ Phases, each of which raises on failure (exit code 1):
        random 361x4416 images, then greedy decode of 4 raw u8 images with a
        bf16 cache; K1 and K2 must launch 8 times per train step;
      - paper model (attn_window 100, packed_stem, flash cross-attention):
-       the same train and decode, with a 101-slot ring self-cache; K1 and K2
+       the same train (its decode, with a 101-slot ring self-cache, is the
+       quant path's bf16 decode); K1 and K2
        8 times per step, K1c, K3a, K3b and K4 never (the model runs its
        windowed self-attention in plain PyTorch, as the JAX model does in
        XLA);
+     - quant path: the paper model decodes a b4 batch of raw 361x4416 images
+       (12,696 keys) greedily once per cache_dtype (bf16, int8, int4: the
+       quantized cross K/V), no kernel launched: ms a step, peak memory, the
+       cross cache's bytes, tokens equal to the bf16 decode's; for int8 and
+       int4 one step's logits within 1e-2 x max |ref| of the same step over
+       the dequantized K/V in float32;
      - op path: make_flash_attention_packed(causal, window 100, dropout 0.1)
        forward and backward at the paper shape, a merged_bwd=False call at
        the cross shape, and export_keep_masks at the cross shape: K1c, K3a,
@@ -79,8 +86,8 @@ Phases, each of which raises on failure (exit code 1):
        (30-measure grand renders, 355-362 x 4300-4413 px, 17-18.7 s of
        "bands" audio at 30 measures; 32 train, 8 val, 8 test samples).
        cli.train trains the paper model at full width (attn_window 100,
-       flash cross-attention, packed stem, bf16, b8), validating each epoch
-       by greedy decode, keeping best/ and last/ and testing best/: the image
+       flash cross-attention, packed stem, bf16, b8), validating at its last
+       epoch by greedy decode, keeping best/ and last/ and testing best/: the image
        model for 2 epochs (then cli.test of best/ with --save_preds), the
        audio model for 1, and the gated attn_both multimodal model for 1,
        warm-started from the image and audio best/ with only the mixer
@@ -95,16 +102,22 @@ Phases, each of which raises on failure (exit code 1):
        card from those checkpoints (the spectrogram on the card, no kernel
        launched). It logs samples/s, the StepTimer's data and step means,
        the decode times and steps, peak memory and the wall time of each
-       run.
+       run. Then the image run again, twice, each counted from 0 (K1 and K2
+       8 launches a step, no validation): with the corpus held on the card
+       (--device_cache --device_cache_u8) and with the worker-process loader
+       (--loader_backend grain --num_workers 4); the first train batch of
+       each must equal the thread loader's bit for bit; it logs their
+       StepTimer data / step means and the resident corpus bytes.
      - serve path: the inference and serving layer on the cli path's
        checkpoints, each step counted from 0 and launching no kernel:
        cli.test --beam_size 4 --length_penalty 0.6 --compute_mv2h on the
        image best/ (8 test samples, 32 beam rows; MV2H by the native
        route), cli.weighted_test --alpha 0.5 and cli.sw_test on the image
-       and audio best/ (the Smith-Waterman host time logged apart from the
-       decodes), cli.split_ckpt of the multimodal best/ and cli.transcribe
-       of 4 test waves written as .wav with the split audio checkpoint
-       (and, where PIL imports, of .png renders and image/wave pairs);
+       and audio best/ (the Smith-Waterman host time, on the native route,
+       logged apart from the decodes), cli.split_ckpt of the multimodal
+       best/ and cli.transcribe of 4 test waves written as .wav with the
+       split audio checkpoint, with the bf16 cache and with --cache_dtype
+       int8 (and, where PIL imports, of .png renders and image/wave pairs);
        then a TranscriptionServer for images and one for the fused pair
        (alpha 0.5) at the serve CLI's default ladders (canvas 368, widths
        1104/2208/4416, 5/10/19 s), each taking 4 requests from 4 threads
@@ -1076,13 +1089,15 @@ def phase_serve(model, dev, tag):
     return dict(decode_ms=ms, steps=steps, batch=4, cache_len=model.decoder.cache_len)
 
 
-def model_path(dev, tag, out_dir, profile, **hp):
+def model_path(dev, tag, out_dir, profile, serve=True, **hp):
     """Train and serve one model with every launch count from 0; each of K1
-    and K2 must launch once per decoder layer and step, no other kernel."""
+    and K2 must launch once per decoder layer and step, no other kernel.
+    ``serve=False`` leaves the decode to another path (the paper model's is
+    the quant path's bf16 decode)."""
     model = build(dev, **hp)
     reset_counts()
     step, state, batch, g, train = phase_train(model, dev, tag)
-    serve = phase_serve(model, dev, tag)
+    serve = phase_serve(model, dev, tag) if serve else None
     launches = read_counts()
     log(f"[{tag} path] kernel launches {launches}")
     want = {name: 8 * train["steps"] if name in ("K1 flash fwd", "K2 flash bwd") else 0 for name in KERNELS}
@@ -1092,6 +1107,101 @@ def model_path(dev, tag, out_dir, profile, **hp):
     del model, step, state, batch
     torch.cuda.empty_cache()
     return dict(hparams=hp, train=train, serve=serve, launches=launches, profile=summary)
+
+
+QUANT_DTYPES = ("bfloat16", "int8", "int4")
+# one step's logits from int8/int4 codes against the same step over the dequantized K/V in float32: the
+# quantized path rounds q and the softmax weights to bf16 before its products (1.1-1.6e-3 of max |logits| on
+# the CPU at a cut size)
+QUANT_TOL = 1e-2
+
+
+def cross_bytes(cross) -> int:
+    return sum(t.numel() * t.element_size() for entry in cross.values() for t in entry.values())
+
+
+def dequantized(cross) -> dict:
+    """Each layer's quantized cross entry as float32 K/V: codes x token scale x channel scale."""
+    from omr_a2s_multimodal_transformer_tpu_torch.ops.attention import unpack_int4
+
+    out = {}
+    for layer, e in cross.items():
+        out[layer] = {}
+        for n in ("k", "v"):
+            codes = (unpack_int4(e[n]) if e[n].dtype == torch.uint8 else e[n]).float()
+            if f"{n}_tscale" in e:
+                codes = codes * e[f"{n}_tscale"][:, :, None]
+            out[layer][n] = codes * e[f"{n}_scale"][:, None, :]
+    return out
+
+
+def quant_path(dev):
+    """The paper model at full width (random weights from seed 0, the
+    paper path's model; its bf16 decode is that path's) decodes a
+    b4 batch of raw 361x4416 images (the flagship memory, 12,696 keys)
+    greedily through make_image_transcriber, once per cache_dtype (bf16,
+    int8, int4: the runtime knob build_from_checkpoint overrides), counted
+    from 0: no kernel launches. For each: ms a step, peak memory, the cross
+    cache's resident bytes, tokens equal to the bf16 decode's; for int8 and
+    int4, one step's logits within QUANT_TOL x max |ref| of the same step
+    over the explicitly dequantized K/V in float32."""
+    model = build(dev, attn_window=WINDOW, packed_stem=True)
+    cache_len = model.decoder.cache_len
+    g = torch.Generator(device=dev).manual_seed(3)
+    raw = torch.randint(0, 256, (4, IMG_H, IMG_W), generator=g, device=dev, dtype=torch.uint8)
+    hw = ragged_hw(4, dev)
+    out, tokens = {}, {}
+    reset_counts()
+    for cache_dtype in QUANT_DTYPES:
+        model.decoder.cache_dtype = cache_dtype
+        with torch.no_grad():
+            x, hw2 = preprocess_image_batch(raw, hw)
+            cross, valid = model.decode_prefill(x, hw2)
+            nbytes = cross_bytes(cross)
+            row = dict(cross_bytes=nbytes, cross_keys=int(next(iter(cross.values()))["k"].shape[1]))
+            if cache_dtype != "bfloat16":
+                tok = torch.full((4,), SOS, dtype=torch.long, device=dev)
+                lq, _ = model.decode_step(tok, 0, model.decode_init_cache(4), cross, valid)
+                lr, _ = model.decode_step(tok, 0, model.decode_init_cache(4), dequantized(cross), valid)
+                row["logits_rel_err"] = max_err(lq, lr) / float(lr.abs().max())
+                if not row["logits_rel_err"] <= QUANT_TOL:
+                    raise AssertionError(f"quant {cache_dtype}: step logits {row['logits_rel_err']:.3e} of max |ref| "
+                                         f"from the dequantized float32 step (tolerance {QUANT_TOL})")
+                del lq, lr
+            del cross, valid, x
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        transcribe = make_image_transcriber(model, SOS, EOS)
+        t0 = time.perf_counter()
+        tokens[cache_dtype], scores = transcribe(raw, hw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps = int((tokens[cache_dtype] != 0).any(0).sum())
+        row.update(decode_ms=ms, steps=steps, ms_per_step=ms / max(steps, 1),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   peak_over_weights_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        if tokens[cache_dtype].shape != (4, LQ) or not torch.isfinite(scores).all() \
+                or int(tokens[cache_dtype].max()) >= VOCAB:
+            raise AssertionError(f"quant {cache_dtype}: tokens {tuple(tokens[cache_dtype].shape)}")
+        row["tokens_equal_bf16"] = int((tokens[cache_dtype] == tokens["bfloat16"]).sum())
+        first = (tokens[cache_dtype] != tokens["bfloat16"]).int().argmax(1)
+        row["first_disagreement"] = [int(p) if bool((tokens[cache_dtype][i] != tokens["bfloat16"][i]).any()) else None
+                                     for i, p in enumerate(first)]
+        out[cache_dtype] = row
+        log(f"[quant {cache_dtype}] b4 greedy, {row['cross_keys']} keys: {ms:.1f} ms, {steps} steps "
+            f"({row['ms_per_step']:.2f} ms/step); cross cache {nbytes / 1e6:.1f} MB; peak {row['peak_gib']:.2f} GiB "
+            f"({row['peak_over_weights_gib']:.2f} over the weights); tokens equal to bf16's {row['tokens_equal_bf16']} "
+            f"of {tokens[cache_dtype].numel()} (first disagreement per row {row['first_disagreement']})"
+            + (f"; step logits {row['logits_rel_err']:.2e} of max |ref| from the dequantized float32 step"
+               if "logits_rel_err" in row else ""))
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"quant path launched {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(dtypes=out, launches=launches, tolerance=QUANT_TOL, cache_len=cache_len)
 
 
 def op_path(dev):
@@ -1662,9 +1772,42 @@ def check_cli_flash(args: dict, tag: str) -> dict:
     rel["K2 flash bwd"] = max(rel_err(a, p) for a, p in zip(grads_k, grads_p))
     log(f"[cli {tag}] largest error over max |plain|: K1 o {rel['K1 flash fwd']:.2e}, "
         f"K2 dq/dk/dv {rel['K2 flash bwd']:.2e}")
-    del grads_k, grads_p, o_p, qr, kr, vr
+    # the same call against float64: K2, the plain version and K3a (dq of the split backward, whose float32
+    # partials are summed in a fixed order) read on one yardstick, to tell bf16 rounding from a fault in K2's
+    # reduce-add; K3a again with delta = rowsum(do * o) from the float64 o, where the kernels (and JAX's) take
+    # the bf16 o, to show that rounding's share
+    o64, grads_64 = flash_grads_f64(q, k, v, kv_len, kv_valid, seed, do, rate, heads, bq, bk)
+    dq_k3a = {who: fp.flash_dq_cuda(q, k, v, kv_len, kv_valid, seed, do, lse, fp.attention_delta(do, o_d, heads),
+                                    rate, heads, bq, bk) for who, o_d in (("K3a", o), ("K3a, delta of the f64 o", o64))}
+    f64 = {}
+    for i, n in enumerate(("dq", "dk", "dv")):
+        scale = float(grads_64[i].abs().max())
+        f64[n] = {who: float((t.double() - grads_64[i]).abs().max()) / scale
+                  for who, t in (("K2", grads_k[i]), ("plain f32", grads_p[i]), *(dq_k3a.items() if i == 0 else ()))}
+    log(f"[cli {tag}] K2 bwd against float64, error over max |f64|: "
+        + "; ".join(f"{n} " + ", ".join(f"{who} {e:.3e}" for who, e in d.items()) for n, d in f64.items()))
+    if f64["dq"]["K2"] > 1.5 * f64["dq"]["K3a"] + 2e-3:  # the card test's rule, on this run's inputs
+        raise AssertionError(f"cli {tag}: K2's dq lies further from float64 than K3a's: {f64['dq']}")
+    del grads_k, grads_p, o_p, qr, kr, vr, dq_k3a, grads_64, o64
     torch.cuda.empty_cache()
-    return dict(errs, rel=rel, lk=int(k.shape[1]), lq=int(q.shape[1]))
+    return dict(errs, rel=rel, f64=f64, lk=int(k.shape[1]), lq=int(q.shape[1]))
+
+
+def flash_grads_f64(q, k, v, kv_len, kv_valid, seed, do, rate, heads, bq, bk):
+    """o and (dq, dk, dv) of the flash function in float64 from the same
+    bf16 inputs and keep-mask, with p and ds unrounded."""
+    b, lq, pd = q.shape
+    lk = k.shape[1]
+    qd, kd, vd = (t.detach().double().requires_grad_() for t in (q, k, v))
+    qh, kh, vh = (fp._heads(t, heads) for t in (qd, kd, vd))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / (pd // heads) ** 0.5)
+    see = (kv_valid.bool() & (torch.arange(lk, device=q.device)[None, :] < kv_len[:, None]))[:, None, None, :]
+    p = torch.softmax(torch.where(see, s, -1e300), dim=-1)
+    if rate > 0.0:
+        keep = fp.keep_mask(int(seed), b, heads, lq, lk, rate, q.device, bq, bk)
+        p = torch.where(keep, p / fp._keep_den(rate), 0.0)
+    o = torch.matmul(p, vh).transpose(1, 2).reshape(b, lq, pd)
+    return o.detach(), torch.autograd.grad(o, (qd, kd, vd), do.double())
 
 
 def rel_err(got, ref) -> float:
@@ -1680,7 +1823,7 @@ def cli_data(modality: str) -> list:
 def cli_run(dev, tag: str, modality: str, epochs: int, test_cli_run: bool, extra=(), train_only=None) -> dict:
     """One cli.train run of the paper model at full width (attn_window 100,
     flash cross-attention, packed stem, bf16, b8) on CLI_CORPUS, validating
-    each epoch, keeping best/ and last/ and testing best/; with
+    at its last epoch, keeping best/ and last/ and testing best/; with
     test_cli_run, then cli.test of best/ with --save_preds. Counted from 0:
     K1 and K2 8 launches a train step, no other kernel (greedy decode runs
     none); then check_cli_flash holds them to their plain version on the
@@ -1697,7 +1840,7 @@ def cli_run(dev, tag: str, modality: str, epochs: int, test_cli_run: bool, extra
     weights, run, test_run = (CLI_WS / f"{x}_{tag}" for x in ("weights", "run", "test_run"))
     preds = CLI_WS / f"preds_{tag}.jsonl"
     train_args = cli_data(modality) + ["--attn_window", str(WINDOW), "--use_flash_cross", "--epochs", str(epochs),
-                                       "--check_val_every_n_epoch", "1", "--weights_dir", str(weights),
+                                       "--check_val_every_n_epoch", str(epochs), "--weights_dir", str(weights),
                                        "--run_dir", str(run), *extra]
     if train_only:
         train_args += ["--train_only", ",".join(train_only)]
@@ -1767,20 +1910,7 @@ def cli_run(dev, tag: str, modality: str, epochs: int, test_cli_run: bool, extra
         del model, trainer
     torch.cuda.empty_cache()
 
-    # the StepTimer totals are cumulative over the fit: an epoch's share is the difference; its data phase
-    # runs once more than its steps (the fetch that ends the epoch)
-    per_epoch, prev = [], dict(data=0.0, step=0.0)
-    for r in epochs_r:
-        row = dict(epoch=r["epoch"], train_loss=r["train_loss"], samples_per_sec=r["samples_per_sec"])
-        for ph, n in (("data", steps_per_epoch + 1), ("step", steps_per_epoch)):
-            total = r[f"time_{ph}_total_s"]
-            row[f"{ph}_ms_mean"] = (total - prev[ph]) * 1e3 / n
-            prev[ph] = total
-        row["epoch_s"] = 8 * steps_per_epoch / r["samples_per_sec"]
-        per_epoch.append(row)
-        log(f"[cli {tag}] epoch {row['epoch']}: train_loss {row['train_loss']:.4f}, "
-            f"{row['samples_per_sec']:.2f} samples/s ({row['epoch_s']:.2f} s), StepTimer means (host clock): "
-            f"data {row['data_ms_mean']:.1f} ms, step {row['step_ms_mean']:.1f} ms")
+    per_epoch = epoch_rows(tag, epochs_r, steps_per_epoch)
     for r in decodes:
         name = "val" if "val_decode_s" in r else "test"
         ms, n = r[f"{name}_decode_s"] * 1e3, r[f"{name}_decode_steps"]
@@ -1795,6 +1925,108 @@ def cli_run(dev, tag: str, modality: str, epochs: int, test_cli_run: bool, extra
                 val=[{k: r[k] for k in ("epoch", "val_sym-er", "val_seq-er")} for r in vals],
                 test=test or {k: v for k, v in fit.items() if k.startswith("test_")}, best_epoch=fit["best_epoch"],
                 peak_gib=peak, wall_s=wall, train_cli_s=t_train, vocab=vocab)
+
+
+def epoch_rows(tag: str, epochs_r: list, steps_per_epoch: int) -> list:
+    """Per-epoch samples/s and StepTimer means of a cli run's records. The
+    StepTimer totals are cumulative over the fit: an epoch's share is the
+    difference; its data phase runs once more than its steps (the fetch
+    that ends the epoch)."""
+    per_epoch, prev = [], dict(data=0.0, step=0.0)
+    for r in epochs_r:
+        row = dict(epoch=r["epoch"], train_loss=r["train_loss"], samples_per_sec=r["samples_per_sec"])
+        for ph, n in (("data", steps_per_epoch + 1), ("step", steps_per_epoch)):
+            total = r[f"time_{ph}_total_s"]
+            row[f"{ph}_ms_mean"] = (total - prev[ph]) * 1e3 / n
+            prev[ph] = total
+        row["epoch_s"] = 8 * steps_per_epoch / r["samples_per_sec"]
+        per_epoch.append(row)
+        log(f"[cli {tag}] epoch {row['epoch']}: train_loss {row['train_loss']:.4f}, "
+            f"{row['samples_per_sec']:.2f} samples/s ({row['epoch_s']:.2f} s), StepTimer means (host clock): "
+            f"data {row['data_ms_mean']:.1f} ms, step {row['step_ms_mean']:.1f} ms")
+    return per_epoch
+
+
+# the image run again with the corpus held on the card (u8 images) and with the worker-process loader; no
+# validation (the loaders feed the train steps only), the rest as the cli path's image run
+LOADER_RUNS = {"device_cache_u8": ("--device_cache", "--device_cache_u8"),
+               "grain": ("--loader_backend", "grain", "--num_workers", "4")}
+
+
+def loader_run(dev, tag: str, extra, threads_epoch: dict) -> dict:
+    """cli.train of the paper model's image run (CLI_EPOCHS epochs, no
+    validation) with ``extra`` flags, counted from 0 (K1 and K2 8 launches a
+    step, no other kernel). The run's first train batch, as the step gets it
+    on the card, must equal bit for bit the thread loader's batch of the same
+    epoch put there by the Trainer. Logs the StepTimer's data / step means
+    beside ``threads_epoch``'s (the cli path's image run, on the thread
+    loader, in this call) and the device cache's resident bytes."""
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import common
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import train as train_cli
+    from omr_a2s_multimodal_transformer_tpu_torch.training import loop
+
+    weights, run = CLI_WS / f"weights_{tag}", CLI_WS / f"run_{tag}"
+    args = cli_data("image") + ["--attn_window", str(WINDOW), "--use_flash_cross", "--epochs", str(CLI_EPOCHS),
+                                "--check_val_every_n_epoch", "100", "--weights_dir", str(weights), "--run_dir",
+                                str(run), *extra]
+    puts, trainers = [], []
+    put, fit = loop.Trainer._put, loop.Trainer.fit
+
+    def first_put(self, batch, bf16_inputs=False):
+        b = put(self, batch, bf16_inputs)
+        if not puts:
+            puts.append({k: v.clone() for k, v in b.items()})
+        return b
+
+    def kept_fit(self, *a, **kw):
+        trainers.append(self)
+        return fit(self, *a, **kw)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with patched(loop.Trainer, "_put", first_put), patched(loop.Trainer, "fit", kept_fit):
+        result = train_cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    (trainer,) = trainers
+    threads = train_cli.build_parser().parse_args(args)
+    threads.loader_backend, threads.device_cache, threads.device_cache_u8 = "threads", False, False
+    dm = common.make_datamodule(threads, "image")
+    dm.setup("fit")
+    loader = dm.train_dataloader()
+    steps = CLI_EPOCHS * len(loader)
+    loader._epoch_batches()  # the fit moves the shuffle stream on one epoch before its first, as JAX's init batch
+    want = put(trainer, next(iter(loader)), bf16_inputs=trainer.bf16_compute)
+    got = puts[0]
+    same = sorted(got) == sorted(want) and all(got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+                                               for k in want)
+    log(f"[cli {tag}] first train batch {'bit-equal to' if same else 'DIFFERENT from'} the thread loader's: "
+        f"{ {k: (tuple(v.shape), str(v.dtype).replace('torch.', '')) for k, v in got.items()} }")
+    if not same:
+        raise AssertionError(f"cli {tag}: the first train batch differs from the thread loader's")
+    want_launches = {name: 8 * steps if name in ("K1 flash fwd", "K2 flash bwd") else 0 for name in KERNELS}
+    if launches != want_launches:
+        raise AssertionError(f"cli {tag} launched {launches}, expected {want_launches}")
+    recs = cli_records(run)
+    epochs_r = [r for r in recs if "train_loss" in r]
+    if len(epochs_r) != CLI_EPOCHS or not all(math.isfinite(r["train_loss"]) for r in epochs_r):
+        raise AssertionError(f"cli {tag} train losses {[r['train_loss'] for r in epochs_r]}")
+    per_epoch = epoch_rows(tag, epochs_r, len(loader))
+    cache = [r for r in recs if "device_cache_bytes" in r]  # the fit logs the bytes of the cache it freed
+    if len(cache) != ("--device_cache" in extra) or (cache and cache[0]["device_cache_bytes"] <= 0):
+        raise AssertionError(f"cli {tag}: device cache records {cache}")
+    resident = cache[0]["device_cache_bytes"] if cache else None
+    last = per_epoch[-1]
+    log(f"[cli {tag}] epoch {last['epoch']} data / step {last['data_ms_mean']:.1f} / {last['step_ms_mean']:.1f} ms "
+        f"(the thread loader's image run: {threads_epoch['data_ms_mean']:.1f} / {threads_epoch['step_ms_mean']:.1f})"
+        + (f"; corpus resident on the card {resident / 1e6:.1f} MB ({cache[0]['device_cache_samples']} samples)"
+           if cache else "") + f"; test_sym-er {result['test_sym-er']:.4f}; wall {wall:.1f} s")
+    del trainer, trainers
+    torch.cuda.empty_cache()
+    return dict(args=args, steps=steps, launches=launches, epochs=per_epoch, resident_bytes=resident,
+                first_batch_equal=same, test=result, wall_s=wall)
 
 
 def av_serve(dev, vocab) -> dict:
@@ -1997,12 +2229,13 @@ def serve_cli_evals(dev, out_dir: Path) -> dict:
     log(f"[serve weighted] cli.weighted_test --alpha 0.5: {metrics}; wall {wall:.1f} s")
     out["weighted"] = dict(metrics=metrics, decodes=weighted.summary(), wall_s=wall)
 
-    sw_s = []
+    sw_s, sw_args = [], []
 
     def timed_fuse(*a, _fuse=sw_test.fuse_predictions):
         t0 = time.perf_counter()
         fused = _fuse(*a)
         sw_s.append(time.perf_counter() - t0)
+        sw_args.append(a)
         return fused
 
     with patched(sw_test, "greedy_decode_fn", Timed(sw_test.greedy_decode_fn)) as greedy, \
@@ -2013,9 +2246,19 @@ def serve_cli_evals(dev, out_dir: Path) -> dict:
     if len(sw_s) != CLI_CORPUS["n_test"]:
         raise AssertionError(f"serve sw: {len(sw_s)} fused pairs")
     log_decodes("sw greedy", greedy.calls)
-    log(f"[serve sw] cli.sw_test: {metrics}; Smith-Waterman on the host {sum(sw_s):.2f} s for {len(sw_s)} pairs "
-        f"({max(sw_s):.3f} s the longest), decodes {sum(c['ms'] for c in greedy.calls) / 1e3:.1f} s; wall {wall:.1f} s")
-    out["sw"] = dict(metrics=metrics, decodes=greedy.summary(), host_sw_s=sw_s, wall_s=wall)
+    # the longest pair again by the Python Gotoh route, the plain version: the same fusion, its time beside
+    longest = sw_args[max(range(len(sw_s)), key=sw_s.__getitem__)]
+    t0 = time.perf_counter()
+    fused_python = sw_test.fuse_predictions(*longest, route="python")
+    python_s = time.perf_counter() - t0
+    if fused_python != sw_test.fuse_predictions(*longest):
+        raise AssertionError("serve sw: the native and the Python route fuse the longest pair differently")
+    log(f"[serve sw] cli.sw_test: {metrics}; Smith-Waterman on the host (the native route, csrc/editdist.cpp) "
+        f"{sum(sw_s):.4f} s for {len(sw_s)} pairs ({max(sw_s):.4f} s the longest; that pair by the Python route "
+        f"{python_s:.3f} s, the same fusion), decodes {sum(c['ms'] for c in greedy.calls) / 1e3:.1f} s; "
+        f"wall {wall:.1f} s")
+    out["sw"] = dict(metrics=metrics, decodes=greedy.summary(), host_sw_s=sw_s, python_route_longest_s=python_s,
+                     wall_s=wall)
     return out
 
 
@@ -2046,7 +2289,8 @@ def serve_files(dev) -> dict:
         from PIL import Image
     except ImportError:
         Image = None
-    runs = [("wav", ["--checkpoint_path", aud_ckpt, "--inputs", str(files / "*.wav")])]
+    runs = [("wav", ["--checkpoint_path", aud_ckpt, "--inputs", str(files / "*.wav")]),
+            ("wav_int8", ["--checkpoint_path", aud_ckpt, "--inputs", str(files / "*.wav"), "--cache_dtype", "int8"])]
     if Image is None:
         log("[serve transcribe] PIL does not import on this machine: no .png run of cli.transcribe; the servers "
             "below take images and image/wave pairs as arrays")
@@ -2079,7 +2323,16 @@ def serve_files(dev) -> dict:
         tokens = [len(written[p.name]) for p in krn]
         log(f"[serve transcribe {tag}] cli.transcribe: {[p.name for p in krn]}, {tokens} tokens, {lines} kern "
             f"lines; wall {wall:.1f} s")
-        out[tag] = dict(files=[p.name for p in krn], tokens=tokens, lines=lines, wall_s=wall)
+        out[tag] = dict(files=[p.name for p in krn], tokens=tokens, lines=lines, wall_s=wall, ids=written)
+    # the int8 run decodes the same waves from quantized cross K/V: its tokens beside the bf16 run's
+    a, q = out["wav"].pop("ids"), out["wav_int8"].pop("ids")
+    same = sum(int(x == y) for f in a for x, y in zip(a[f], q[f]))
+    out["wav_int8"]["tokens_equal_bf16"] = same
+    log(f"[serve transcribe wav_int8] --cache_dtype int8: {same} of {sum(map(len, a.values()))} tokens equal to the "
+        f"bf16 run's, position for position")
+    for tag in out:
+        if isinstance(out[tag], dict):
+            out[tag].pop("ids", None)
     return out
 
 
@@ -2309,11 +2562,13 @@ def main(argv=None):
                cross["K4 keep mask"]]
 
     flagship = model_path(dev, "flagship", args.out_dir, args.profile)
-    paper = model_path(dev, "paper", args.out_dir, args.profile, attn_window=WINDOW, packed_stem=True)
-    if paper["serve"]["cache_len"] != WINDOW + 1:
-        raise AssertionError(f"the paper model's ring cache has {paper['serve']['cache_len']} slots")
+    paper = model_path(dev, "paper", args.out_dir, args.profile, serve=False, attn_window=WINDOW, packed_stem=True)
     log("[paper path] K1c, K3a, K3b and K4 launched 0 times: the windowed self-attention is plain PyTorch "
         "(dense mask up to 256 positions, banded above), as in the JAX model")
+    quant = quant_path(dev)
+    paper["serve"] = dict(quant["dtypes"]["bfloat16"], cache_len=quant["cache_len"], batch=4)
+    if paper["serve"]["cache_len"] != WINDOW + 1:
+        raise AssertionError(f"the paper model's ring cache has {paper['serve']['cache_len']} slots")
     ops = op_path(dev)
     for k in kernels:  # K1/K2 from the paper model's path, the rest from the op path
         k["launches"] = paper["launches"][k["name"]] if k["name"] in ("K1 flash fwd", "K2 flash bwd") else ops[k["name"]]
@@ -2322,12 +2577,16 @@ def main(argv=None):
     for name, row in legacy_k.items():
         kernels.append(row | dict(launches=legacy["launches"][name]))
     cli = cli_path(dev, args.out_dir)
+    cli["loader_runs"] = {tag: loader_run(dev, tag, extra, cli["runs"]["image"]["epochs"][-1])
+                          for tag, extra in LOADER_RUNS.items()}
     serve = serve_path(dev, args.out_dir, cli.pop("vocab"))
     for k in kernels:  # K1/K2 held to their plain version at the cross shape and at each cli run's first call
         if k["name"] in cli["max_abs_err"]:
             k["max_abs_err_cli_path"] = cli["max_abs_err"][k["name"]]  # the largest of the three runs
             k["max_abs_err_cli_runs"] = {tag: dict(err=r["max_abs_err"][k["name"]],
-                                                   rel=r["max_abs_err"]["rel"][k["name"]], lk=r["max_abs_err"]["lk"])
+                                                   rel=r["max_abs_err"]["rel"][k["name"]], lk=r["max_abs_err"]["lk"],
+                                                   **({"vs_f64": r["max_abs_err"]["f64"]}
+                                                      if k["name"] == "K2 flash bwd" else {}))
                                          for tag, r in cli["runs"].items()}
             k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_cli_path"])
         k.update(KERNEL_INFO.get(k["name"], {}))
@@ -2336,7 +2595,7 @@ def main(argv=None):
 
     log(f"[trace] {TRACES['taken']} profiler traces, {TRACES['retaken']} taken again "
         f"(TEARDOWN_CUPTI={os.environ.get('TEARDOWN_CUPTI')})")
-    result = dict(card=card, kernels=kernels, flagship=flagship, paper=paper, op_path=ops,
+    result = dict(card=card, kernels=kernels, flagship=flagship, paper=paper, quant_path=quant, op_path=ops,
                   stem_path=dict(launches=stem_launches, max_abs_err=stem_errs), legacy_path=legacy,
                   cli_path=cli, serve_path=serve, traces=dict(TRACES), wall_s=time.perf_counter() - t0)
     (args.out_dir / "chip_smoke_result.json").write_text(json.dumps(result, indent=1))

@@ -6,8 +6,8 @@ surface (the reference's fire CLIs, its ``train.py:21-36`` and
 ``cuda``), the port's counterpart of ``JAX_PLATFORMS``: without a GPU the
 CLIs raise unless given ``--device cpu``.
 
-Flags whose feature is not ported yet, and flags read only by such a
-feature, are parsed and raise ``NotImplementedError`` when set to anything
+Flags whose feature is not ported yet (the mesh and remat), and flags read
+only by such a feature, are parsed and raise ``NotImplementedError`` when set to anything
 but their default (``check_unported``). ``--threefry_prng``
 picks a JAX PRNG and is accepted and ignored; ``--conv_mode`` is accepted
 and read nowhere, as in ``build_model``.
@@ -44,7 +44,8 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--width_buckets", type=int, default=1,
                    help=">1: geometric width-bucket ladder (fewer padded FLOPs, more distinct shapes)")
     p.add_argument("--loader_backend", default="threads", choices=["threads", "grain"],
-                   help="'grain' is not ported: the thread loader is the port's")
+                   help="'grain': --num_workers worker processes build the batches (torch DataLoader workers "
+                        "in the port, data/grain_pipeline.py); the same batches as the thread loader's")
 
 
 def add_runtime_args(p: argparse.ArgumentParser) -> None:
@@ -58,7 +59,7 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--cache_dtype", default=None,
                    choices=["float32", "bfloat16", "int8", "int4"],
                    help="override the decode KV-cache dtype from the checkpoint hparams "
-                        "(int8/int4 are not ported yet)")
+                        "(int8/int4: quantized cross K/V, the self cache in bfloat16)")
     p.add_argument("--device", default="cuda", help="torch device to run on: cuda (default) or cpu")
 
 
@@ -67,11 +68,7 @@ def _unported(args) -> Dict[str, bool]:
     get = lambda name, default=None: getattr(args, name, default)  # noqa: E731
     return {
         "--mesh_model > 1 (tensor parallelism)": get("mesh_model", 1) > 1,
-        "--device_cache / --device_cache_u8 (a corpus held in device memory)":
-            bool(get("device_cache") or get("device_cache_u8")),
         "--remat (rematerialized blocks)": bool(get("remat")),
-        "--cache_dtype int8/int4 (quantized cross-KV decode)": get("cache_dtype") in ("int8", "int4"),
-        "--loader_backend grain": get("loader_backend") == "grain",
         # flags that are read only by a path above: set, they would change nothing
         "--keep_cache (the preprocess disk cache: the port has none)": bool(get("keep_cache")),
     }
@@ -137,8 +134,9 @@ def build_from_checkpoint(checkpoint_path: str, hparams_override: Optional[Dict]
 
 
 def to_device(batch: Dict, keys, device) -> list:
-    """The host batch's arrays under ``keys`` as tensors on ``device``."""
-    return [torch.from_numpy(batch[k]).to(device) for k in keys]
+    """The batch's arrays (numpy, or the worker loader's host tensors)
+    under ``keys`` as tensors on ``device``."""
+    return [torch.as_tensor(batch[k]).to(device) for k in keys]
 
 
 def init_cli(args) -> None:

@@ -4,7 +4,7 @@ Port of ``omr_a2s_multimodal_transformer_tpu/cli/serve.py``: the
 dynamic-batching server (``serving.py``) around the end-to-end
 transcribers, with the same flags and ``--device`` (``cuda`` unless given
 ``cpu``). ``--threefry_prng`` picks a JAX PRNG and is accepted and
-ignored; ``--cache_dtype int8|int4`` is not ported yet and raises.
+ignored; ``--cache_dtype int8|int4`` serves from quantized cross K/V.
 
 Example:
   python -m omr_a2s_multimodal_transformer_tpu_torch.cli.serve \

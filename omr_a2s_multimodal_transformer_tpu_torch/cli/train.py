@@ -82,9 +82,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a TPU layout of the packed stem's convolutions in the JAX package: accepted "
                         "and read nowhere by the port")
     p.add_argument("--device_cache", action="store_true",
-                   help="pin the preprocessed train corpus in device memory (not ported yet)")
+                   help="hold the preprocessed train corpus in device memory and gather each batch there "
+                        "(data/device_cache.py; single-bucket collation only)")
     p.add_argument("--device_cache_u8", action="store_true",
-                   help="store cached images as uint8 (with --device_cache; not ported yet)")
+                   help="with --device_cache: hold the cached images as uint8 (checked exact at the build), "
+                        "dequantized on the device to the streaming batch's bits")
     p.add_argument("--weights_dir", default=None, help="default: weights/<ds_name>")
     p.add_argument("--keep_cache", action="store_true",
                    help="keep the preprocess disk cache (the port has none: not ported)")
@@ -147,6 +149,8 @@ def main(argv=None) -> dict:
         use_wandb=args.use_wandb, wandb_group=model_name,
         wandb_name=f"Train-{args.ds_name}_Test-{args.ds_name}",
         seed=args.seed,
+        device_cache=args.device_cache,
+        device_cache_u8=args.device_cache_u8,
         device=args.device,
     )
     if args.checkpoint_path and os.path.exists(args.checkpoint_path):

@@ -10,8 +10,9 @@ while the device runs the current one.
 Samples are {"x", "y"} for the image and the audio modality and
 {"xi", "xa", "y"} for both; the audio frontend is the host numpy
 ``preprocess_audio``, as in the JAX package, and no frontend output is
-cached on disk. The thread loader is the port's only loader
-(``loader_backend="grain"`` raises).
+cached on disk. ``loader_backend="grain"`` takes the worker-process
+loader of ``data/grain_pipeline.py`` (the same batches) in place of the
+thread loader.
 """
 
 from __future__ import annotations
@@ -215,17 +216,25 @@ class Loader:
         th, tw, tl = self.bucket.pick(h, w, ly)
         return C.collate_unimodal(samples, pad, th, tw, tl)
 
-    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+    def _epoch_batches(self) -> List[List[int]]:
+        """The next epoch's batches of sample indices: the shuffle order
+        split into batch_size runs, the short last one dropped with
+        drop_remainder. Advances the epoch. The worker loader and the
+        device cache take their batches from here too."""
         order = self._order()
         self.epoch += 1
-        n = len(order)
-        batches = [order[i : i + self.batch_size] for i in range(0, n, self.batch_size)]
-        if self.drop_remainder and batches and len(batches[-1]) < self.batch_size:
+        bs = self.batch_size
+        batches = [[int(i) for i in order[i:i + bs]] for i in range(0, len(order), bs)]
+        if self.drop_remainder and batches and len(batches[-1]) < bs:
             batches.pop()
+        return batches
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        batches = self._epoch_batches()
 
         if self.num_threads <= 1:
             for b in batches:
-                yield self._collate([self.ds[int(i)] for i in b])
+                yield self._collate([self.ds[i] for i in b])
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -250,7 +259,7 @@ class Loader:
                     for b in batches:
                         if stop.is_set():
                             return
-                        samples = list(ex.map(self.ds.__getitem__, [int(i) for i in b]))
+                        samples = list(ex.map(self.ds.__getitem__, b))
                         if not put(self._collate(samples)):
                             return
             except Exception as e:  # raised in the consumer, which would otherwise wait forever
@@ -291,12 +300,10 @@ class ARDataModule:
         synthetic_kwargs: Optional[Dict] = None,
         cache_root: Optional[str] = None,
         seed: int = 42,
-        loader_backend: str = "threads",  # "threads" | "grain" (not ported)
+        loader_backend: str = "threads",  # "threads" | "grain" (worker processes: data/grain_pipeline.py)
         width_buckets: int = 1,  # >1: geometric width-bucket ladder
     ) -> None:
         assert loader_backend in ("threads", "grain")
-        if loader_backend == "grain":
-            raise NotImplementedError("loader_backend='grain' is not ported: the thread loader is the port's")
         self.loader_backend = loader_backend
         self.width_buckets = width_buckets
         self.kwargs = dict(
@@ -342,6 +349,11 @@ class ARDataModule:
 
     def _make_loader(self, ds: ARDataset, batch_size: int, shuffle: bool, drop_remainder: bool):
         img_bucket, audio_bucket = self._buckets(ds)
+        if self.loader_backend == "grain":
+            from omr_a2s_multimodal_transformer_tpu_torch.data.grain_pipeline import GrainLoader
+
+            return GrainLoader(ds, batch_size, shuffle=shuffle, seed=self.seed, num_workers=self.num_workers,
+                               drop_remainder=drop_remainder, image_bucket=img_bucket, audio_bucket=audio_bucket)
         return Loader(ds, batch_size, shuffle=shuffle, seed=self.seed,
                       drop_remainder=drop_remainder, num_threads=self.num_workers,
                       image_bucket=img_bucket, audio_bucket=audio_bucket)

@@ -2,10 +2,12 @@
 
 Port of ``omr_a2s_multimodal_transformer_tpu/fusion/smith_waterman.py``
 (parity target: the reference's ``src/multimodal/smith_waterman/``): the
-alignment runs over interned int tokens with the Python Gotoh route, affine
-gaps like swalign's gap_penalty/gap_extension model. The JAX package's
-optional native route (``native/libeditdist.so``) is not ported; both
-routes give the same alignment.
+alignment runs over interned int tokens, affine gaps like swalign's
+gap_penalty/gap_extension model, by the native route (the default:
+``csrc/editdist.cpp`` ``smith_waterman_i32``, built on first use by the
+host's C++ compiler) or the Python Gotoh route (``route="python"``, the
+plain version). Both give the same alignment; a failed build raises, and
+no route falls back to another.
 
 Fusion policy (reference smith_waterman.py:118-159):
   match    -> keep the token
@@ -21,7 +23,14 @@ from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
 
+import ctypes
+
 import numpy as np
+
+from omr_a2s_multimodal_transformer_tpu_torch.utils.edit_distance import native_library
+
+ROUTES = ("native", "python")
+_I32P = ctypes.POINTER(ctypes.c_int32)
 
 _SENT_L = "\x00<sw:begin>"
 _SENT_R = "\x00<sw:end>"
@@ -105,6 +114,22 @@ def _sw_python(ref: Sequence[int], query: Sequence[int], match: float, mismatch:
     return cigar, i, j
 
 
+def _sw_native(ref: np.ndarray, query: np.ndarray, match: float, mismatch: float, gap_open: float,
+               gap_extend: float) -> Tuple[List[Tuple[int, int]], int, int]:
+    """The same alignment by ``smith_waterman_i32`` (the cigar's capacity,
+    n + m + 2 runs, always suffices)."""
+    cap = len(ref) + len(query) + 2
+    ops, counts = np.zeros(cap, np.int32), np.zeros(cap, np.int32)
+    rp, qp = ctypes.c_int64(), ctypes.c_int64()
+    k = native_library().smith_waterman_i32(
+        ref.ctypes.data_as(_I32P), len(ref), query.ctypes.data_as(_I32P), len(query),
+        match, mismatch, gap_open, gap_extend, ops.ctypes.data_as(_I32P), counts.ctypes.data_as(_I32P), cap,
+        ctypes.byref(rp), ctypes.byref(qp))
+    if k < 0:
+        raise RuntimeError(f"smith_waterman_i32: cigar over its capacity {cap}")
+    return [(int(ops[x]), int(counts[x])) for x in range(k)], int(rp.value), int(qp.value)
+
+
 def align_tokens(
     ref_tokens: Sequence[str],
     query_tokens: Sequence[str],
@@ -112,8 +137,12 @@ def align_tokens(
     mismatch: float = -1,
     gap_open: float = -1,
     gap_extend: float = -1,
+    route: str = "native",
 ) -> Tuple[List[Tuple[int, int]], int, int]:
-    """Local alignment over token sequences -> (cigar, ref_start, query_start)."""
+    """Local alignment over token sequences -> (cigar, ref_start, query_start),
+    by the native route or the Python one (``ROUTES``)."""
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {ROUTES}")
     table: Dict[str, int] = {}
 
     def intern(seq):
@@ -122,7 +151,9 @@ def align_tokens(
             out[i] = table.setdefault(t, len(table))
         return out
 
-    return _sw_python(intern(ref_tokens), intern(query_tokens), match, mismatch, gap_open, gap_extend)
+    align = _sw_native if route == "native" else _sw_python
+    return align(intern(ref_tokens), intern(query_tokens), float(match), float(mismatch), float(gap_open),
+                 float(gap_extend))
 
 
 def fuse_predictions(
@@ -134,6 +165,7 @@ def fuse_predictions(
     mismatch: float = -1,
     gap_penalty: float = -1,
     gap_extension_penalty: float = -1,
+    route: str = "native",
 ) -> List[str]:
     """Align two prediction streams and fuse them (reference policy).
 
@@ -145,7 +177,7 @@ def fuse_predictions(
     q = [_SENT_L] + list(query_tokens) + [_SENT_R]
     rp = [1.0] + list(ref_probs) + [1.0]
     qp = [1.0] + list(query_probs) + [1.0]
-    cigar, ri, qi = align_tokens(r, q, match, mismatch, gap_penalty, gap_extension_penalty)
+    cigar, ri, qi = align_tokens(r, q, match, mismatch, gap_penalty, gap_extension_penalty, route)
 
     fused: List[str] = []
     for op, count in cigar:

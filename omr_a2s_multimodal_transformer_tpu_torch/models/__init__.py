@@ -20,8 +20,10 @@ def build_model(hparams: Dict, device: DeviceLike = None, seed: int = 0
     JAX param tree.
 
     ``conv_mode`` is accepted and read nowhere: it only picks the JAX
-    package's TPU layout of the same convolutions. ``remat=True`` and a set
-    ``memory_partition`` raise ``NotImplementedError``: neither is ported.
+    package's TPU layout of the same convolutions. ``cache_dtype`` is one
+    of float32, bfloat16, int8 and int4 (quantized cross K/V,
+    ``models/decoder.py``). ``remat=True`` and a set ``memory_partition``
+    raise ``NotImplementedError``: neither is ported.
     """
     dev = resolve_device(device)
     if hparams.get("remat", False):

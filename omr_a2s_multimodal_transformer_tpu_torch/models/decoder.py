@@ -12,9 +12,10 @@ Ported: the full-sequence forward with plain or flash cross-attention
 (``ops/flash_packed.py``, kernels K1/K2 on CUDA), windowed self-attention
 (``attn_window > 0``: the windowed causal mask up to two band chunks, the
 banded attention of ``ops/banded_attention.py`` above, both plain PyTorch
-as they are XLA in the JAX package) and float decode caches, with a ring
-self-cache of ``attn_window + 1`` slots when windowed. Not ported yet:
-int8/int4 caches; they raise.
+as they are XLA in the JAX package) and the decode caches, with a ring
+self-cache of ``attn_window + 1`` slots when windowed: float32 or bfloat16
+throughout, or int8/int4 cross K/V (``quantize_cross``) beside a bfloat16
+self-cache.
 
 Dtypes follow flax's promotion rule (a layer runs in the promoted dtype of
 its input and parameters), so the bf16 compute mode of the train step,
@@ -36,12 +37,43 @@ from omr_a2s_multimodal_transformer_tpu_torch.ops.attention import (
     attend,
     attend_packed_single_query,
     merge_heads,
+    pack_int4,
     split_heads,
 )
 from omr_a2s_multimodal_transformer_tpu_torch.ops.banded_attention import band_chunk, banded_causal_attention
 from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import flash_attention_packed
 
 INT32_MAX = 2 ** 31 - 1
+CACHE_DTYPES = ("float32", "bfloat16", "int8", "int4")
+QUANT_QMAX = {"int8": 127.0, "int4": 7.0}
+
+
+def quantize_cross(t: torch.Tensor, cache_dtype: str) -> Dict[str, torch.Tensor]:
+    """One cross K or V [B, S, D] -> its cache entry, computed in float32
+    as the JAX prefill computes it (``torch.round`` and ``jnp.round`` both
+    round half to even):
+
+    - int8: scale s = max(max_S |t|, 1e-8) / 127 per (batch, channel),
+      [B, D]; codes clip(round(t / s), +-127) as ``torch.int8``.
+      Returns {"q": codes, "scale": s}.
+    - int4 (rank-1): s_c = max(max_S |t|, 1e-8) per (batch, channel), not
+      divided by qmax; t' = t / s_c; s_t = max(max_D |t'|, 1e-8) / 7 per
+      (batch, token), [B, S]; codes clip(round(t' / s_t), +-7), packed two
+      a byte by ``pack_int4`` into uint8 [B, S, D/2].
+      Returns {"q": packed codes, "scale": s_c, "tscale": s_t}.
+    """
+    qmax = QUANT_QMAX[cache_dtype]
+    t = t.float()
+    # qmax as a tensor: a CUDA division by a host scalar multiplies by its reciprocal (an ulp off the quotient)
+    q = torch.tensor(qmax, dtype=torch.float32, device=t.device)
+    if cache_dtype == "int4":
+        s_c = torch.clamp(t.abs().amax(dim=1), min=1e-8)  # [B, D]
+        t = t / s_c[:, None, :]
+        s_t = torch.clamp(t.abs().amax(dim=2), min=1e-8) / q  # [B, S]
+        codes = torch.clamp(torch.round(t / s_t[:, :, None]), -qmax, qmax).to(torch.int8)
+        return {"q": pack_int4(codes), "scale": s_c, "tscale": s_t}
+    s = torch.clamp(t.abs().amax(dim=1), min=1e-8) / q  # [B, D]
+    return {"q": torch.clamp(torch.round(t / s[:, None, :]), -qmax, qmax).to(torch.int8), "scale": s}
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -158,10 +190,12 @@ class DecoderLayer(nn.Module):
         """Cross-attention K/V, head-packed [B, S, D], once per sequence."""
         return self.multihead_attn.k_proj(memory), self.multihead_attn.v_proj(memory)
 
-    def step(self, x, write_at: int, cache_k, cache_v, cross_k, cross_v, self_mask, mem_bias):
+    def step(self, x, write_at: int, cache_k, cache_v, cross_k, cross_v, self_mask, mem_bias,
+             cross_k_scale=None, cross_v_scale=None, cross_k_tscale=None, cross_v_tscale=None):
         """One decode step. x [B, 1, D]; caches head-packed [B, cache_len, D],
         written in place at slot ``write_at`` (the position, or its ring
-        slot). Returns y [B, 1, D]."""
+        slot); cross K/V float, or int8/int4 codes with their scales
+        (``quantize_cross``). Returns y [B, 1, D]."""
         sa, ca = self.self_attn, self.multihead_attn
         q = sa.q_proj(x)[:, 0]
         cache_k[:, write_at] = sa.k_proj(x)[:, 0].to(cache_k.dtype)
@@ -169,7 +203,9 @@ class DecoderLayer(nn.Module):
         h = attend_packed_single_query(q, cache_k, cache_v, self.n_heads, self_mask)
         x = layer_norm(x + sa.out(h[:, None, :].to(x.dtype)), self.norm1)
         q2 = ca.q_proj(x)[:, 0]
-        h = attend_packed_single_query(q2, cross_k, cross_v, self.n_heads, mem_bias)
+        h = attend_packed_single_query(q2, cross_k, cross_v, self.n_heads, mem_bias,
+                                       k_scale=cross_k_scale, v_scale=cross_v_scale,
+                                       k_tscale=cross_k_tscale, v_tscale=cross_v_tscale)
         x = layer_norm(x + ca.out(h[:, None, :].to(x.dtype)), self.norm2)
         return layer_norm(x + self._ff(x, None), self.norm3)
 
@@ -189,8 +225,8 @@ class KernDecoder(nn.Module):
                  ff_dim: int = 256, n_layers: int = 8, dropout: float = 0.1, attn_window: int = -1,
                  cache_dtype: str = "float32", use_flash_cross: bool = False):
         super().__init__()
-        if cache_dtype not in ("float32", "bfloat16"):
-            raise NotImplementedError(f"cache_dtype {cache_dtype!r} is not ported yet")
+        if cache_dtype not in CACHE_DTYPES:
+            raise ValueError(f"cache_dtype {cache_dtype!r} is not one of {CACHE_DTYPES}")
         self.vocab_size, self.max_seq_len, self.d_model = vocab_size, max_seq_len, d_model
         self.n_layers, self.dropout, self.cache_dtype = n_layers, dropout, cache_dtype
         self.attn_window = attn_window
@@ -256,7 +292,10 @@ class KernDecoder(nn.Module):
         return self.max_seq_len
 
     def _cache_dtype(self):
-        return getattr(torch, self.cache_dtype)
+        """The self-cache's dtype, and the cross K/V's when not quantized:
+        under int8/int4 the self ring cache stays bfloat16 (it is appended
+        every step; requantizing a running ring would drift)."""
+        return torch.bfloat16 if self.cache_dtype in QUANT_QMAX else getattr(torch, self.cache_dtype)
 
     def init_cache(self, batch: int) -> Dict[str, Dict[str, torch.Tensor]]:
         """Head-packed [B, cache_len, D] self-attention caches per layer."""
@@ -269,7 +308,22 @@ class KernDecoder(nn.Module):
         }
 
     def prefill(self, memory: torch.Tensor) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Per-layer cross-attention K/V from the memory, in the cache dtype."""
+        """Per-layer cross-attention K/V from the memory, in the cache dtype.
+        Under int8/int4 each layer's entry holds, with JAX's key names, the
+        codes "k", "v" and their scales "k_scale", "v_scale" [B, D] (int4:
+        also "k_tscale", "v_tscale" [B, S]); every tensor's dim 0 is the
+        batch, so a consumer that repeats or gathers rows takes them all."""
+        if self.cache_dtype in QUANT_QMAX:
+            out = {}
+            for i, layer in enumerate(self.layers):
+                entry = {}
+                for name, t in zip(("k", "v"), layer.cross_kv(memory)):
+                    qt = quantize_cross(t, self.cache_dtype)
+                    entry[name], entry[f"{name}_scale"] = qt["q"], qt["scale"]
+                    if "tscale" in qt:
+                        entry[f"{name}_tscale"] = qt["tscale"]
+                out[f"layer{i}"] = entry
+            return out
         dt = self._cache_dtype()
         return {
             f"layer{i}": {n: t.to(dt) for n, t in zip(("k", "v"), layer.cross_kv(memory))}
@@ -302,5 +356,6 @@ class KernDecoder(nn.Module):
         mem_bias = None if memory_valid is None else torch.where(memory_valid, 0.0, M.NEG_INF)
         for i, layer in enumerate(self.layers):
             c, cr = cache[f"layer{i}"], cross[f"layer{i}"]
-            x = layer.step(x, write_at, c["k"], c["v"], cr["k"], cr["v"], self_mask, mem_bias)
+            x = layer.step(x, write_at, c["k"], c["v"], cr["k"], cr["v"], self_mask, mem_bias,
+                           cr.get("k_scale"), cr.get("v_scale"), cr.get("k_tscale"), cr.get("v_tscale"))
         return self._logits(x)[:, 0, :], cache

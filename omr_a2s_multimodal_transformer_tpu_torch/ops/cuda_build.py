@@ -58,7 +58,7 @@ def _nvcc() -> str:
 
 
 def _sources():
-    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h"))
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h"))  # not the host-only .cpp
 
 
 def _lib_path(name: str) -> Path:
@@ -106,14 +106,19 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def host_library(header: str) -> ctypes.CDLL:
-    """``csrc/<header>.h`` built alone by the host's C++ compiler: the
-    geometry a kernel's launch shares with the host (its extern "C"
-    functions), for a machine without nvcc. Built once into BUILD_DIR."""
-    key = f"host_{header}"
+def host_library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cpp`` (at -O3) or ``csrc/<name>.h`` built alone by the
+    host's C++ compiler: host code (the native edit distance and
+    Smith-Waterman), or the geometry a kernel's launch shares with the host
+    (its extern "C" functions), for a machine without nvcc. Built once into
+    BUILD_DIR; a failed build raises with the compiler's output."""
+    key = f"host_{name}"
     lib = _loaded.get(key)
     if lib is None:
-        src = CSRC / f"{header}.h"
+        src = CSRC / f"{name}.cpp"
+        opt = "-O3"
+        if not src.exists():
+            src, opt = CSRC / f"{name}.h", "-O1"
         path = BUILD_DIR / f"lib{key}_{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
         if not path.exists():
             cxx = shutil.which(os.environ.get("CXX", "c++"))
@@ -121,7 +126,7 @@ def host_library(header: str) -> ctypes.CDLL:
                 raise RuntimeError("no host C++ compiler (c++ or $CXX) to build " + src.name)
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++", "-o", str(tmp),
+            proc = subprocess.run([cxx, "-std=c++17", opt, "-shared", "-fPIC", "-x", "c++", "-o", str(tmp),
                                    str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"{cxx} failed for {src.name}:\n{proc.stdout}")

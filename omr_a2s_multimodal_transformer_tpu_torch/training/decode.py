@@ -14,7 +14,9 @@ done flags per step:
 
 The caches are updated in place by ``decode_step``; beam search replaces
 every cache tensor by its rows gathered by source beam, so beams that share
-a source never alias.
+a source never alias. Under ``OMR_A2S_DEBUG_CHECKS`` (``utils/debug.py``)
+every step raises on a token id fed outside the vocabulary and on
+non-finite logits.
 """
 
 from __future__ import annotations
@@ -24,7 +26,24 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from omr_a2s_multimodal_transformer_tpu_torch.utils.debug import check_finite, check_token_ids, debug_checks_enabled
+
 NEG_INF = -1e9  # the score of a dead beam
+
+
+def _checked_step(model):
+    """``model.decode_step``, with the debug checks when they are on."""
+    if not debug_checks_enabled():
+        return model.decode_step
+    vocab = model.vocab_size
+
+    def step(tok, pos, cache, cross, mem_valid):
+        check_token_ids("a decode step's input token", tok, vocab)
+        logits, cache = model.decode_step(tok, pos, cache, cross, mem_valid)
+        check_finite(f"the decode logits at position {pos}", [logits])
+        return logits, cache
+
+    return step
 
 
 def _loop(step_logits: Callable, batch: int, max_len: int, sos_id: int, eos_id: int, carry,
@@ -47,8 +66,10 @@ def _loop(step_logits: Callable, batch: int, max_len: int, sos_id: int, eos_id: 
 
 
 def _model_step(model, cross, mem_valid):
+    decode_step = _checked_step(model)
+
     def step_logits(tok, pos, cache):
-        return model.decode_step(tok, pos, cache, cross, mem_valid)
+        return decode_step(tok, pos, cache, cross, mem_valid)
 
     return step_logits
 
@@ -154,6 +175,7 @@ def beam_decode_fn(model, max_len: int, sos_id: int, eos_id: int, beam_size: int
             cross, mem_valid = model.decode_prefill(x, hw)
             b, dev = x.shape[0], x.device
         k = beam_size
+        decode_step = _checked_step(model)
         cross_k = {name: {n: t.repeat_interleave(k, dim=0) for n, t in layer.items()} for name, layer in cross.items()}
         valid_k = None if mem_valid is None else mem_valid.repeat_interleave(k, dim=0)
         cache = model.decode_init_cache(b * k)
@@ -167,7 +189,7 @@ def beam_decode_fn(model, max_len: int, sos_id: int, eos_id: int, beam_size: int
         batch_idx = torch.arange(b, device=dev)[:, None]
         frozen = None
         for pos in range(max_len):
-            logits, cache = model.decode_step(tok, pos, cache, cross_k, valid_k)
+            logits, cache = decode_step(tok, pos, cache, cross_k, valid_k)
             v = logits.shape[-1]
             if frozen is None:  # a finished beam: only eos, at no change of score
                 frozen = torch.full((k, v), NEG_INF, dtype=torch.float32, device=dev)

@@ -19,10 +19,11 @@ from ``np.random.default_rng(seed)`` as in the JAX loop, draw for draw.
 ``warm_start_from_unimodal`` loads trained unimodal encoders and decoder
 into the multimodal model before ``fit``. Evaluation decodes greedily, or
 by beam search with ``beam_size > 1``, and adds MV2H with
-``compute_mv2h``.
+``compute_mv2h``. ``device_cache`` holds the train corpus on the device
+(``data/device_cache.py``, images as uint8 with ``device_cache_u8`` too),
+batches gathered there, bit-identical to the streaming loader's.
 
-Not ported yet, and raising ``NotImplementedError``: a mesh and the
-device-resident corpus.
+Not ported yet, and raising ``NotImplementedError``: a mesh.
 """
 
 from __future__ import annotations
@@ -88,10 +89,8 @@ class Trainer:
         device_cache_u8: bool = False,
         device: DeviceLike = None,  # cuda unless the caller asks for another device
     ):
-        unported = dict(mesh=mesh is not None, device_cache=device_cache or device_cache_u8)
-        for name, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"Trainer({name}=...) is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("Trainer(mesh=...) is not ported yet")
         self.device = check_module_device(model, device)
         self.model = model
         self.vocab = vocab
@@ -120,6 +119,8 @@ class Trainer:
             bf16_compute=bf16_compute, multimodal=multimodal, device=self.device,
         )
         self.bf16_compute = bf16_compute
+        # the train corpus in device memory; u8 image residency only with it, as in the JAX Trainer
+        self.device_cache, self.device_cache_u8 = device_cache, device_cache_u8
         self._decode = None
         self.state: Optional[TrainState] = None
         self.last_eval: Dict[str, float] = {}  # decode time and steps of the last evaluate
@@ -196,11 +197,16 @@ class Trainer:
     _BF16_SHIP_KEYS = ("x", "xi", "xa")
 
     def _put(self, batch: Dict, bf16_inputs: bool = False) -> Dict[str, torch.Tensor]:
+        """A loader's batch on the device: numpy arrays, host tensors (the
+        worker loader's, pinned on a card) or tensors already there (the
+        device cache's, already cast)."""
         out = {}
         for k, v in batch.items():
-            t = torch.from_numpy(v)
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
+            t = torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+            if t.device == self.device:
+                pass
+            elif self.device.type == "cuda":
+                t = (t if t.is_pinned() else t.pin_memory()).to(self.device, non_blocking=True)
             else:
                 t = t.to(self.device)
             if bf16_inputs and k in self._BF16_SHIP_KEYS and t.dtype == torch.float32:
@@ -212,12 +218,19 @@ class Trainer:
         datamodule.setup("fit")
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader()
+        if self.device_cache:
+            from omr_a2s_multimodal_transformer_tpu_torch.data.device_cache import DeviceCacheLoader
+
+            train_loader = DeviceCacheLoader(train_loader, self.device, cast_bf16=self.bf16_compute,
+                                             store_u8=self.device_cache_u8)
         start_epoch = 1
         best = float("inf")
         best_epoch = -1
         if self.state is None:
-            sample = next(iter(train_loader))
-            self.init_state(sample)
+            # JAX's init takes the loader's first batch, which moves its shuffle stream on one epoch; the port's
+            # init needs no batch, so the fit only moves the stream on (no batch rendered, no worker started)
+            train_loader._epoch_batches()
+            self.init_state()
             last = os.path.join(self.weights_dir, "last")
             if auto_resume and os.path.exists(last):
                 # crash/restart recovery: resume the latest full state AND
@@ -295,6 +308,12 @@ class Trainer:
                         self.logger.log({"early_stop_epoch": epoch, "best_val_sym-er": best}, step=step)
                         break
 
+        if self.device_cache:
+            self.logger.log({"device_cache_bytes": train_loader.nbytes(),
+                             "device_cache_samples": len(train_loader.ds)}, step=step)
+        # the worker loader's processes end with the fit, and the device cache's stacks leave the card
+        for loader in (train_loader, val_loader):
+            getattr(loader, "close", lambda: None)()
         # reload best weights (reference train.py:156-158)
         best_path = os.path.join(self.weights_dir, "best")
         if os.path.exists(best_path):

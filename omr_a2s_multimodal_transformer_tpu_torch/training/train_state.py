@@ -31,6 +31,7 @@ from torch.func import functional_call
 from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, check_module_device
 from omr_a2s_multimodal_transformer_tpu_torch.training.corruption import corrupt_tokens
 from omr_a2s_multimodal_transformer_tpu_torch.training.losses import cross_entropy_ignore_pad
+from omr_a2s_multimodal_transformer_tpu_torch.utils.debug import check_finite, check_token_ids, debug_checks_enabled
 
 
 def warmup_cosine(count: int, lr: float, warmup_steps: int, decay_steps: int) -> float:
@@ -130,9 +131,12 @@ def make_train_step(model: torch.nn.Module, vocab_size: int, teacher_forcing_pro
 
     ``generator`` (a torch.Generator on the model's device) drives token
     corruption and every dropout site. The model must live on ``device``
-    (``cuda`` unless the caller says otherwise).
+    (``cuda`` unless the caller says otherwise). Under
+    ``OMR_A2S_DEBUG_CHECKS`` (``utils/debug.py``) the step raises on token
+    ids outside the vocabulary and on a non-finite loss or gradient.
     """
     check_module_device(model, device)
+    checks = debug_checks_enabled()
 
     def loss_fn(batch: Dict[str, torch.Tensor], y_in: torch.Tensor, generator: torch.Generator,
                 modality: Optional[str]) -> torch.Tensor:
@@ -158,10 +162,16 @@ def make_train_step(model: torch.nn.Module, vocab_size: int, teacher_forcing_pro
         if multimodal != (modality is not None):
             raise ValueError(f"a {'multi' if multimodal else 'uni'}modal step takes "
                              f"{'a' if multimodal else 'no'} modality, got {modality!r}")
+        if checks:
+            check_token_ids("the batch's y_in", batch["y_in"], vocab_size)
+            check_token_ids("the batch's y_out", batch["y_out"], vocab_size)
         y_in = corrupt_tokens(generator, batch["y_in"], vocab_size, teacher_forcing_prob, pad_id)
         model.zero_grad(set_to_none=True)  # frozen groups too: their gradients enter the clip's norm
         loss = loss_fn(batch, y_in, generator, modality)
         loss.backward()
+        if checks:
+            check_finite("the train loss", [loss.detach()])
+            check_finite("the gradients", [p.grad for p in model.parameters()])
         state.apply_gradients()
         return state, loss.detach()
 

@@ -1,17 +1,44 @@
-"""Levenshtein distance over token sequences (numpy).
+"""Levenshtein distance over token sequences.
 
-Port of ``omr_a2s_multimodal_transformer_tpu/utils/edit_distance.py``,
-numpy path only: tokens are interned to int32 and the DP runs a row at a
-time in numpy ufuncs. The JAX package's optional native route
-(``native/libeditdist.so``) is not ported, and ``levenshtein`` never looks
-for it.
+Port of ``omr_a2s_multimodal_transformer_tpu/utils/edit_distance.py``:
+tokens are interned to int32 and the DP runs in C++ (the native route, the
+default: ``csrc/editdist.cpp`` ``levenshtein_i32``, built on first use by
+the host's C++ compiler, ``ops/cuda_build.py`` ``host_library``) or a row
+at a time in numpy ufuncs (``route="numpy"``, the plain version). A failed
+build raises with the compiler's output: no route falls back to another.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import numpy as np
+
+ROUTES = ("native", "numpy")
+_I32P = ctypes.POINTER(ctypes.c_int32)
+
+
+def native_library() -> ctypes.CDLL:
+    """``csrc/editdist.cpp`` built and loaded (once), its signatures set."""
+    from omr_a2s_multimodal_transformer_tpu_torch.ops.cuda_build import host_library
+
+    lib = host_library("editdist")
+    if not getattr(lib, "_signatures_set", False):
+        lib.levenshtein_i32.restype = ctypes.c_int64
+        lib.levenshtein_i32.argtypes = [_I32P, ctypes.c_int64, _I32P, ctypes.c_int64]
+        lib.smith_waterman_i32.restype = ctypes.c_int64
+        lib.smith_waterman_i32.argtypes = [
+            _I32P, ctypes.c_int64, _I32P, ctypes.c_int64,
+            ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+            _I32P, _I32P, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib._signatures_set = True
+    return lib
+
+
+def _lev_native(a: np.ndarray, b: np.ndarray) -> int:
+    return int(native_library().levenshtein_i32(a.ctypes.data_as(_I32P), len(a), b.ctypes.data_as(_I32P), len(b)))
 
 
 def _intern(a: Sequence, b: Sequence):
@@ -46,9 +73,13 @@ def _lev_numpy(a: np.ndarray, b: np.ndarray) -> int:
     return int(prev[n])
 
 
-def levenshtein(a: Sequence, b: Sequence) -> int:
-    """Edit distance between two token sequences (any hashable tokens)."""
-    return _lev_numpy(*_intern(a, b))
+def levenshtein(a: Sequence, b: Sequence, route: str = "native") -> int:
+    """Edit distance between two token sequences (any hashable tokens), by
+    the native route or the numpy one (``ROUTES``)."""
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {ROUTES}")
+    ia, ib = _intern(a, b)
+    return _lev_native(ia, ib) if route == "native" else _lev_numpy(ia, ib)
 
 
 def levenshtein_python(a: Sequence, b: Sequence) -> int:

@@ -73,7 +73,7 @@ def test_test_cli_evaluates_best_and_saves_preds(trained, tmp_path):
 UNPORTED = {
     "mesh_model": ["--mesh_model", "2"],
     "device_cache": ["--device_cache"],
-    "device_cache_u8": ["--device_cache_u8"],
+    "device_cache_u8": ["--device_cache", "--device_cache_u8"],
     "remat": ["--remat"],
     "cache_dtype_int8": ["--cache_dtype", "int8"],
     "cache_dtype_int4": ["--cache_dtype", "int4"],
@@ -83,19 +83,72 @@ UNPORTED = {
 UNPORTED_TEST = {
     "cache_dtype_int4": ["--cache_dtype", "int4"],
 }
+# flags that raised until their feature was ported: their cases now run it
+PORTED_TRAIN = ("device_cache", "device_cache_u8", "cache_dtype_int8", "cache_dtype_int4", "grain")
+PORTED_TEST = ("cache_dtype_int4",)
+
+
+def _fixture_run(ws, out, extra):
+    return train_cli.main(_common(ws) + ["--epochs", "2", "--check_val_every_n_epoch", "1", "--weights_dir",
+                                         str(out / "weights"), "--run_dir", str(out / "run"), "--no_bf16",
+                                         "--device", "cpu", "--use_flash_cross", "--attn_window", "10"] + extra)
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED))
-def test_train_cli_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_cli.main(_common(tmp_path) + ["--device", "cpu", "--weights_dir", str(tmp_path / "w")] + UNPORTED[flag])
-    assert not (tmp_path / "w").exists() and not (tmp_path / "cache").exists()  # raised before any work
+def test_train_cli_unported_flags_raise(trained, tmp_path, flag):
+    """A flag of a feature not ported yet raises before any work. The flags
+    ported since run the fixture's training with the flag on the CPU: the
+    device cache (u8 too) and the worker loader give the fixture's run
+    exactly (metrics, best/ and last/ weights: the same batches); an
+    int8/int4 cache trains the same and validates and tests by decoding
+    from the quantized cross K/V, its cache_dtype kept in the checkpoint."""
+    if flag not in PORTED_TRAIN:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            train_cli.main(_common(tmp_path) + ["--device", "cpu", "--weights_dir", str(tmp_path / "w")]
+                           + UNPORTED[flag])
+        assert not (tmp_path / "w").exists() and not (tmp_path / "cache").exists()  # raised before any work
+        return
+    ws, want = trained
+    got = _fixture_run(ws, tmp_path, UNPORTED[flag])
+    for tag in ("best", "last"):
+        a, b = (ckpt_lib.restore_checkpoint(str(d / "weights" / tag))["params"] for d in (ws, tmp_path))
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    if flag.startswith("cache_dtype"):
+        assert ckpt_lib.load_hparams(str(tmp_path / "weights" / "best"))["cache_dtype"] == UNPORTED[flag][1]
+        assert all(math.isfinite(got[k]) for k in ("best_val_sym-er", "test_sym-er", "test_seq-er"))
+        losses = [[json.loads(line)["train_loss"] for line in open(d / "run" / "metrics.jsonl")
+                   if "train_loss" in line] for d in (ws, tmp_path)]
+        assert losses[0] == losses[1]
+    else:
+        assert got == want
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED_TEST))
-def test_test_cli_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        test_cli.main(_common(tmp_path) + ["--device", "cpu", "--checkpoint_path", str(tmp_path)] + UNPORTED_TEST[flag])
+def test_test_cli_unported_flags_raise(trained, tmp_path, flag):
+    """--cache_dtype int4, ported since: cli.test of the fixture's best/
+    decodes from rank-1 int4 cross K/V, and gives the metrics and preds of
+    greedy decoding by the model built with that cache over the test split."""
+    from omr_a2s_multimodal_transformer_tpu_torch.training.decode import greedy_decode_fn
+    from omr_a2s_multimodal_transformer_tpu_torch.utils.metrics import compute_metrics
+
+    assert flag in PORTED_TEST
+    ws, _ = trained
+    preds = tmp_path / "preds.jsonl"
+    got = test_cli.main(_common(ws) + ["--device", "cpu", "--no_bf16", "--checkpoint_path", str(ws / "weights" / "best"),
+                                       "--run_dir", str(tmp_path / "t"), "--save_preds", str(preds)]
+                        + UNPORTED_TEST[flag])
+    model, _, _ = common.build_from_checkpoint(str(ws / "weights" / "best"), {"cache_dtype": "int4"}, device="cpu")
+    assert model.decoder.cache_dtype == "int4"
+    vocab, i2w, loader = _test_batches(ws, "image")
+    decode = greedy_decode_fn(model, model.max_seq_len, vocab.sos_id, vocab.eos_id)
+    y_true, y_pred = [], []
+    for b in loader:
+        tokens, _ = decode(torch.from_numpy(b["x"]), torch.from_numpy(b["x_hw"]))
+        y_pred += [[vocab.i2w[i] for i in row] for row in _rows(tokens, vocab.eos_id)]
+        y_true += _gt(b, i2w, vocab.eos_id)
+    assert got == {f"test_{k}": v for k, v in compute_metrics(y_true, y_pred).items()}
+    rows = [json.loads(line) for line in preds.read_text().splitlines()]
+    assert rows == [{"y_true": t, "y_pred": p} for t, p in zip(y_true, y_pred)]
 
 
 def test_accepted_jax_only_flags_change_nothing(trained, tmp_path):
@@ -511,8 +564,17 @@ def test_inference_cli_flags_are_the_jax_ones_and_device(name):
 
 
 @pytest.mark.parametrize("name", NEW_CLIS)
-def test_inference_clis_need_a_gpu_unless_told_cpu_and_refuse_int4(tmp_path, name):
+def test_inference_clis_need_a_gpu_unless_told_cpu_and_refuse_int4(av, rand, tmp_path, name):
+    """Without a GPU each CLI raises unless given --device cpu. --cache_dtype
+    int4, refused until it was ported, runs each on the random-weight
+    checkpoints: weighted_test and sw_test give finite metrics over the
+    test split, transcribe writes one .krn a .wav, serve answers a request;
+    each builds its models with the int4 cache."""
     import importlib
+
+    from scipy.io import wavfile
+
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import common as cli_common
 
     cli = importlib.import_module(f"omr_a2s_multimodal_transformer_tpu_torch.cli.{name}")
     if name in ("weighted_test", "sw_test"):
@@ -521,9 +583,41 @@ def test_inference_clis_need_a_gpu_unless_told_cpu_and_refuse_int4(tmp_path, nam
     else:
         argv = ["--checkpoint_path", str(tmp_path), "--vocab_path", str(tmp_path / "v.json")]
         argv += ["--inputs", str(tmp_path / "*.wav")] if name == "transcribe" else []
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(argv + ["--device", "cpu", "--cache_dtype", "int4"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(argv)
     assert not (tmp_path / "cache").exists()
+
+    ws, built = av["ws"], []
+    build = cli_common.build_from_checkpoint
+
+    def recording(path, hparams_override=None, device=None):
+        built.append((hparams_override or {}).get("cache_dtype"))
+        return build(path, hparams_override, device=device)
+
+    int4 = ["--device", "cpu", "--cache_dtype", "int4"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli_common, "build_from_checkpoint", recording)
+        if name in ("weighted_test", "sw_test"):
+            out = cli.main(_data(ws) + ["--image_checkpoint_path", str(rand["image"]), "--audio_checkpoint_path",
+                                        str(rand["audio"]), "--run_dir", str(tmp_path / "r")] + int4)
+            assert all(map(math.isfinite, out.values())) and "sym-er" in out
+        elif name == "transcribe":
+            for i, (_, wave) in enumerate(_test_inputs(2)):
+                wavfile.write(str(tmp_path / f"s{i}.wav"), 22050, wave)
+            n = cli.main(["--checkpoint_path", str(rand["audio"]), "--vocab_path", _vocab_path(ws), "--inputs",
+                          str(tmp_path / "*.wav"), "--out_dir", str(tmp_path / "krn")] + int4)
+            assert n == 2 and all((tmp_path / "krn" / f"s{i}.krn").read_text().startswith("**kern") for i in range(2))
+        else:
+            args = cli.build_parser().parse_args(["--checkpoint_path", str(rand["image"]), "--vocab_path",
+                                                  _vocab_path(ws), "--port", "0", "--image_height", "64",
+                                                  "--image_widths", "96"] + int4)
+            server, httpd, modality = cli.start(args)
+            try:
+                result = server.transcribe(_test_inputs(1)[0][0], timeout=120)
+                assert modality == "image" and result.tokens
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                server.stop(timeout=120)
+    assert built and set(built) == {"int4"}

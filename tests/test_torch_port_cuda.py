@@ -131,6 +131,72 @@ def test_flash_kernels_match_plain_on_gpu(case):
     np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.detach().cpu().numpy(), rtol=1e-4, atol=1e-4)
 
 
+def _audio_shape_inputs(dev, seed=14):
+    """The audio cli run's first K2 call, in shape: B 8, Lq 670, Lk 1,261,
+    a 13 x 97 memory grid whose valid keys are each grid row's first
+    ceil(frames / 8) columns (memory_valid_from_hw of 0.3-18 s waves), so
+    short ragged key bands."""
+    b, lq, rows, cols = 8, 670, 13, 97
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, n, H * 64)).astype(np.float32)).to(dev, torch.bfloat16)
+                   for n in (lq, rows * cols, rows * cols, lq))
+    widths = rng.integers(8, cols + 1, size=b)
+    widths[0] = cols
+    kv_valid = torch.from_numpy(np.arange(cols)[None, None, :] < widths[:, None, None]).expand(b, rows, cols)
+    kv_len = torch.full((b,), rows * cols, dtype=torch.int32, device=dev)
+    return q, k, v, do, kv_len, kv_valid.reshape(b, rows * cols).contiguous().to(dev)
+
+
+def _dq_float64(q, k, v, do, kv_len, kv_valid, seed, rate, bq, bk):
+    """dq of the flash function in float64 from the same bf16 inputs and
+    keep-mask: p and ds unrounded."""
+    b, lq, _ = q.shape
+    lk = k.shape[1]
+    qd = q.double().requires_grad_()
+    qh, kh, vh = (fp._heads(t, H) for t in (qd, k.double(), v.double()))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) / 8.0
+    see = (kv_valid & (torch.arange(lk, device=q.device)[None, :] < kv_len[:, None]))[:, None, None, :]
+    p = torch.softmax(torch.where(see, s, -1e300), dim=-1)
+    if rate > 0.0:
+        keep = fp.keep_mask(int(seed), b, H, lq, lk, rate, q.device, bq, bk)
+        p = torch.where(keep, p / fp._keep_den(rate), 0.0)
+    o = torch.matmul(p, vh).transpose(1, 2).reshape(b, lq, H * 64)
+    (dq,) = torch.autograd.grad(o, qd, do.double())
+    return dq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_merged_backward_dq_at_the_audio_shape_against_float64(rate):
+    """At the audio run's shape (B 8, Lq 670, Lk 1,261 in 13 x 97 key
+    bands, ragged), on seeded normal inputs: against dq in float64, K2's
+    error must be of the size of K3a's (whose f32 partials are summed in a
+    fixed order), within 1.5x and 2e-3 of max |dq|, where a fault in K2's
+    reduce-add of its dq partials would show as a larger error. The cli
+    run's own inputs, where K2's dq lay 1.13e-2 of max |plain| from the
+    float32 plain version, are read the same way by chip_smoke.py's
+    check_cli_flash. The numbers are printed for the record."""
+    dev = _cuda()
+    q, k, v, do, kv_len, kv_valid = _audio_shape_inputs(dev)
+    seed = torch.tensor([23], dtype=torch.int32, device=dev)
+    bq, bk = fp.mask_geometry(q.shape[1], k.shape[1])
+    o, lse = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, rate, H, bq, bk)
+    dq_k2 = fp.flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, rate, H, bq, bk)[0]
+    dq_k3a = fp.flash_dq_cuda(q, k, v, kv_len, kv_valid, seed, do, lse, fp.attention_delta(do, o, H), rate, H, bq,
+                              bk)
+    qr = q.clone().requires_grad_()
+    o_p, _ = fp.flash_attention_plain(qr, k, v, kv_len, kv_valid, seed, rate, H, block_q=bq, block_k=bk)
+    (dq_plain,) = torch.autograd.grad(o_p, qr, do)
+    dq64 = _dq_float64(q, k, v, do, kv_len, kv_valid, seed, rate, bq, bk)
+    scale = float(dq64.abs().max())
+    err = {name: float((t.double() - dq64).abs().max()) / scale
+           for name, t in (("K2", dq_k2), ("K3a", dq_k3a), ("plain f32", dq_plain))}
+    err["K2 vs plain f32"] = float((dq_k2.float() - dq_plain.float()).abs().max()) / float(dq_plain.float().abs().max())
+    print(f"dq at B 8, Lq 670, Lk 1261, dropout {rate}: error over max |dq64| {err}")
+    assert err["K2"] <= 1.5 * err["K3a"] + 2e-3, err
+    assert max(err.values()) <= REL_TOL, err
+
+
 @pytest.mark.cuda
 def test_merged_backward_dk_dv_are_deterministic_on_gpu():
     """K2 writes each dk and dv row once: two runs give the same bits (dq is
@@ -1026,3 +1092,90 @@ def test_beam_server_and_resize_on_gpu_match_cpu():
     torch.testing.assert_close(gpu["beam"][1], cpu["beam"][1], rtol=0, atol=1e-4)
     for key in ("image", "fused", "image_stats", "fused_stats"):
         assert gpu[key] == cpu[key], key
+
+
+# ------------------------------------------------------------ quantized decode and the device cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["int8", "int4"])
+def test_quantized_decode_step_on_gpu_matches_dequantized_float32(cache_dtype):
+    """One single-query cross-attention step from int8 / rank-1 int4 codes
+    on the card (B 4, S 1,261, D 256, 4 heads, ragged mask): within 1e-2 of
+    max |ref| of attention in float32 over the explicitly dequantized K/V
+    (the quantized path rounds q and the softmax weights to bf16), and
+    within 1e-4 of the same call on the CPU (another float32 summation
+    order: a weight by a bf16 rounding boundary may round the other way,
+    one bf16 ulp, 2^-8 of the weight; int4 gave 2.7e-5). The codes and
+    scales equal the CPU's quantizer's. A tiny model's greedy decode with
+    that cache gives the CPU's tokens."""
+    from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
+    from omr_a2s_multimodal_transformer_tpu_torch.models.decoder import quantize_cross
+    from omr_a2s_multimodal_transformer_tpu_torch.ops.attention import attend_packed_single_query, unpack_int4
+    from omr_a2s_multimodal_transformer_tpu_torch.training.decode import greedy_decode_fn
+
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    b, s, d = 4, 1261, 256
+    k, v = (torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)).to(dev) for _ in range(2))
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+    valid = torch.arange(s, device=dev)[None, :] < torch.tensor([s, 900, 500, 77], device=dev)[:, None]
+    bias = torch.where(valid, 0.0, -1e9)
+    qk, qv = quantize_cross(k, cache_dtype), quantize_cross(v, cache_dtype)
+
+    def dequant(e):
+        codes = (unpack_int4(e["q"]) if cache_dtype == "int4" else e["q"]).float()
+        if "tscale" in e:
+            codes = codes * e["tscale"][:, :, None]
+        return codes * e["scale"][:, None, :]
+
+    kw = dict(k_scale=qk["scale"], v_scale=qv["scale"], k_tscale=qk.get("tscale"), v_tscale=qv.get("tscale"))
+    got = attend_packed_single_query(q, qk["q"], qv["q"], H, bias, **kw)
+    ref = attend_packed_single_query(q, dequant(qk), dequant(qv), H, bias)
+    cpu = attend_packed_single_query(q.cpu(), qk["q"].cpu(), qv["q"].cpu(), H, bias.cpu(),
+                                     **{n: None if t is None else t.cpu() for n, t in kw.items()})
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-2 * scale
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-4 * scale
+    for e, t in ((qk, k), (qv, v)):
+        host = quantize_cross(t.cpu(), cache_dtype)
+        assert all(torch.equal(e[n].cpu(), host[n]) for n in host)
+
+    hp = dict(vocab_size=31, max_seq_len=12, input_modality="image", cache_dtype=cache_dtype, encoder_dropout=0.0,
+              decoder_dropout=0.0, pos_dropout=0.0)
+    x = torch.from_numpy(rng.uniform(size=(2, 32, 64, 1)).astype(np.float32))
+    hw = torch.tensor([[32, 64], [25, 44]], dtype=torch.int32)
+    tokens = [greedy_decode_fn(build_model(hp, device=device, seed=6)[0], 12, 1, 31)(x.to(device), hw.to(device))[0]
+              .cpu() for device in ("cpu", dev)]
+    assert torch.equal(tokens[0], tokens[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cast_bf16", [True, False], ids=["bf16", "f32"])
+def test_device_cache_gathers_on_gpu_equal_the_host_loader(tmp_path, cast_bf16):
+    """The device cache on the card (u8 images for the image corpus, the
+    bf16 cast of the multimodal one's spectrograms): every batch of two
+    epochs bit-equal to the streaming loader's batch moved to the card and
+    cast as the Trainer casts it."""
+    from omr_a2s_multimodal_transformer_tpu_torch.data.dataset import ARDataModule
+    from omr_a2s_multimodal_transformer_tpu_torch.data.device_cache import DeviceCacheLoader
+
+    dev = _cuda()
+    syn = dict(n=7, img_height_range=[32, 33], img_width_range=[64, 96], audio_seconds_range=[0.3, 0.5],
+               n_measures=1)
+    for modality in ("image", "both"):
+        dm = ARDataModule("synthetic", krn_encoding="kern", input_modality=modality, batch_size=3, num_workers=2,
+                          synthetic=True, synthetic_kwargs=syn, cache_root=str(tmp_path / modality))
+        dm.setup("fit")
+        stream = dm.train_dataloader()
+        cache = DeviceCacheLoader(dm.train_dataloader(), dev, cast_bf16=cast_bf16, store_u8=True)
+        for _epoch in range(2):
+            for s, c in zip(stream, cache):
+                for k, t in s.items():
+                    want = torch.from_numpy(t).to(dev)
+                    if cast_bf16 and k in ("x", "xi", "xa"):
+                        want = want.to(torch.bfloat16)
+                    assert c[k].device.type == "cuda" and c[k].dtype == want.dtype, k
+                    assert torch.equal(c[k], want), k
+        assert cache._stacks[{"image": "x", "both": "xi"}[modality]].dtype == torch.uint8

@@ -186,10 +186,11 @@ def test_compute_ed_metrics_equals_jax(seed):
 
 
 def test_unported_data_paths_raise(tmp_path):
-    """The grain loader raises; MV2H, the audio frontend, the multimodal
-    collate and the audio/both datasets are ported
+    """Every data path is ported now: MV2H, the audio frontend, the
+    multimodal collate and the audio/both datasets
     (tests/test_torch_port_mv2h.py and test_torch_port_audio.py hold them
-    against the JAX package)."""
+    against the JAX package), and the grain loader, whose worker processes
+    give the thread loader's batches (tests/test_torch_port_loader.py)."""
     rows = [["*clefG2", "<cor>", "4c", "<cor>", "=", "<cor>"]]
     got = pmetrics.compute_metrics(rows, rows, compute_mv2h=True)
     assert got == jmetrics.compute_metrics(rows, rows, compute_mv2h=True) and got["mv2h"] == 1.0
@@ -197,8 +198,13 @@ def test_unported_data_paths_raise(tmp_path):
         ds = pds.ARDataset("synthetic", "train", krn_encoding="kern", input_modality=modality, synthetic=True,
                            synthetic_kwargs=SYN, cache_root=str(tmp_path))
         assert set(ds[0]) == ({"x", "y"} if modality == "audio" else {"xi", "xa", "y"})
-    with pytest.raises(NotImplementedError):
-        pds.ARDataModule("synthetic", input_modality="image", loader_backend="grain")
+    kw = dict(krn_encoding="kern", input_modality="image", batch_size=3, num_workers=2, synthetic=True,
+              synthetic_kwargs=SYN, cache_root=str(tmp_path))
+    threads, grain = (pds.ARDataModule("synthetic", loader_backend=b, **kw) for b in ("threads", "grain"))
+    for dm in (threads, grain):
+        dm.setup("test")
+    got = [{k: np.asarray(v) for k, v in b.items()} for b in grain.test_dataloader()]
+    _assert_batches_equal(threads.test_dataloader(), got, "grain")
 
 
 def test_loader_stops_its_producer_and_raises_its_errors(tmp_path):

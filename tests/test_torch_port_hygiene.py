@@ -84,14 +84,30 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
 
 
 def test_unported_options_raise():
+    """remat and memory_partition raise for every modality; the int8 and
+    int4 cache dtypes, ported since, build every modality and decode a
+    step from their quantized cross K/V (tests/test_torch_port_quant_decode.py
+    holds them against JAX)."""
     from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
 
     base = dict(vocab_size=11, max_seq_len=4, input_modality="image")
-    for over in (dict(cache_dtype="int8"), dict(cache_dtype="int4"), dict(remat=True),
-                 dict(memory_partition=("data", "model", None))):
+    for over in (dict(remat=True), dict(memory_partition=("data", "model", None))):
         for modality in ("image", "audio", "both"):
             with pytest.raises(NotImplementedError):
                 build_model({**base, **over, "input_modality": modality}, device="cpu")
+    x = {"image": torch.rand(2, 32, 64, 1), "audio": torch.rand(2, 195, 24, 1)}
+    for cache_dtype, codes in (("int8", torch.int8), ("int4", torch.uint8)):
+        for modality in ("image", "audio", "both"):
+            model, _ = build_model({**base, "cache_dtype": cache_dtype, "input_modality": modality}, device="cpu")
+            with torch.no_grad():
+                inputs = (x["image"], x["audio"]) if modality == "both" else (x[modality],)
+                cross, valid = model.decode_prefill(*inputs)
+                logits, _ = model.decode_step(torch.ones(2, dtype=torch.long), 0, model.decode_init_cache(2), cross,
+                                              valid)
+            entry = cross["layer0"]
+            assert entry["k"].dtype == codes and entry["k_scale"].shape == (2, 256)
+            assert ("k_tscale" in entry) == (cache_dtype == "int4")
+            assert logits.shape == (2, 11) and bool(torch.isfinite(logits).all())
     for mode in ("widened", "patched", "auto"):  # a TPU layout of the same convolutions: accepted, read nowhere
         build_model({**base, "packed_stem": True, "conv_mode": mode, "remat": False, "memory_partition": None},
                     device="cpu")

@@ -359,9 +359,12 @@ def test_trainer_arguments_that_raise(start, tmp_path):
     tmp, dj, dp, hp, p0 = start
     with pytest.raises(ValueError, match="nope"):
         _port_trainer(start, tmp_path / "w", tmp_path / "r", epochs=1, train_only=("nope",))
-    for over in (dict(mesh=object()), dict(device_cache=True), dict(device_cache_u8=True)):
-        with pytest.raises(NotImplementedError):
-            _port_trainer(start, tmp_path / "w", tmp_path / "r", epochs=1, **over)
+    with pytest.raises(NotImplementedError):
+        _port_trainer(start, tmp_path / "w", tmp_path / "r", epochs=1, mesh=object())
+    # the device cache is ported (tests/test_torch_port_device_cache.py): its flags are kept for fit
+    for over in (dict(device_cache=True), dict(device_cache=True, device_cache_u8=True)):
+        pt = _port_trainer(start, tmp_path / "w", tmp_path / "r", epochs=1, **over)
+        assert (pt.device_cache, pt.device_cache_u8) == (True, "device_cache_u8" in over)
     # beam search and MV2H are ported (test_evaluate_with_beam_and_mv2h_matches_jax)
     pt = _port_trainer(start, tmp_path / "w", tmp_path / "r", epochs=1, beam_size=4, length_penalty=0.6,
                        compute_mv2h=True)
