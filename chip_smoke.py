@@ -51,7 +51,7 @@ Phases, each of which raises on failure (exit code 1):
        dk/dv at the legacy cross shape in float32 D 64, float16 D 64 and
        bf16 D 192, each against the plain version, with its bound, plain
        time and SDPA's forward or backward (event and device time);
-  3. eight paths, each with every kernel's launch count set to 0 just
+  3. nine paths, each with every kernel's launch count set to 0 just
      before it (the serve path: before each of its steps) and read just
      after:
      - stem path: fused_packed_block forward and backward at the three
@@ -131,6 +131,34 @@ Phases, each of which raises on failure (exit code 1):
        function on the CPU, tokens (4, max_seq_len). It logs decode ms,
        steps and ms a step, each request's latency, batch_stats, peak
        memory and the path's wall time.
+     - parallel path (its single-process part, up to the shard
+       kernels, runs before the cli path: after the cli and serve paths
+       this process's profiler traces held no kernel on the H100): the
+       single-process reference, one step of the
+       paper model at full width (b8, bf16, flash cross-attention, dropout
+       and teacher forcing off); remat against no remat on the paper and
+       the gated attn_both multimodal model (b8, dropout on, the same
+       generator state: gradients within REMAT_TOL, peak and step time
+       both ways; a traced step's random-number kernels); K1/K2 at the dp
+       and tp shard shapes alone (device times, the key splits from their
+       launch grids); two ranks on the one card (spawned processes, gloo),
+       each on a dp 2 x 1 and then a tp 1 x 2 mesh: one dropout-0 step
+       with a global-norm clip that fires against the reference (loss and
+       gathered gradients after the clip within PAR_TOL, their global norm
+       the clip's within PAR_CLIP_TOL, at most PAR_OTHERWISE_MAX of the
+       parameter elements updated otherwise), K1 and K2 8 launches a step
+       counted from 0, two dropout steps with finite losses, a third traced
+       (its random-number kernels, K1 and K2 8 each in the rank's trace),
+       K1/K2 held to their plain version on their first call at the
+       shard's shape with the mixed seed and K4's masks of that seed equal
+       to the plain hash, under tp memory_partition's loss equal to the
+       unpartitioned one; then cli.train under
+       torch.distributed.run --nproc_per_node 2 on the cli path's corpus
+       (dp for one epoch, then tp --mesh_model 2 resuming it for a second)
+       and cli.test of its best/ on two ranks, whose metrics must equal
+       the single-process cli.test's (the prediction rows that differ are
+       counted). The two ranks share the card: their times are not
+       scaling figures.
      K5a and K5b launch on the stem path only: no model calls the fused
      block, as in the JAX package (fused_stem.py:24-35); L1-L2c on the
      legacy path only (no model calls them either).
@@ -961,10 +989,10 @@ def stem_rows(rows, launches, errs):
     return out
 
 
-def build(dev, **hp):
-    hp = dict(vocab_size=VOCAB, max_seq_len=LQ, input_modality="image", use_flash_cross=True,
-              cache_dtype="bfloat16", **hp)
-    model, _ = build_model(hp, device=dev, seed=0)
+def build(dev, mesh=None, **hp):
+    hp = {**dict(vocab_size=VOCAB, max_seq_len=LQ, input_modality="image", use_flash_cross=True,
+                 cache_dtype="bfloat16"), **hp}
+    model, _ = build_model(hp, device=dev, seed=0, mesh=mesh)
     return model
 
 
@@ -1972,8 +2000,8 @@ def loader_run(dev, tag: str, extra, threads_epoch: dict) -> dict:
     puts, trainers = [], []
     put, fit = loop.Trainer._put, loop.Trainer.fit
 
-    def first_put(self, batch, bf16_inputs=False):
-        b = put(self, batch, bf16_inputs)
+    def first_put(self, batch, **kw):
+        b = put(self, batch, **kw)
         if not puts:
             puts.append({k: v.clone() for k, v in b.items()})
         return b
@@ -2528,6 +2556,484 @@ def serve_path(dev, out_dir: Path, vocab) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ the parallel path
+# Two ranks on the one card (gloo: NCCL refuses two ranks on one GPU), each a process of its own. The ranks share
+# the card, so their times are not scaling figures: each rank's step runs beside the other's.
+PAR_WS = ROOT / "build" / "chip_smoke_parallel"
+PAR_MESHES = (("dp", 1), ("tp", 2))  # the 2-rank mesh: model ranks
+PAR_NO_DROPOUT = dict(encoder_dropout=0.0, decoder_dropout=0.0, pos_dropout=0.0)
+PAR_LR = 1e-4
+# the dropout-0 step's global-norm clip: far below the paper model's gradient norm at its seeded weights, so it
+# fires; the gradients after it, gathered to full tensors, must have the global norm PAR_CLIP to PAR_CLIP_TOL
+# (relative) in the reference and in every rank: a mesh norm that counted a replicated parameter twice or a
+# sharded one in part would scale them otherwise (Adam's first step, lr * g / |g|, does not show the clip)
+PAR_CLIP = 0.1
+PAR_CLIP_TOL = 1e-3
+# a dp/tp step's loss and gradients against the single-process step's on the card: bf16 scale (other batch
+# splits and row-parallel sums round the bf16 products elsewhere; JAX holds its model forward under a mesh
+# to 2e-2, tests/test_flash_sharded.py:58)
+PAR_TOL = 2e-2
+# the share of parameter elements whose update differs from the single-process one by more than 1e-3 x lr:
+# Adam's first step moves each by lr times the sign of its gradient, which the bf16 rounding above flips where
+# the gradient is near 0, and, where the clip has brought a gradient near Adam's eps, by less than lr, which that
+# rounding changes too (PERF.md: 4.5% under dp and 5.9% under tp unclipped, 7.7% and 10.2% clipped at 0.1);
+# twice the larger
+PAR_OTHERWISE_MAX = 0.2
+PARTITION_TOL = 1e-5  # memory_partition's loss against the unpartitioned one (JAX: tests/test_parallel.py:138)
+# remat against no remat, same generator state: the whole gradient's relative L2 distance (the backward's own
+# run-to-run spread on the card: cuDNN's and K2's atomics, bf16)
+REMAT_TOL = 1e-2
+PAR_RANK_TIMEOUT_S = 900
+
+
+def _global_norm(grads: dict) -> float:
+    return sum(float(g.double().square().sum()) for g in grads.values()) ** 0.5
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    num = sum(float((got[k].double() - want[k].double()).square().sum()) for k in want)
+    den = sum(float(want[k].double().square().sum()) for k in want)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def rng_device_ms(fn, path: Path) -> dict:
+    """Device time of one train step fn(): all its kernels, and the random-number kernels among them
+    (PyTorch's distribution kernels: every dropout draw and token corruption), from a profiler trace that holds
+    its 8 K1 and 8 K2 launches (taken again, with another step, up to TRACE_TRIES times)."""
+    for _ in range(TRACE_TRIES):
+        events = traced_kernels(fn, 1, path)
+        flash = {"K1": sum("flash_fwd_tma" in e["name"] and "merge" not in e["name"] for e in events),
+                 "K2": sum("flash_bwd_kernel" in e["name"] for e in events)}
+        if flash == {"K1": 8, "K2": 8}:
+            break
+        TRACES["retaken"] += 1
+    rng = [e["dur"] for e in events if "distribution" in e["name"]]
+    return dict(rng_ms=sum(rng) / 1e3, rng_kernels=len(rng), all_ms=sum(e["dur"] for e in events) / 1e3,
+                flash_kernels=flash)
+
+
+def parallel_reference(dev) -> dict:
+    """The single-process step the ranks are held to: the paper model at full width (b8 361x4416, bf16, flash
+    cross-attention), dropout and teacher forcing off, one Adam step; its loss, gradients and updated
+    parameters go to PAR_WS/reference.pt."""
+    model = build(dev, attn_window=WINDOW, packed_stem=True, **PAR_NO_DROPOUT)
+    batch = train_batch(dev, torch.Generator(device=dev).manual_seed(2))
+    step = make_train_step(model, VOCAB, teacher_forcing_prob=0.0, bf16_compute=True)
+    state, loss = step(TrainState.create(model, lr=PAR_LR, clip_norm=PAR_CLIP), batch,
+                       torch.Generator(device=dev).manual_seed(3))
+    ref = dict(loss=float(loss), grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+               params={n: p.detach().cpu() for n, p in model.named_parameters()})
+    norm = _global_norm(ref["grads"])
+    torch.save(ref, PAR_WS / "reference.pt")
+    log(f"[parallel] single-process reference step: loss {ref['loss']:.6f}, clipped gradients' norm {norm:.6f}")
+    if not abs(norm / PAR_CLIP - 1) <= PAR_CLIP_TOL:
+        raise AssertionError(f"the reference step's clip ({PAR_CLIP}) left the gradients' norm at {norm}")
+    del model, step, state
+    torch.cuda.empty_cache()
+    return ref
+
+
+def remat_phase(dev) -> dict:
+    """The paper and the multimodal (gated attn_both) models, b8 at full width, bf16, dropout on, one train step
+    each with and without remat from the same generator state: the gradients must agree within REMAT_TOL; the
+    peak memory and the step's host time both ways."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = train_batch(dev, g)
+    audio_w = 776  # 18 s of audio: 1,261 memory keys (13 x 97), the cli path's audio bucket
+    xa = torch.rand((B, 195, audio_w, 1), generator=g, device=dev)
+    xa_hw = torch.tensor([[195, audio_w - 40 * i] for i in range(B)], dtype=torch.int32, device=dev)
+    mm_batch = {"xi": batch["x"], "xi_hw": batch["x_hw"], "xa": xa, "xa_hw": xa_hw, "y_in": batch["y_in"],
+                "y_out": batch["y_out"]}
+    out = {}
+    for tag, hp, b, modality in (
+            ("paper", {}, batch, None),
+            ("multimodal", dict(input_modality="both", mixer_type="attn_both", mixer_residual=True), mm_batch, "both")):
+        runs = {}
+        for remat in (False, True):
+            model = build(dev, attn_window=WINDOW, packed_stem=True, remat=remat, **hp)
+            step = make_train_step(model, VOCAB, teacher_forcing_prob=0.2, bf16_compute=True,
+                                   multimodal=modality is not None)
+            state = TrainState.create(model, lr=PAR_LR)
+            times = []
+            for i in range(2):  # the first call builds; the second is timed
+                gen = torch.Generator(device=dev).manual_seed(7)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state, loss = step(state, b, gen, *(() if modality is None else (modality,)))
+                loss = float(loss)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+                    first_loss = loss
+            runs[remat] = dict(loss=first_loss, grads=grads, step_ms=times[-1],
+                               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            if tag == "paper" and not remat:  # the single-process step's random-number work, for the ranks'
+                runs[remat]["rng"] = rng_device_ms(lambda: step(state, b, gen), PAR_WS / "rng_single.json")
+            del model, step, state
+            torch.cuda.empty_cache()
+        rel = _rel_l2(runs[True]["grads"], runs[False]["grads"])
+        row = {("remat" if k else "plain"): dict(loss=v["loss"], step_ms=v["step_ms"], peak_gib=v["peak_gib"],
+                                                 **({"rng": v["rng"]} if "rng" in v else {}))
+               for k, v in runs.items()}
+        out[tag] = dict(row, grad_rel_l2=rel)
+        log(f"[parallel remat {tag}] loss {runs[False]['loss']:.5f} / {runs[True]['loss']:.5f}, gradients' relative "
+            f"L2 distance {rel:.3e} (tolerance {REMAT_TOL:g}); peak {row['plain']['peak_gib']:.2f} -> "
+            f"{row['remat']['peak_gib']:.2f} GiB, step {row['plain']['step_ms']:.1f} -> {row['remat']['step_ms']:.1f} ms")
+        if not rel <= REMAT_TOL or not runs[True]["grads"].keys() == runs[False]["grads"].keys():
+            raise AssertionError(f"remat {tag}: gradients {rel:.3e} from the plain step's")
+    return out
+
+
+def keep_masks_equal(args) -> dict:
+    """K4's export of the keep masks of a K1 call's (mixed) seed against the plain hash, bit for bit."""
+    q, k, v, kv_len, kv_valid, seed, rate, heads, bq, bk = args
+    b, lq, lk = q.shape[0], q.shape[1], k.shape[1]
+    got = fp.export_keep_masks(int(seed), b, heads, lq, lk, dropout_rate=rate, block_q=bq, block_k=bk, device=q.device)
+    lq_p, lk_p = got.shape[2], got.shape[3]
+    want = fp.keep_mask(int(seed), b, heads, lq_p, lk_p, rate, q.device, bq, bk)
+    if not torch.equal(got, want):
+        raise AssertionError("K4's keep masks of the mixed seed differ from the plain hash")
+    return dict(seed=int(seed), shape=list(got.shape), kept=float(got.float().mean()))
+
+
+def parallel_rank_mesh(dev, mesh, tag: str, ref: dict) -> dict:
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel import tp
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import shard_batch
+
+    who = f"parallel {tag} rank {mesh.rank}"
+    out = {}
+    # one deterministic step against the single-process step
+    model = build(dev, mesh, attn_window=WINDOW, packed_stem=True, **PAR_NO_DROPOUT)
+    local = shard_batch(train_batch(dev, torch.Generator(device=dev).manual_seed(2)), mesh)
+    step = make_train_step(model, VOCAB, teacher_forcing_prob=0.0, bf16_compute=True)
+    reset_counts()
+    state, loss = step(TrainState.create(model, lr=PAR_LR, clip_norm=PAR_CLIP), local, mesh.generator(dev, 3))
+    loss = float(loss)
+    counts = read_counts()
+    specs = model.tp_specs
+    grads = {n: tp.gather_full(p.grad, specs[n], mesh).cpu() for n, p in model.named_parameters()}
+    params = {k: v.cpu() for k, v in tp.full_state_dict(model, mesh).items() if k in ref["params"]}
+    moved = max(float((params[k] - ref["params"][k]).abs().max()) for k in ref["params"])
+    differ = sum(int(((params[k] - ref["params"][k]).abs() > 1e-3 * PAR_LR).sum()) for k in ref["params"])
+    total = sum(v.numel() for v in ref["params"].values())
+    out["step"] = dict(loss=loss, loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]), grad_rel_l2=_rel_l2(grads, ref["grads"]),
+                       clipped_grad_norm=_global_norm(grads), param_max_abs_over_lr=moved / PAR_LR,
+                       params_updated_otherwise=differ / total,
+                       local_rows=int(local["x"].shape[0]), local_heads=model.decoder.layers[0].self_attn.heads,
+                       launches=counts)
+    log(f"[{who}] step at dropout 0: {out['step']}")
+    want = {name: 8 if name in ("K1 flash fwd", "K2 flash bwd") else 0 for name in KERNELS}
+    if counts != want:
+        raise AssertionError(f"{who}: launched {counts}, expected {want}")
+    st = out["step"]
+    if not (st["loss_rel"] <= PAR_TOL and st["grad_rel_l2"] <= PAR_TOL and st["params_updated_otherwise"] <= PAR_OTHERWISE_MAX
+            and abs(st["clipped_grad_norm"] / PAR_CLIP - 1) <= PAR_CLIP_TOL):
+        raise AssertionError(f"{who}: the step differs from the single-process step: {st}")
+    del model, step, state, grads, params
+    torch.cuda.empty_cache()
+
+    # two steps at the default dropouts (stem 0.5, decoder and positions 0.1, teacher forcing 0.2)
+    model = build(dev, mesh, attn_window=WINDOW, packed_stem=True)
+    step = make_train_step(model, VOCAB, teacher_forcing_prob=0.2, bf16_compute=True)
+    state, gen = TrainState.create(model, lr=PAR_LR), mesh.generator(dev, 3)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    with FirstCalls() as first:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, local, gen)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if counts != {name: 2 * n for name, n in want.items()} or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{who}: dropout steps launched {counts}, losses {losses}")
+    # a third step, traced: the random-number kernels of the global-shape draws, on this rank alone
+    rng = rng_device_ms(lambda: step(state, local, gen), PAR_WS / f"rng_{tag}_{mesh.rank}.json")
+    # the rank's own trace of one step (the launch counts above are the gate; a trace that recorded no kernel at
+    # all, the profiler's known fault, is logged and not held)
+    if rng["all_ms"] > 0 and rng["flash_kernels"] != {"K1": 8, "K2": 8}:
+        raise AssertionError(f"{who}: a traced step ran {rng['flash_kernels']} flash kernels")
+    del model, step, state
+    torch.cuda.empty_cache()
+    errs = check_cli_flash(first.args, who)  # K1/K2 against the plain version at the shard's shape, mixed seed
+    masks = keep_masks_equal(first.args["K1 flash fwd"])
+    out["dropout"] = dict(losses=losses, step_ms=times, peak_gib=peak, launches=counts, max_abs_err=errs, rng=rng,
+                          keep_masks=masks, mixed_seed_part=fp.shard_seed(mesh.data_index, mesh.model_index,
+                                                                          fp.shard_heads(HEADS, 64, mesh.model)))
+    log(f"[{who}] dropout steps: losses {losses}, {times[-1]:.1f} ms (the other rank's step on the same card), "
+        f"peak {peak:.2f} GiB; K4 masks of seed {masks['seed']} equal the plain hash; a traced step's random-number "
+        f"kernels {rng['rng_ms']:.3f} ms of {rng['all_ms']:.1f} ms device time")
+    del first
+    if mesh.model > 1:  # memory_partition: the memory held split over S across the model ranks
+        out["memory_partition"] = partition_check(dev, mesh, local)
+    return out
+
+
+def partition_check(dev, mesh, local) -> dict:
+    from torch.func import functional_call
+
+    from omr_a2s_multimodal_transformer_tpu_torch.training.losses import cross_entropy_sums
+
+    res = {}
+    for tag, part in (("plain", None), ("partitioned", ("data", "model", None))):
+        model = build(dev, mesh, attn_window=WINDOW, packed_stem=True, memory_partition=part, **PAR_NO_DROPOUT)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
+        logits = functional_call(model, params, (local["x"].to(torch.bfloat16), local["x_hw"], local["y_in"]))
+        nll, count = cross_entropy_sums(logits, local["y_out"])
+        loss = nll / count
+        loss.backward()
+        torch.cuda.synchronize()
+        res[tag] = dict(loss=float(loss.detach()), peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del model, params, logits, loss
+        torch.cuda.empty_cache()
+    rel = abs(res["partitioned"]["loss"] - res["plain"]["loss"]) / abs(res["plain"]["loss"])
+    log(f"[parallel memory_partition rank {mesh.rank}] {res}, relative difference {rel:.2e}")
+    if rel > PARTITION_TOL:
+        raise AssertionError(f"memory_partition changed the loss: {res}")
+    return dict(res, rel=rel)
+
+
+def parallel_rank(rank: int, port: int, world: int = 2) -> None:
+    """One rank of the parallel path (a process of its own): gloo over the one card; the dp 2 x 1 and the tp
+    1 x 2 mesh in turn; its result to PAR_WS/rank{rank}.json."""
+    import torch.distributed as dist
+
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
+
+    global OUT_DIR
+    OUT_DIR = PAR_WS
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
+                            timeout=__import__("datetime").timedelta(seconds=PAR_RANK_TIMEOUT_S))
+    try:
+        ref = torch.load(PAR_WS / "reference.pt", weights_only=True)
+        out = {}
+        for tag, model_axis in PAR_MESHES:
+            out[tag] = parallel_rank_mesh(dev, make_mesh(model=model_axis), tag, ref)
+        (PAR_WS / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world: int = 2) -> list:
+    """parallel_rank in ``world`` spawned processes; every one joined or killed."""
+    import torch.multiprocessing as mp
+
+    ctx, port = mp.get_context("spawn"), _free_port()
+    procs = [ctx.Process(target=parallel_rank, args=(r, port, world)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PAR_RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(timeout=max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"parallel ranks exited with {codes}")
+    return [json.loads((PAR_WS / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def shard_kernels(dev) -> dict:
+    """K1 and K2 at the shard shapes of the 2-rank meshes (the cross shape's rows and heads of one rank: dp 4 rows
+    x 4 heads, tp 8 rows x 2 heads), dropout 0.1 and 0, against the plain version, device-timed on the card alone;
+    the key splits of K1 (fwd_splits) and K3a (dq_splits) as their launches' grids give them, beside the full
+    shape's."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for tag, b, heads in (("full", B, HEADS), ("dp shard", B // 2, HEADS), ("tp shard", B, HEADS // 2)):
+        g = torch.Generator(device=dev).manual_seed(0)
+        kv_valid = memory_valid_from_hw(ragged_hw(B, dev), GRID_H, GRID_W)[:b].contiguous()
+        kv_len = torch.full((b,), LK, dtype=torch.int32, device=dev)
+        seed = torch.tensor([20240611 ^ fp.shard_seed(1, 1, True)], dtype=torch.int32, device=dev)
+        bq, bk = fp.mask_geometry(LQ, LK)
+        q, k, v, do = (torch.randn((b, n, heads * 64), generator=g, device=dev).to(torch.bfloat16)
+                       for n in (LQ, LK, LK, LQ))
+        n_valid = int(kv_valid.sum())
+        pairs = heads * LQ * n_valid
+        qb, kv_bytes, stats = q.numel() * 2, n_valid * heads * 64 * 2, b * heads * LQ * 4
+        bound1 = max(4 * 64 * pairs / PEAK_BF16_FLOPS, (2 * qb + 2 * kv_bytes + stats) / PEAK_BYTES) * 1e3
+        bound2 = max(10 * 64 * pairs / PEAK_BF16_FLOPS,
+                     (3 * qb + 2 * stats + 2 * kv_bytes + 2 * k.numel() * 2) / PEAK_BYTES) * 1e3
+        row = dict(rows=b, heads=heads, bound_ms={"K1": bound1, "K2": bound2},
+                   splits=dict(fwd_splits=fp.fwd_splits(b, heads, LQ, LK, n_sm), dq_splits=fp.dq_splits(b, heads, LQ, LK, n_sm)))
+        for rate in (0.1, 0.0):
+            o, lse = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, rate, heads, bq, bk)
+            grads = fp.flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, rate, heads, bq, bk)
+            qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            o_p, _ = fp.flash_attention_plain(qr, kr, vr, kv_len, kv_valid, seed, rate, heads, False, -1, bq, bk)
+            grads_p = torch.autograd.grad(o_p, (qr, kr, vr), do)
+            err1 = check_vs(f"K1 o ({tag}, dropout {rate})", o, o_p)
+            err2 = max(check_vs(f"K2 {n} ({tag}, dropout {rate})", a, p)
+                       for n, a, p in zip(("dq", "dk", "dv"), grads, grads_p))
+            ms1, _ = kernel_times("K1 flash fwd", lambda: fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, rate,
+                                                                             heads, bq, bk), record=False)
+            ms2, _ = kernel_times("K2 flash bwd", lambda: fp.flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse,
+                                                                             do, rate, heads, bq, bk), record=False)
+            row[f"dropout {rate}"] = dict(K1_ms=ms1, K2_ms=ms2, K1_err=err1, K2_err=err2)
+            del o_p, grads_p, qr, kr, vr
+        delta = fp.attention_delta(do, o, heads)
+        for name, fn, symbol in (("K1", lambda: fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, 0.1, heads, bq, bk),
+                                  "flash_fwd_tma"),
+                                 ("K3a", lambda: fp.flash_dq_cuda(q, k, v, kv_len, kv_valid, seed, do, lse, delta, 0.1,
+                                                                  heads, bq, bk), "flash_dq_")):
+            row["splits"][f"{name} launch grid"] = launch_grid(name, fn, symbol)
+        out[tag] = row
+        log(f"[parallel kernels {tag}] B {b} H {heads}: {row}")
+        del q, k, v, do, o, lse, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def launch_grid(name: str, fn, symbol: str) -> list:
+    """The grid of the chunk kernel (named ``symbol``, not its merge) that fn launches, from a profiler trace of
+    10 calls (the tracer may miss the first kernels of a trace; one that holds none is taken again, up to
+    TRACE_TRIES times, and then the smoke fails)."""
+    for _ in range(TRACE_TRIES):
+        events = [e for e in traced_kernels(fn, 10, PAR_WS / "split_trace.json")
+                  if symbol in e["name"] and "merge" not in e["name"]]
+        if events:
+            return events[-1]["args"]["grid"]
+        TRACES["retaken"] += 1
+        time.sleep(2.0)
+    raise AssertionError(f"{name}: no kernel named {symbol} in {TRACE_TRIES} traces of 10 calls")
+
+
+def torchrun(module: str, args: list, tag: str, timeout: float = 900) -> float:
+    """``python -m torch.distributed.run --nproc_per_node 2 -m module args`` from the checkout's root; its output
+    to PAR_WS/<tag>.log; returns its wall seconds."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+           "--master_port", str(_free_port()), "-m", module, *args]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    (PAR_WS / f"{tag}.log").write_text(run.stdout + "\n--- stderr ---\n" + run.stderr)
+    if run.returncode != 0:
+        raise AssertionError(f"torchrun {tag} exited with {run.returncode}:\n{run.stderr[-3000:]}")
+    log(f"[parallel cli] {tag}: {wall:.1f} s")
+    return wall
+
+
+def parallel_cli() -> dict:
+    """cli.train and cli.test under ``torch.distributed.run --nproc_per_node 2`` on the cli path's corpus and
+    cache (the paper model, b8 global, bf16, flash cross-attention): dp for one epoch; then tp (--mesh_model 2)
+    resumes it for a second epoch (the checkpoint resharded onto the other mesh); then cli.test of the run's
+    best/ on two ranks (dp), whose metrics must equal the single-process cli.test's on the same checkpoint
+    (the prediction rows that differ are counted). Each cli.train validates and tests by greedy decode; under tp every decode step's collectives
+    go through gloo."""
+    from omr_a2s_multimodal_transformer_tpu_torch.cli import test as test_cli
+    from omr_a2s_multimodal_transformer_tpu_torch.training import checkpoint as ckpt_lib
+
+    train, test = ("omr_a2s_multimodal_transformer_tpu_torch.cli." + m for m in ("train", "test"))
+    out = {}
+
+    def train_args(epochs, *extra):
+        return cli_data("image") + ["--attn_window", str(WINDOW), "--use_flash_cross", "--epochs", str(epochs),
+                                    "--check_val_every_n_epoch", "1", "--weights_dir", str(PAR_WS / "weights"),
+                                    "--run_dir", str(PAR_WS / "run"), *extra]
+
+    for tag, args in (("dp", train_args(1)), ("tp resumed", train_args(2, "--mesh_model", "2"))):
+        wall = torchrun(train, args, tag.replace(" ", "_"))
+        recs = cli_records(PAR_WS / "run")
+        epochs = [r for r in recs if "train_loss" in r]
+        last = epochs[-1]
+        if not all(math.isfinite(r["train_loss"]) for r in epochs):
+            raise AssertionError(f"parallel cli {tag}: losses {[r['train_loss'] for r in epochs]}")
+        steps = CLI_CORPUS["n"] // 8  # one process ran this epoch alone: its StepTimer totals are its own
+        out[tag] = dict(wall_s=wall, epochs=[r["epoch"] for r in epochs], train_loss=last["train_loss"],
+                        samples_per_sec=last["samples_per_sec"], data_ms_mean=last["time_data_total_s"] * 1e3 / (steps + 1),
+                        step_ms_mean=last["time_step_total_s"] * 1e3 / steps)
+        log(f"[parallel cli] {tag}: {out[tag]}")
+    if out["tp resumed"]["epochs"] != [1, 2] or not any("resumed_from" in r for r in cli_records(PAR_WS / "run")):
+        raise AssertionError(f"parallel cli epochs: {out}")
+    tp_last = str(PAR_WS / "weights" / "last")
+    single_model, _ = build_model(ckpt_lib.load_hparams(tp_last), device="cpu")
+    shapes = {k: tuple(v.shape) for k, v in ckpt_lib.restore_checkpoint(tp_last)["params"].items()}
+    if shapes != {k: tuple(v.shape) for k, v in single_model.state_dict().items()}:
+        raise AssertionError("the tp run's checkpoint does not hold a single-process model's full tensors")
+    best = str(PAR_WS / "weights" / "best")
+    base = cli_data("image") + ["--checkpoint_path", best]
+    t0 = time.perf_counter()
+    single = test_cli.main(base + ["--run_dir", str(PAR_WS / "test_single"), "--save_preds",
+                                   str(PAR_WS / "preds_single.jsonl")])
+    t_single = time.perf_counter() - t0
+    wall = torchrun(test, base + ["--run_dir", str(PAR_WS / "test_two"), "--save_preds",
+                                  str(PAR_WS / "preds_two.jsonl")], "test_two_ranks")
+    two = [r for r in cli_records(PAR_WS / "test_two") if "test_sym-er" in r][-1]
+    # the predictions are recorded, not held: a rank decodes 4 rows where the single process decodes 8, and the
+    # card's GEMMs for another batch may round a logit otherwise, so a near-tie can flip a token
+    rows = [[json.loads(line)["y_pred"] for line in (PAR_WS / f"preds_{who}.jsonl").read_text().splitlines()]
+            for who in ("single", "two")]
+    flipped = sum(a != b for a, b in zip(*rows))
+    out["test"] = dict(single={k: single[k] for k in single}, two_ranks={k: two[k] for k in single},
+                       preds_rows_differing=flipped, preds_rows=len(rows[0]), single_s=t_single, two_ranks_s=wall)
+    log(f"[parallel cli] cli.test single process {single}, two ranks {out['test']['two_ranks']}; prediction rows "
+        f"that differ: {flipped} of {len(rows[0])}")
+    if out["test"]["two_ranks"] != out["test"]["single"] or len(rows[0]) != len(rows[1]):
+        raise AssertionError("cli.test on two ranks differs from the single-process cli.test")
+    return out
+
+
+def parallel_phase(dev) -> dict:
+    """The single-process half of the parallel path, run before the cli path (a profiler trace the smoke takes
+    after the cli and serve paths, or after other processes have used the card, held no kernel on the H100 in 5
+    takes): the reference step the ranks are held to, remat against no remat, K1/K2 at the shard shapes."""
+    import shutil
+
+    shutil.rmtree(PAR_WS, ignore_errors=True)
+    PAR_WS.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ref = parallel_reference(dev)
+    out = dict(reference_loss=ref["loss"], remat=remat_phase(dev), shard_kernels=shard_kernels(dev))
+    del ref
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[parallel phase] wall {out['phase_s']:.1f} s")
+    return out
+
+
+def parallel_path(dev, out_dir: Path, phase: dict) -> dict:
+    """The parallel path (parallel/, ops/flash_packed.py's sharded dispatch, remat, memory_partition, the CLIs under
+    torchrun), after parallel_phase: two ranks on the card, each on a dp 2 x 1 and a tp 1 x 2 mesh (one step
+    against the reference, K1/K2 8 a step counted from 0 and held to their plain version at the shard's shape
+    with the mixed seed's K4 masks, two dropout steps, memory_partition under tp); then the CLIs under torchrun.
+    The CLIs' logs and metrics go to out_dir/parallel_path/."""
+    import shutil
+
+    t0 = time.perf_counter()
+    ranks = run_ranks()
+    t_ranks = time.perf_counter() - t0
+    cli = parallel_cli()
+    wall = time.perf_counter() - t0
+    (out_dir / "parallel_path").mkdir(parents=True, exist_ok=True)
+    for path in [*PAR_WS.glob("*.log"), *PAR_WS.glob("*.jsonl"), *PAR_WS.glob("*/metrics.jsonl")]:
+        shutil.copyfile(path, out_dir / "parallel_path" / str(path.relative_to(PAR_WS)).replace("/", "_"))
+    log(f"[parallel path] wall {wall:.1f} s (ranks {t_ranks:.1f} s; the phase before the cli path "
+        f"{phase['phase_s']:.1f} s)")
+    return dict(phase, ranks=ranks, cli=cli, wall_s=wall, ranks_s=t_ranks)
+
+
 def main(argv=None):
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2576,10 +3082,12 @@ def main(argv=None):
     legacy = legacy_path(dev)
     for name, row in legacy_k.items():
         kernels.append(row | dict(launches=legacy["launches"][name]))
+    par_phase = parallel_phase(dev)
     cli = cli_path(dev, args.out_dir)
     cli["loader_runs"] = {tag: loader_run(dev, tag, extra, cli["runs"]["image"]["epochs"][-1])
                           for tag, extra in LOADER_RUNS.items()}
     serve = serve_path(dev, args.out_dir, cli.pop("vocab"))
+    parallel = parallel_path(dev, args.out_dir, par_phase)
     for k in kernels:  # K1/K2 held to their plain version at the cross shape and at each cli run's first call
         if k["name"] in cli["max_abs_err"]:
             k["max_abs_err_cli_path"] = cli["max_abs_err"][k["name"]]  # the largest of the three runs
@@ -2590,6 +3098,14 @@ def main(argv=None):
                                          for tag, r in cli["runs"].items()}
             k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_cli_path"])
         k.update(KERNEL_INFO.get(k["name"], {}))
+        if k["name"] in ("K1 flash fwd", "K2 flash bwd"):  # the parallel path's shards: each rank's 8 a step
+            key = k["name"][:2]
+            k["launches_parallel_path"] = {f"{tag} rank {r}": rank[tag]["step"]["launches"][k["name"]]
+                                           for r, rank in enumerate(parallel["ranks"]) for tag, _ in PAR_MESHES}
+            k["shard_readings"] = {tag: dict(rows=row["rows"], heads=row["heads"], bound_ms=row["bound_ms"][key],
+                                             ms={rate: row[rate][f"{key}_ms"] for rate in ("dropout 0.1", "dropout 0.0")},
+                                             max_abs_err=max(row[rate][f"{key}_err"] for rate in ("dropout 0.1", "dropout 0.0")))
+                                   for tag, row in parallel["shard_kernels"].items()}
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
 
@@ -2597,7 +3113,8 @@ def main(argv=None):
         f"(TEARDOWN_CUPTI={os.environ.get('TEARDOWN_CUPTI')})")
     result = dict(card=card, kernels=kernels, flagship=flagship, paper=paper, quant_path=quant, op_path=ops,
                   stem_path=dict(launches=stem_launches, max_abs_err=stem_errs), legacy_path=legacy,
-                  cli_path=cli, serve_path=serve, traces=dict(TRACES), wall_s=time.perf_counter() - t0)
+                  cli_path=cli, serve_path=serve, parallel_path=parallel, traces=dict(TRACES),
+                  wall_s=time.perf_counter() - t0)
     (args.out_dir / "chip_smoke_result.json").write_text(json.dumps(result, indent=1))
     log(f"[smoke] wall {result['wall_s']:.1f} s, the build included")
     log(card)

@@ -6,11 +6,18 @@ surface (the reference's fire CLIs, its ``train.py:21-36`` and
 ``cuda``), the port's counterpart of ``JAX_PLATFORMS``: without a GPU the
 CLIs raise unless given ``--device cpu``.
 
-Flags whose feature is not ported yet (the mesh and remat), and flags read
-only by such a feature, are parsed and raise ``NotImplementedError`` when set to anything
-but their default (``check_unported``). ``--threefry_prng``
-picks a JAX PRNG and is accepted and ignored; ``--conv_mode`` is accepted
-and read nowhere, as in ``build_model``.
+Data and tensor parallelism: launched by ``python -m torch.distributed.run
+--nproc_per_node N`` (or with the JAX package's COORDINATOR_ADDRESS,
+NUM_PROCESSES and PROCESS_ID), a CLI starts the process group
+(``parallel/multihost.py``: NCCL when each rank has a card, gloo when the
+ranks share one or run on the CPU) and runs on a ('data', 'model') mesh of
+the world with ``--mesh_model`` ranks on 'model' (``make_mesh_if_needed``).
+
+``--keep_cache`` keeps the JAX package's preprocess disk cache, which the
+port does not have: set, it raises ``NotImplementedError``
+(``check_unported``). ``--threefry_prng`` picks a JAX PRNG and is accepted
+and ignored; ``--conv_mode`` is accepted and read nowhere, as in
+``build_model``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import torch
 from omr_a2s_multimodal_transformer_tpu_torch.data.dataset import ARDataModule
 from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, resolve_device
 from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
+from omr_a2s_multimodal_transformer_tpu_torch.parallel import multihost
+from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
 from omr_a2s_multimodal_transformer_tpu_torch.utils.seed import seed_everything
 
 
@@ -51,7 +60,7 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
 def add_runtime_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no_bf16", action="store_true", help="disable bf16 compute")
-    p.add_argument("--mesh_model", type=int, default=1, help="tensor-parallel mesh axis size (not ported: 1)")
+    p.add_argument("--mesh_model", type=int, default=1, help="tensor-parallel mesh axis size")
     p.add_argument("--use_wandb", action="store_true")
     p.add_argument("--run_dir", default=None)
     p.add_argument("--threefry_prng", action="store_true",
@@ -63,15 +72,9 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", help="torch device to run on: cuda (default) or cpu")
 
 
-# each flag of a feature not ported yet -> whether args set it
+# each flag of a feature not ported -> whether args set it
 def _unported(args) -> Dict[str, bool]:
-    get = lambda name, default=None: getattr(args, name, default)  # noqa: E731
-    return {
-        "--mesh_model > 1 (tensor parallelism)": get("mesh_model", 1) > 1,
-        "--remat (rematerialized blocks)": bool(get("remat")),
-        # flags that are read only by a path above: set, they would change nothing
-        "--keep_cache (the preprocess disk cache: the port has none)": bool(get("keep_cache")),
-    }
+    return {"--keep_cache (the preprocess disk cache: the port has none)": bool(getattr(args, "keep_cache", False))}
 
 
 def check_unported(args) -> None:
@@ -114,9 +117,9 @@ def model_name_from_args(args, input_modality: str, mixer_type: Optional[str]) -
 
 
 def build_from_checkpoint(checkpoint_path: str, hparams_override: Optional[Dict] = None,
-                          device: DeviceLike = None):
+                          device: DeviceLike = None, mesh=None):
     """Load hparams + weights from a checkpoint dir -> (model on ``device``,
-    hparams, multimodal flag).
+    hparams, multimodal flag); with ``mesh``, sharded for this rank.
 
     hparams_override entries (with non-None values) replace the stored
     hparams — e.g. {"cache_dtype": "float32"} switches the decode cache
@@ -127,9 +130,9 @@ def build_from_checkpoint(checkpoint_path: str, hparams_override: Optional[Dict]
     for k, v in (hparams_override or {}).items():
         if v is not None:
             hp[k] = v
-    model, multimodal = build_model(hp, device=device)
+    model, multimodal = build_model(hp, device=device, mesh=mesh)
     state = ckpt_lib.restore_checkpoint(checkpoint_path, map_location=next(model.parameters()).device)
-    ckpt_lib.load_params(model, ckpt_lib.params_of(state))
+    ckpt_lib.load_params(model, ckpt_lib.params_of(state), mesh)
     return model, hp, multimodal
 
 
@@ -139,9 +142,31 @@ def to_device(batch: Dict, keys, device) -> list:
     return [torch.as_tensor(batch[k]).to(device) for k in keys]
 
 
-def init_cli(args) -> None:
+def init_cli(args) -> bool:
+    """Check the device, start the process group of a multi-process launch
+    (when nothing started it yet) and seed. Returns whether it started
+    the group (``finish_cli`` then ends it)."""
     resolve_device(args.device)  # without a GPU, fail before any work unless --device cpu
+    started = multihost.launched() and not torch.distributed.is_initialized()
+    if started:
+        multihost.initialize(device=args.device)
     seed_everything(args.seed)
+    return started
+
+
+def finish_cli(started: bool) -> None:
+    if started:
+        multihost.shutdown()
+
+
+def make_mesh_if_needed(args):
+    """The ('data', 'model') mesh of a multi-process run or of
+    ``--mesh_model`` > 1 (``--mesh_model`` larger than the world raises,
+    as JAX's mesh assert does), else None."""
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    if args.mesh_model > 1 or world > 1:
+        return make_mesh(model=args.mesh_model)
+    return None
 
 
 def dump_args(args) -> Dict:

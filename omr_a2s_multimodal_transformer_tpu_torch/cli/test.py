@@ -2,7 +2,9 @@
 
 Port of ``omr_a2s_multimodal_transformer_tpu/cli/test.py`` (the reference's
 src/test.py:19-80, incl. cross-domain ytest_i2w handling), for image, audio
-and multimodal checkpoints. Runs on ``cuda`` unless given ``--device cpu``.
+and multimodal checkpoints. Runs on ``cuda`` unless given ``--device cpu``;
+under ``python -m torch.distributed.run`` on a mesh (``--mesh_model``), each
+rank decoding its rows of every batch, as ``cli/train.py``.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import argparse
 import os
 
 from omr_a2s_multimodal_transformer_tpu_torch.cli import common
+from omr_a2s_multimodal_transformer_tpu_torch.parallel import multihost
 from omr_a2s_multimodal_transformer_tpu_torch.training.loop import Trainer
 
 
@@ -37,19 +40,29 @@ def main(argv=None) -> dict:
     """Evaluate the checkpoint on the test split; returns the metrics."""
     args = build_parser().parse_args(argv)
     common.check_unported(args)
-    common.init_cli(args)
+    started = common.init_cli(args)
+    try:
+        return _test(args)
+    finally:
+        common.finish_cli(started)
+
+
+def _test(args) -> dict:
     if not os.path.exists(args.checkpoint_path):
         raise FileNotFoundError(f"Checkpoint path {args.checkpoint_path} does not exist")
-    common.print_config("TEST EXPERIMENT", args)
+    mesh = common.make_mesh_if_needed(args)
+    if multihost.is_primary():
+        common.print_config("TEST EXPERIMENT", args)
 
     dm = common.make_datamodule(args, args.input_modality)
-    dm.setup("test")
+    with multihost.primary_first():  # rank 0 writes the vocabulary and max-lens caches
+        dm.setup("test")
     ytest_i2w = dm.test_ds.i2w
 
     model, hp, multimodal = common.build_from_checkpoint(args.checkpoint_path, hparams_override={
         "cache_dtype": args.cache_dtype,
         "packed_stem": None if args.packed_stem is None else args.packed_stem == "on",
-    }, device=args.device)
+    }, device=args.device, mesh=mesh)
     vocab = dm.get_vocab()  # model vocab == collection vocab (shared)
     trainer = Trainer(
         model, vocab, hp,
@@ -59,11 +72,12 @@ def main(argv=None) -> dict:
         use_wandb=args.use_wandb, seed=args.seed,
         ytest_i2w=ytest_i2w, compute_mv2h=args.compute_mv2h,
         beam_size=args.beam_size, length_penalty=args.length_penalty,
-        device=args.device,
+        mesh=mesh, device=args.device,
     )
     trainer.restore(args.checkpoint_path)
     metrics = trainer.test(dm, save_preds=args.save_preds or None)
-    print({k: round(v, 4) for k, v in metrics.items()})
+    if multihost.is_primary():
+        print({k: round(v, 4) for k, v in metrics.items()})
     return metrics
 
 

@@ -10,8 +10,12 @@ Example (paper config, the reference's run_experiments.sh:13), on the card:
     --ds_name grandstaff --krn_encoding kern --input_modality image \
     --attn_window 100 --epochs 300 --patience 5 --batch_size 16 \
     --use_distorted_images --use_flash_cross
-``--device cpu`` runs it on the CPU. Flags of features not ported yet raise
-(``cli/common.py`` ``check_unported``).
+``--device cpu`` runs it on the CPU. ``--remat`` recomputes the encoder's
+blocks in the backward. Data and tensor parallelism, two ranks of one
+card (gloo) or of two (NCCL), ``--mesh_model 2`` for tensor parallelism:
+  python -m torch.distributed.run --nproc_per_node 2 \
+    -m omr_a2s_multimodal_transformer_tpu_torch.cli.train ... [--mesh_model 2]
+``--keep_cache`` raises (``cli/common.py`` ``check_unported``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import os
 
 from omr_a2s_multimodal_transformer_tpu_torch.cli import common
 from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
+from omr_a2s_multimodal_transformer_tpu_torch.parallel import multihost
 from omr_a2s_multimodal_transformer_tpu_torch.training.loop import Trainer
 
 
@@ -71,7 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--masked_norm", action="store_true",
                    help="mask padded pixels out of instance-norm statistics")
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize encoder blocks (not ported yet)")
+                   help="rematerialize encoder blocks (less memory, bigger batches)")
     p.add_argument("--use_flash_cross", action="store_true",
                    help="flash cross-attention in training (the CUDA kernels K1/K2 on the card; in-kernel "
                         "attn dropout)")
@@ -98,11 +103,22 @@ def main(argv=None) -> dict:
     the fit result and the test metrics."""
     args = build_parser().parse_args(argv)
     common.check_unported(args)
-    common.init_cli(args)
-    common.print_config("TRAIN EXPERIMENT", args)
+    started = common.init_cli(args)
+    try:
+        return _train(args)
+    finally:
+        common.finish_cli(started)
+
+
+def _train(args) -> dict:
+    mesh = common.make_mesh_if_needed(args)
+    if multihost.is_primary():
+        common.print_config("TRAIN EXPERIMENT", args)
 
     dm = common.make_datamodule(args, args.input_modality)
-    dm.setup("fit")
+    with multihost.primary_first():  # rank 0 writes the vocabulary and max-lens caches
+        dm.setup("fit")
+        dm.setup("test")
     vocab = dm.get_vocab()
 
     hparams = {
@@ -128,7 +144,7 @@ def main(argv=None) -> dict:
         "teacher_forcing_prob": args.teacher_forcing_prob,
         "teacher_forcing_modality_prob": args.teacher_forcing_modality_prob,
     }
-    model, multimodal = build_model(hparams, device=args.device, seed=args.seed)
+    model, multimodal = build_model(hparams, device=args.device, seed=args.seed, mesh=mesh)
     model_name = common.model_name_from_args(args, args.input_modality, args.mixer_type)
     weights_dir = args.weights_dir or os.path.join("weights", args.ds_name, model_name)
     run_dir = args.run_dir or os.path.join("runs", args.ds_name, model_name)
@@ -145,7 +161,7 @@ def main(argv=None) -> dict:
         train_only=tuple(s for s in args.train_only.split(",") if s) or None,
         teacher_forcing_prob=args.teacher_forcing_prob,
         teacher_forcing_modality_prob=args.teacher_forcing_modality_prob,
-        bf16_compute=not args.no_bf16, multimodal=multimodal,
+        bf16_compute=not args.no_bf16, multimodal=multimodal, mesh=mesh,
         use_wandb=args.use_wandb, wandb_group=model_name,
         wandb_name=f"Train-{args.ds_name}_Test-{args.ds_name}",
         seed=args.seed,
@@ -168,9 +184,10 @@ def main(argv=None) -> dict:
             decoder_from=args.init_decoder_from)
 
     result = trainer.fit(dm)
-    print(f"Best val_sym-er: {result['best_val_sym-er']:.4f} (epoch {result['best_epoch']})")
     metrics = trainer.test(dm)
-    print({k: round(v, 4) for k, v in metrics.items()})
+    if multihost.is_primary():
+        print(f"Best val_sym-er: {result['best_val_sym-er']:.4f} (epoch {result['best_epoch']})")
+        print({k: round(v, 4) for k, v in metrics.items()})
     return {**result, **metrics}
 
 

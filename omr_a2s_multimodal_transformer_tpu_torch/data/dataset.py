@@ -187,13 +187,14 @@ class Loader:
             dataset.max_audio_height, dataset.max_audio_width, dataset.max_seq_len + 1
         )
         self.bucket = self.image_bucket if m == "image" else self.audio_bucket
+        self.records = range(len(dataset))  # the sample indices it batches (a shard: data/grain_pipeline.py)
 
     def __len__(self) -> int:
-        n = len(self.ds) / self.batch_size
+        n = len(self.records) / self.batch_size
         return math.floor(n) if self.drop_remainder else math.ceil(n)
 
     def _order(self) -> np.ndarray:
-        idx = np.arange(len(self.ds))
+        idx = np.arange(self.records.start, self.records.stop)
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         return idx

@@ -21,9 +21,13 @@ shared memory, pinned when a GPU is present.
 - The workers persist from one epoch to the next (their start is paid
   once); a consumer that stops early, or a sample that raises, shuts them
   down, and so does ``close``: none is left behind.
-- Per-process sharding (JAX's ``ShardByJaxProcess``) needs the port's
-  multi-process training, which is not ported: the loader raises when
-  ``torch.distributed`` runs more than one process.
+- Per-process sharding, JAX's ``ShardByJaxProcess(drop_remainder=True)``
+  (its ``shard_by_process`` default, the one value the port takes): in a
+  ``torch.distributed`` world of n processes, process i reads records
+  [i * k, (i + 1) * k) with k = len // n (the remainder is dropped), in
+  its own shuffle order and batches. The streams are disjoint, they
+  cover the truncated range and each holds k records. ``set_shard``
+  picks another shard (the Trainer shards over the data ranks of a mesh).
 """
 
 from __future__ import annotations
@@ -79,9 +83,6 @@ class GrainLoader:
         image_bucket: Optional[C.BucketSpec] = None,
         audio_bucket: Optional[C.BucketSpec] = None,
     ):
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError("per-process sharding of the worker loader is not ported yet")
         self.ds = dataset
         self.batch_size = batch_size
         self.drop_remainder = drop_remainder
@@ -91,6 +92,21 @@ class GrainLoader:
         self.image_bucket, self.audio_bucket = self._order_of.image_bucket, self._order_of.audio_bucket
         self.bucket = self._order_of.bucket
         self._batches, self._dl = _Batches(), None
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized():
+            self.set_shard(dist.get_rank(), dist.get_world_size())
+        else:
+            self.set_shard(0, 1)
+
+    def set_shard(self, index: int, count: int) -> None:
+        """Read shard ``index`` of ``count``: records [index * k, (index +
+        1) * k), k = len // count (all of them for one shard)."""
+        if not 0 <= index < count:
+            raise ValueError(f"shard {index} of {count}")
+        n = len(self.ds)
+        k = n // count if count > 1 else n
+        self.shard_index, self.shard_count = index, count
+        self._order_of.records = range(index * k, (index + 1) * k)
 
     @property
     def epoch(self) -> int:

@@ -1,13 +1,15 @@
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, resolve_device, set_float32_precision
 from omr_a2s_multimodal_transformer_tpu_torch.models.multimodal import MultimodalTransformer
-from omr_a2s_multimodal_transformer_tpu_torch.models.transformer import UnimodalTransformer
+from omr_a2s_multimodal_transformer_tpu_torch.models.transformer import UnimodalTransformer, check_memory_partition
+from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import Mesh
+from omr_a2s_multimodal_transformer_tpu_torch.parallel.tp import shard_model
 
 
-def build_model(hparams: Dict, device: DeviceLike = None, seed: int = 0
+def build_model(hparams: Dict, device: DeviceLike = None, seed: int = 0, mesh: Optional[Mesh] = None
                 ) -> Tuple[Union[UnimodalTransformer, MultimodalTransformer], bool]:
     """Model factory from an hparams dict (the keys of the JAX package's
     ``build_model``). Returns (model on ``device``, multimodal flag):
@@ -22,14 +24,18 @@ def build_model(hparams: Dict, device: DeviceLike = None, seed: int = 0
     ``conv_mode`` is accepted and read nowhere: it only picks the JAX
     package's TPU layout of the same convolutions. ``cache_dtype`` is one
     of float32, bfloat16, int8 and int4 (quantized cross K/V,
-    ``models/decoder.py``). ``remat=True`` and a set ``memory_partition``
-    raise ``NotImplementedError``: neither is ported.
+    ``models/decoder.py``). ``remat=True`` recomputes the encoder blocks
+    (and the decoder layers off the flash path) in the backward.
+
+    ``mesh`` (``parallel/mesh.py`` ``make_mesh``; not an hparam: it is the
+    machine, not the model) shards the model for this rank: every rank
+    builds the same full weights from ``seed`` and keeps its slice
+    (``parallel/tp.py`` ``shard_model``). A set ``memory_partition`` needs
+    a mesh and raises ``ValueError`` without one, as JAX's sharding
+    constraint raises outside a mesh context.
     """
     dev = resolve_device(device)
-    if hparams.get("remat", False):
-        raise NotImplementedError("remat (rematerialized encoder and decoder blocks) is not ported yet")
-    if hparams.get("memory_partition") is not None:
-        raise NotImplementedError("memory_partition (sharded cross-attention memories) is not ported yet")
+    check_memory_partition(hparams.get("memory_partition"), mesh)
     set_float32_precision()
     common = dict(
         vocab_size=hparams["vocab_size"],
@@ -44,6 +50,8 @@ def build_model(hparams: Dict, device: DeviceLike = None, seed: int = 0
         cache_dtype=hparams.get("cache_dtype", "float32"),
         use_flash_cross=hparams.get("use_flash_cross", False),
         packed_stem=hparams.get("packed_stem", False),
+        remat=hparams.get("remat", False),
+        memory_partition=hparams.get("memory_partition"),
     )
     multimodal = hparams["input_modality"] == "both"
     with torch.random.fork_rng(devices=[]):
@@ -53,7 +61,10 @@ def build_model(hparams: Dict, device: DeviceLike = None, seed: int = 0
                                           mixer_residual=hparams.get("mixer_residual", False), **common)
         else:
             model = UnimodalTransformer(**common)
-    return model.to(dev), multimodal
+    model = model.to(dev)
+    if mesh is not None:
+        shard_model(model, mesh)
+    return model, multimodal
 
 
 __all__ = ["UnimodalTransformer", "MultimodalTransformer", "build_model"]

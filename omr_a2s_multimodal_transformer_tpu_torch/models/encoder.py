@@ -21,7 +21,10 @@ The width-packed stem (``packed_stem=True``, JAX ``PackedConvBlock`` and
 [kh, kw, ci, co] parameters to fill the TPU's 128 lanes; it has no
 counterpart on the GPU, so the port accepts the flag and runs these plain
 convolutions (the JAX package holds packed equal to standard to 1e-9,
-``tests/test_packed_stem.py``).
+``tests/test_packed_stem.py``). ``remat=True`` recomputes each block's
+activations in the backward (``models/remat.py``), as the JAX encoder's
+``nn.remat`` blocks do: activation memory falls from the sum of the
+stages' to the largest block's.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from omr_a2s_multimodal_transformer_tpu_torch.models.remat import remat
 from omr_a2s_multimodal_transformer_tpu_torch.ops.norm import instance_norm
+from omr_a2s_multimodal_transformer_tpu_torch.parallel import mesh as mesh_lib
 
 HEIGHT_REDUCTION = 16
 WIDTH_REDUCTION = 8
@@ -78,9 +83,9 @@ class MixDropout:
         pos = torch.randint(1, 4, (), generator=generator, device=dev)
         use_elem = torch.rand((), generator=generator, device=dev) < 0.5
         t = int(round((1.0 - self.p) * 256.0))
-        bits = torch.randint(0, 256, (b, out_ch, h, w), generator=generator, device=dev, dtype=torch.uint8)
+        bits = mesh_lib.randint(0, 256, (b, out_ch, h, w), generator, dev, dtype=torch.uint8)
         keep_e = bits < t if t < 256 else torch.ones_like(bits, dtype=torch.bool)
-        keep_c = torch.rand((b, out_ch, 1, 1), generator=generator, device=dev) < 1.0 - self.p2d
+        keep_c = mesh_lib.rand((b, out_ch, 1, 1), generator, dev) < 1.0 - self.p2d
         f_elem = keep_e.to(dt) * (1.0 / (1.0 - self.p))
         f_chan = keep_c.to(dt) * (1.0 / (1.0 - self.p2d))
         h3, w3 = -(-h // stride[0]), -(-w // stride[1])
@@ -158,12 +163,14 @@ def _shrink_valid(valid: Optional[torch.Tensor], stride) -> Optional[torch.Tenso
 class ConvStemEncoder(nn.Module):
     """Full conv stem: [B, H, W, 1] -> [B, H/16, W/8, 256] (NHWC)."""
 
-    def __init__(self, dropout: float = 0.5, masked_norm: bool = False, packed_stem: bool = False):
+    def __init__(self, dropout: float = 0.5, masked_norm: bool = False, packed_stem: bool = False,
+                 remat: bool = False):
         """``packed_stem`` is accepted for the JAX hparams and changes
         nothing: the same convolutions run either way (module docstring)."""
         super().__init__()
         self.dropout = dropout
         self.masked_norm = masked_norm
+        self.remat = remat
         chans = [1] + [c for c, _ in CONV_STAGES]
         self.conv_blocks = nn.ModuleList(
             ConvBlock(chans[i], c, s, dropout) for i, (c, s) in enumerate(CONV_STAGES)
@@ -180,11 +187,15 @@ class ConvStemEncoder(nn.Module):
         gen = generator if self.dropout > 0.0 else None
         v = valid if self.masked_norm else None
         x = _nchw(x).contiguous(memory_format=torch.channels_last)
+
+        def run(blk, x, v):
+            return remat(blk, gen, x, gen, v) if self.remat and torch.is_grad_enabled() else blk(x, gen, v)
+
         for blk, (_, stride) in zip(self.conv_blocks, CONV_STAGES):
-            x = blk(x, gen, v)
+            x = run(blk, x, v)
             v = _shrink_valid(v, stride)
         for blk, (_, stride) in zip(self.dscblocks, DSC_STAGES):
-            xt = blk(x, gen, v)
+            xt = run(blk, x, v)
             x = x + xt if x.shape == xt.shape else xt  # residual when shapes match
             v = _shrink_valid(v, stride)
         return _nhwc(x)

@@ -38,7 +38,7 @@ from torch import nn
 
 from omr_a2s_multimodal_transformer_tpu_torch.models.decoder import KernDecoder, MultiheadProj
 from omr_a2s_multimodal_transformer_tpu_torch.models.encoder import ConvStemEncoder
-from omr_a2s_multimodal_transformer_tpu_torch.models.transformer import encode_memory
+from omr_a2s_multimodal_transformer_tpu_torch.models.transformer import encode_memory, gather_memory
 from omr_a2s_multimodal_transformer_tpu_torch.ops import masks as M
 
 MIXER_TYPES = ("concat", "attn_img", "attn_audio", "attn_both")
@@ -75,7 +75,8 @@ class MultimodalTransformer(nn.Module):
                  mixer_residual: bool = False, attn_window: int = -1, encoder_dropout: float = 0.5,
                  decoder_dropout: float = 0.1, pos_dropout: float = 0.1, masked_norm: bool = False,
                  prefix_memory_mask: bool = False, torch_float_parity: bool = False,
-                 cache_dtype: str = "float32", use_flash_cross: bool = False, packed_stem: bool = False):
+                 cache_dtype: str = "float32", use_flash_cross: bool = False, packed_stem: bool = False,
+                 remat: bool = False, memory_partition=None):
         super().__init__()
         if mixer_type not in MIXER_TYPES:
             raise ValueError(f"Invalid mixer type: {mixer_type}")
@@ -83,11 +84,14 @@ class MultimodalTransformer(nn.Module):
         self.mixer_type, self.mixer_residual = mixer_type, mixer_residual
         self.pos_dropout, self.masked_norm = pos_dropout, masked_norm
         self.prefix_memory_mask, self.torch_float_parity = prefix_memory_mask, torch_float_parity
-        self.image_encoder = ConvStemEncoder(dropout=encoder_dropout, masked_norm=masked_norm, packed_stem=packed_stem)
-        self.audio_encoder = ConvStemEncoder(dropout=encoder_dropout, masked_norm=masked_norm, packed_stem=packed_stem)
+        self.memory_partition = None if memory_partition is None else tuple(memory_partition)
+        self.mesh = None  # parallel.tp.shard_model sets it
+        enc = dict(dropout=encoder_dropout, masked_norm=masked_norm, packed_stem=packed_stem, remat=remat)
+        self.image_encoder = ConvStemEncoder(**enc)
+        self.audio_encoder = ConvStemEncoder(**enc)
         self.decoder = KernDecoder(vocab_size=vocab_size, max_seq_len=max_seq_len, dropout=decoder_dropout,
                                    attn_window=attn_window, cache_dtype=cache_dtype,
-                                   use_flash_cross=use_flash_cross)
+                                   use_flash_cross=use_flash_cross, remat=remat and not use_flash_cross)
         if mixer_type != "concat":
             self.cross_attn = CrossAttention()
             if mixer_residual:
@@ -122,14 +126,16 @@ class MultimodalTransformer(nn.Module):
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Encode + fuse. ``modality`` ("image", "audio", "both") is drawn on
         the host during training (modality dropout, reference
-        model.py:561-575); only the needed encoders run."""
-        if modality == "image":
-            return encode_memory(self, self.image_encoder, xi, xi_hw, generator)
-        if modality == "audio":
-            return encode_memory(self, self.audio_encoder, xa, xa_hw, generator)
+        model.py:561-575); only the needed encoders run. Under
+        ``memory_partition`` each encoder's memory is held split and
+        gathered for the mixer and the decoder."""
+        if modality in ("image", "audio"):
+            enc, x, hw = (self.image_encoder, xi, xi_hw) if modality == "image" else (self.audio_encoder, xa, xa_hw)
+            mem, valid = encode_memory(self, enc, x, hw, generator)
+            return gather_memory(self, mem), valid
         mi, vi = encode_memory(self, self.image_encoder, xi, xi_hw, generator)
         ma, va = encode_memory(self, self.audio_encoder, xa, xa_hw, generator)
-        return self.mix(mi, ma, vi, va, generator)
+        return self.mix(gather_memory(self, mi), gather_memory(self, ma), vi, va, generator)
 
     def forward(self, xi: Optional[torch.Tensor], xi_hw: Optional[torch.Tensor], xa: Optional[torch.Tensor],
                 xa_hw: Optional[torch.Tensor], y_in: torch.Tensor, modality: str = "both",

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from omr_a2s_multimodal_transformer_tpu_torch.parallel import mesh as mesh_lib
+
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, l, d = x.shape
@@ -31,11 +33,14 @@ def attend(
     mask: Optional[torch.Tensor] = None,  # additive, broadcastable to [B, H, Lq, Lk]
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    heads_sharded: bool = False,
 ) -> torch.Tensor:
     """softmax(q k^T / sqrt(dh) + mask) v in float32; returns q's dtype.
 
     Dropout on the attention weights (after the softmax, torch MHA
-    semantics) runs when a rate and a generator are given.
+    semantics) runs when a rate and a generator are given; its bits are
+    this rank's slice of the global draw (``parallel/mesh.py`` ``rand``),
+    the heads too when they are sharded over 'model'.
     """
     dh = q.shape[-1]
     out_dtype = q.dtype
@@ -45,7 +50,8 @@ def attend(
         logits = logits + mask.float()
     weights = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0 and generator is not None:
-        keep = torch.rand(weights.shape, generator=generator, device=weights.device) >= dropout_rate
+        keep = mesh_lib.rand(weights.shape, generator, weights.device,
+                             model_dim=1 if heads_sharded else None) >= dropout_rate
         weights = torch.where(keep, weights / (1.0 - dropout_rate), 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", weights, vf)
     return out.to(out_dtype)

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from omr_a2s_multimodal_transformer_tpu_torch.parallel import mesh as mesh_lib
+
 BAND_MASK = -1e9  # logit of a key outside the band (the JAX module's constant)
 
 
@@ -37,11 +39,13 @@ def banded_causal_attention(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     chunk: Optional[int] = None,
+    heads_sharded: bool = False,
 ) -> torch.Tensor:
     """softmax over keys in [i - window, i] only; returns [B, L, H, Dh] in
     q's dtype. Equal to full attention under the windowed causal mask.
     Dropout on the weights (after the softmax) runs when a rate and a
-    generator are given."""
+    generator are given (this rank's slice of the global draw,
+    ``parallel/mesh.py`` ``rand``; the heads' too when they are sharded)."""
     b, l, h, dh = q.shape
     c = chunk or band_chunk(window)
     if window > c:
@@ -76,7 +80,8 @@ def banded_causal_attention(
 
     weights = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0 and generator is not None:
-        keep = torch.rand(weights.shape, generator=generator, device=weights.device) >= dropout_rate
+        keep = mesh_lib.rand(weights.shape, generator, weights.device,
+                             model_dim=2 if heads_sharded else None) >= dropout_rate
         weights = torch.where(keep, weights / (1.0 - dropout_rate), 0.0)
     out = torch.einsum("bnhqk,bnkhd->bnqhd", weights.to(q.dtype).float(), v2.float()).to(q.dtype)
     return out.reshape(b, lp, h, dh)[:, :l]

@@ -563,6 +563,74 @@ def flash_attention_packed(q, k, v, kv_len, kv_valid, seed, dropout_rate: float 
     return flash(q, k, v, kv_len, kv_valid, seed)
 
 
+# the JAX dispatch's per-shard seed mixing constants (flash_packed.py:865-872)
+SEED_DATA_MIX, SEED_MODEL_MIX = 479001599, 15485863
+
+
+def _int32(x: int) -> int:
+    """x wrapped to a signed 32-bit integer (JAX's int32 product)."""
+    return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def shard_heads(n_heads: int, dh: int, model: int) -> bool:
+    """Whether the sharded dispatch splits the heads over 'model': whole
+    128-lane head groups per shard, as JAX requires (``:850-854``). With 4
+    heads of 64 only a model axis of 2 does."""
+    group = max(1, 128 // dh)
+    return model > 1 and n_heads % model == 0 and (n_heads // model) % group == 0
+
+
+def shard_seed(data_index: int, model_index: int, heads_split: bool) -> int:
+    """What a shard XORs into the dropout seed: the data index times
+    479001599, XOR the model index times 15485863 when the heads are split,
+    each wrapped to int32 as in JAX, so the shard's hash masks are those of
+    JAX's shard at the same place bit for bit."""
+    mix = _int32(data_index * SEED_DATA_MIX)
+    if heads_split:
+        mix ^= _int32(model_index * SEED_MODEL_MIX)
+    return mix
+
+
+def flash_attention_packed_auto(n_heads: int, dh: int, batch: int, *, block_q: int = 128, block_k: int = 512,
+                                dropout_rate: float = 0.0, mesh=None):
+    """Packed flash attention on this rank's shard of a mesh: the
+    counterpart of JAX's ``flash_attention_packed_auto``
+    (ops/flash_packed.py:822-879), for the batch of ``batch`` global rows
+    and ``n_heads`` global heads of ``dh`` columns.
+
+    Returns f(q, k, v, kv_len, kv_valid, seed) -> o on this rank's rows
+    and heads: the rows of its data index and, under a 'model' axis, the
+    heads its column-parallel projections give it. The kernel (K1/K2 on the
+    card) runs on the rank's rows; the heads stay split when
+    ``shard_heads``, else q/k/v are gathered back to all heads before the
+    kernel and o is cut back to the rank's heads after it. The seed is
+    mixed with the shard's place (``shard_seed``). Without a mesh, or on a
+    mesh of one process, it is ``make_flash_attention_packed``. Non-causal
+    (JAX's ``causal``/``window`` arguments have no caller).
+    """
+    if mesh is None or mesh.size == 1:
+        return make_flash_attention_packed(n_heads, block_q=block_q, block_k=block_k, dropout_rate=dropout_rate)
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel.collectives import gather_from, scatter_to
+
+    if batch % mesh.data:
+        raise ValueError(f"a batch of {batch} rows does not split over {mesh.data} data ranks (shard_batch pads it)")
+    split = shard_heads(n_heads, dh, mesh.model)
+    gather = mesh.model > 1 and not split
+    inner = make_flash_attention_packed(n_heads // mesh.model if split else n_heads, block_q=block_q,
+                                        block_k=block_k, dropout_rate=dropout_rate)
+    mix = shard_seed(mesh.data_index, mesh.model_index, split)
+    axis = mesh.model_axis
+
+    def flash(q, k, v, kv_len, kv_valid, seed):
+        seed = _seed_tensor(seed, q.device) ^ mix
+        if gather:
+            q, k, v = (gather_from(t, axis, -1).contiguous() for t in (q, k, v))
+        o = inner(q, k, v, kv_len, kv_valid, seed)
+        return scatter_to(o, axis, -1) if gather else o
+
+    return flash
+
+
 def export_keep_masks(seed: int, batch: int, n_heads: int, lq: int, lk: int, *, dropout_rate: float,
                       block_q: int = 128, block_k: int = 512, device: DeviceLike = None) -> torch.Tensor:
     """The dropout keep-masks that the flash kernels regenerate, as the

@@ -16,6 +16,11 @@ state_dict against a model leaf by leaf before loading it, so a
 ``mix_gate`` of the wrong shape (the old fixed (2,) of a single-direction
 mixer) is rejected on restore with an error that names it; the reference
 fails only when the model is applied (its models/multimodal.py:137).
+
+A model sharded on a mesh (``parallel/tp.py``) saves and loads full
+tensors: its Trainer gathers them and rank 0 writes the same files as a
+single-process run; ``load_params`` with the mesh slices a full
+state_dict to the rank's shards, so a checkpoint restores onto any mesh.
 """
 
 from __future__ import annotations
@@ -72,14 +77,20 @@ def _gate_hint(name: str) -> str:
             "attn_img and attn_audio)") if name == "mix_gate" else ""
 
 
-def load_params(model: torch.nn.Module, params: Mapping[str, torch.Tensor]) -> None:
+def load_params(model: torch.nn.Module, params: Mapping[str, torch.Tensor], mesh=None) -> None:
     """Load a state_dict into ``model`` after checking it leaf by leaf: the
-    same names, and each the model's shape (ValueError naming the leaf)."""
+    same names, and each the model's shape (ValueError naming the leaf).
+    With the ``mesh`` the model is sharded on, ``params`` are full tensors
+    and each rank loads its slice of them."""
     own = model.state_dict()
     missing, extra = sorted(set(own) - set(params)), sorted(set(params) - set(own))
     if missing or extra:
         hint = "".join(_gate_hint(n) for n in ("mix_gate",) if n in missing + extra)
         raise ValueError(f"checkpoint params do not fit the model: missing {missing}, unexpected {extra}{hint}")
+    if mesh is not None:
+        from omr_a2s_multimodal_transformer_tpu_torch.parallel.tp import load_full_state_dict
+
+        params = load_full_state_dict(model, params, mesh)
     for name, ref in own.items():
         if tuple(params[name].shape) != tuple(ref.shape):
             raise ValueError(f"checkpoint {name} has shape {tuple(params[name].shape)}, the model's is "

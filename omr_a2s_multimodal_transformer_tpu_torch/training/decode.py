@@ -17,6 +17,13 @@ every cache tensor by its rows gathered by source beam, so beams that share
 a source never alias. Under ``OMR_A2S_DEBUG_CHECKS`` (``utils/debug.py``)
 every step raises on a token id fed outside the vocabulary and on
 non-finite logits.
+
+On a mesh (a model built with ``build_model(..., mesh=)``) each rank
+decodes its rows on its heads, and the loops stop only when every row of
+every rank is done (``all_done``): the tensor-parallel collectives need
+every rank to run the same number of steps, and the tokens then equal a
+single-process decode of the whole batch. A remainder batch is padded by
+``parallel/mesh.py`` ``shard_batch``; the caller drops the padded rows.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from omr_a2s_multimodal_transformer_tpu_torch.parallel.collectives import all_reduce
 from omr_a2s_multimodal_transformer_tpu_torch.utils.debug import check_finite, check_token_ids, debug_checks_enabled
 
 NEG_INF = -1e9  # the score of a dead beam
@@ -46,8 +54,16 @@ def _checked_step(model):
     return step
 
 
+def all_done(done: torch.Tensor, mesh) -> bool:
+    """Whether every row is done on every rank of ``mesh`` (one host read)."""
+    pending = (~done).any().to(torch.int32)
+    if mesh is not None and mesh.size > 1:
+        pending = all_reduce(all_reduce(pending.reshape(1), mesh.data_axis), mesh.model_axis)
+    return not bool(pending.any())
+
+
 def _loop(step_logits: Callable, batch: int, max_len: int, sos_id: int, eos_id: int, carry,
-          device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+          device: torch.device, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared greedy loop. ``step_logits(tok, pos, carry) -> (logits, carry)``;
     the top-1 index is the next token and its value the step's score."""
     tokens = torch.zeros((batch, max_len), dtype=torch.int32, device=device)
@@ -60,7 +76,7 @@ def _loop(step_logits: Callable, batch: int, max_len: int, sos_id: int, eos_id: 
         tokens[:, pos] = tok.to(torch.int32)
         scores[:, pos] = score.float()
         done |= tok == eos_id
-        if bool(done.all()):
+        if all_done(done, mesh):
             break
     return tokens, scores
 
@@ -88,7 +104,7 @@ def greedy_decode_fn(model, max_len: int, sos_id: int, eos_id: int, multimodal: 
                       xa_hw: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
             b = xi.shape[0]
             step = _model_step(model, *model.decode_prefill(xi, xa, xi_hw, xa_hw))
-            return _loop(step, b, max_len, sos_id, eos_id, model.decode_init_cache(b), xi.device)
+            return _loop(step, b, max_len, sos_id, eos_id, model.decode_init_cache(b), xi.device, model.mesh)
 
         return decode_mm
 
@@ -96,7 +112,7 @@ def greedy_decode_fn(model, max_len: int, sos_id: int, eos_id: int, multimodal: 
     def decode(x: torch.Tensor, hw: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         b = x.shape[0]
         step = _model_step(model, *model.decode_prefill(x, hw))
-        return _loop(step, b, max_len, sos_id, eos_id, model.decode_init_cache(b), x.device)
+        return _loop(step, b, max_len, sos_id, eos_id, model.decode_init_cache(b), x.device, model.mesh)
 
     return decode
 
@@ -122,7 +138,7 @@ def weighted_decode_fn(img_model, audio_model, max_len: int, sos_id: int, eos_id
             return mixed, {"i": ci, "a": ca}
 
         carry = {"i": img_model.decode_init_cache(b), "a": audio_model.decode_init_cache(b)}
-        return _loop(step_logits, b, max_len, sos_id, eos_id, carry, xi.device)
+        return _loop(step_logits, b, max_len, sos_id, eos_id, carry, xi.device, img_model.mesh)
 
     return decode
 
@@ -206,7 +222,7 @@ def beam_decode_fn(model, max_len: int, sos_id: int, eos_id: int, beam_size: int
             done = done[batch_idx, src_beam] | (next_tok == eos_id)
             cache = _reorder(cache, (batch_idx * k + src_beam).reshape(-1))
             tok, logp = next_tok.reshape(-1), top_logp
-            if bool(done.all()):
+            if all_done(done, model.mesh):
                 break
 
         if length_penalty > 0.0:

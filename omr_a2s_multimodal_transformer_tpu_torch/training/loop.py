@@ -23,7 +23,20 @@ by beam search with ``beam_size > 1``, and adds MV2H with
 (``data/device_cache.py``, images as uint8 with ``device_cache_u8`` too),
 batches gathered there, bit-identical to the streaming loader's.
 
-Not ported yet, and raising ``NotImplementedError``: a mesh.
+``mesh`` (``parallel/mesh.py``; the model built on it by ``build_model(...,
+mesh=)``) trains on a ('data', 'model') grid of processes, as JAX's Trainer
+under a mesh: each batch goes through ``shard_batch`` (a data rank's rows,
+a remainder batch padded), the step is the global step (``train_state``),
+the dropout draws come from the mesh's generator, evaluation decodes each
+rank's rows and gathers the tokens over 'data' before SER (padded rows
+dropped), and only rank 0 logs and writes checkpoints, whose tensors every
+rank gathers first: a checkpoint is the file of a single-process run, and
+restore and warm start slice it back onto the mesh. A train loader that
+shards by process (``--loader_backend grain``, JAX's
+``ShardByJaxProcess``) is sharded over the data ranks and its batches are
+the rank's rows already: its global batch is ``batch_size`` times the data
+ranks. The device cache is ignored under a mesh, with JAX's warning. The
+fit ends with a barrier.
 """
 
 from __future__ import annotations
@@ -40,6 +53,9 @@ import torch
 
 from omr_a2s_multimodal_transformer_tpu_torch.data.vocab import Vocabulary
 from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, check_module_device
+from omr_a2s_multimodal_transformer_tpu_torch.parallel import multihost, tp
+from omr_a2s_multimodal_transformer_tpu_torch.parallel.collectives import all_gather
+from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import shard_batch
 from omr_a2s_multimodal_transformer_tpu_torch.training import checkpoint as ckpt_lib
 from omr_a2s_multimodal_transformer_tpu_torch.training.corruption import draw_modality
 from omr_a2s_multimodal_transformer_tpu_torch.training.decode import beam_decode_fn, cut_at_eos, greedy_decode_fn
@@ -49,7 +65,7 @@ from omr_a2s_multimodal_transformer_tpu_torch.training.train_state import (
     param_groups,
     trainable_parameters,
 )
-from omr_a2s_multimodal_transformer_tpu_torch.utils.logging import MetricsLogger
+from omr_a2s_multimodal_transformer_tpu_torch.utils.logging import MetricsLogger, NullLogger
 from omr_a2s_multimodal_transformer_tpu_torch.utils.metrics import compute_metrics
 from omr_a2s_multimodal_transformer_tpu_torch.utils.profiling import StepTimer, trace
 
@@ -89,8 +105,10 @@ class Trainer:
         device_cache_u8: bool = False,
         device: DeviceLike = None,  # cuda unless the caller asks for another device
     ):
-        if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...) is not ported yet")
+        if mesh is not None and getattr(model, "mesh", None) is not mesh:
+            raise ValueError("Trainer(mesh=...) trains a model built on that mesh (build_model(..., mesh=mesh))")
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.rank == 0
         self.device = check_module_device(model, device)
         self.model = model
         self.vocab = vocab
@@ -113,7 +131,7 @@ class Trainer:
         trainable_parameters(model, self.train_only)  # a name that matches no group raises here
         self.logger = MetricsLogger(
             run_dir, use_wandb=use_wandb, wandb_group=wandb_group, wandb_name=wandb_name, config=hparams
-        )
+        ) if self.primary else NullLogger(run_dir)
         self.train_step = make_train_step(
             model, vocab_size=len(vocab), teacher_forcing_prob=teacher_forcing_prob,
             bf16_compute=bf16_compute, multimodal=multimodal, device=self.device,
@@ -149,12 +167,13 @@ class Trainer:
         not fit the model (a name or a shape, e.g. a ``mix_gate`` of
         another mixer) raise ``ValueError`` naming the leaf."""
         restored = ckpt_lib.restore_checkpoint(path, map_location=self.device)
-        ckpt_lib.load_params(self.model, ckpt_lib.params_of(restored))
+        ckpt_lib.load_params(self.model, ckpt_lib.params_of(restored), self.mesh)
         if self.state is None:
             self.state = self._new_state()
             return
         try:  # full resume
-            self.state.optimizer.load_state_dict(restored["opt_state"])
+            opt = self.state.optimizer
+            opt.load_state_dict(tp.local_optimizer_state(self.model, opt, restored["opt_state"], self.mesh))
             self.state.step = int(restored["step"])
         except (KeyError, ValueError) as e:
             # LOUD fallback: silently resetting Adam moments mid-run after
@@ -184,9 +203,9 @@ class Trainer:
             return ckpt_lib.params_of(ckpt_lib.restore_checkpoint(path, map_location=self.device)) if path else None
 
         stitched = ckpt_lib.stitch_multimodal_params(
-            self.model.state_dict(), _load(image_ckpt), _load(audio_ckpt), decoder_from,
+            tp.full_state_dict(self.model, self.mesh), _load(image_ckpt), _load(audio_ckpt), decoder_from,
             mixer_type=self.model.mixer_type if self.model.mixer_residual else None)
-        ckpt_lib.load_params(self.model, stitched)
+        ckpt_lib.load_params(self.model, stitched, self.mesh)
         self.state = self._new_state()
         self.logger.log({"warm_start_image": image_ckpt or "", "warm_start_audio": audio_ckpt or "",
                          "warm_start_decoder_from": decoder_from}, step=0, quiet=False)
@@ -196,10 +215,13 @@ class Trainer:
     # device after the transfer (the JAX loop casts them on the host)
     _BF16_SHIP_KEYS = ("x", "xi", "xa")
 
-    def _put(self, batch: Dict, bf16_inputs: bool = False) -> Dict[str, torch.Tensor]:
+    def _put(self, batch: Dict, bf16_inputs: bool = False, local: bool = False) -> Dict[str, torch.Tensor]:
         """A loader's batch on the device: numpy arrays, host tensors (the
         worker loader's, pinned on a card) or tensors already there (the
-        device cache's, already cast)."""
+        device cache's, already cast). On a mesh, this rank's rows of it
+        (``shard_batch``), unless the loader gave them (``local``)."""
+        if self.mesh is not None and not local:
+            batch = shard_batch(batch, self.mesh)
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(v) if isinstance(v, np.ndarray) else v
@@ -218,7 +240,16 @@ class Trainer:
         datamodule.setup("fit")
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader()
-        if self.device_cache:
+        local_batches = False  # whether the train loader gives this rank's rows
+        if self.mesh is not None:
+            if self.device_cache:
+                logging.getLogger(__name__).warning(
+                    "device_cache ignored under a mesh (streaming loader keeps host->device sharding explicit)")
+            if hasattr(train_loader, "set_shard"):  # a loader that shards by process: over the data ranks
+                train_loader.set_shard(self.mesh.data_index, self.mesh.data)
+            local_batches = getattr(train_loader, "shard_count", 1) > 1
+            val_loader = self._whole(val_loader)
+        elif self.device_cache:
             from omr_a2s_multimodal_transformer_tpu_torch.data.device_cache import DeviceCacheLoader
 
             train_loader = DeviceCacheLoader(train_loader, self.device, cast_bf16=self.bf16_compute,
@@ -256,7 +287,8 @@ class Trainer:
         self.start_epoch, self.best, self.best_epoch = start_epoch, best, best_epoch
 
         host_rng = np.random.default_rng(self.seed)
-        generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        generator = (torch.Generator(device=self.device).manual_seed(self.seed + 1) if self.mesh is None
+                     else self.mesh.generator(self.device, self.seed + 1))
         bad_checks = 0
         step = int(self.state.step)
         timer = StepTimer()
@@ -277,7 +309,7 @@ class Trainer:
                     if batch is None:
                         break
                     with timer.phase("step"):
-                        b = self._put(batch, bf16_inputs=self.bf16_compute)
+                        b = self._put(batch, bf16_inputs=self.bf16_compute, local=local_batches)
                         if self.multimodal:
                             modality = draw_modality(host_rng, self.tf_modality_prob)
                             self.state, loss = self.train_step(self.state, b, generator, modality)
@@ -287,7 +319,7 @@ class Trainer:
                     step += 1
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
             dt = time.time() - t0
-            n_samples = len(losses) * train_loader.batch_size
+            n_samples = len(losses) * train_loader.batch_size * (self.mesh.data if local_batches else 1)
             self.logger.log(
                 {"epoch": epoch, "train_loss": train_loss,
                  "samples_per_sec": n_samples / max(dt, 1e-9), **timer.summary()},
@@ -308,7 +340,7 @@ class Trainer:
                         self.logger.log({"early_stop_epoch": epoch, "best_val_sym-er": best}, step=step)
                         break
 
-        if self.device_cache:
+        if self.device_cache and self.mesh is None:
             self.logger.log({"device_cache_bytes": train_loader.nbytes(),
                              "device_cache_samples": len(train_loader.ds)}, step=step)
         # the worker loader's processes end with the fit, and the device cache's stacks leave the card
@@ -318,9 +350,20 @@ class Trainer:
         best_path = os.path.join(self.weights_dir, "best")
         if os.path.exists(best_path):
             self.restore(best_path)
+        if self.mesh is not None:
+            multihost.barrier()
         return {"best_val_sym-er": best, "best_epoch": best_epoch}
 
     # ------------------------------------------------------------------- eval
+    @staticmethod
+    def _whole(loader):
+        """An evaluation loader over the whole split: one that shards by
+        process is given one shard (every rank decodes its rows of each
+        global batch, ``_put``)."""
+        if hasattr(loader, "set_shard"):
+            loader.set_shard(0, 1)
+        return loader
+
     def _get_decode(self):
         if self._decode is None:
             kw = dict(max_len=self.model.max_seq_len, sos_id=self.vocab.sos_id, eos_id=self.vocab.eos_id,
@@ -349,6 +392,8 @@ class Trainer:
                 tokens, _ = decode(b["xi"], b["xi_hw"], b["xa"], b["xa_hw"])
             else:
                 tokens, _ = decode(b["x"], b["x_hw"])
+            if self.mesh is not None:  # every data rank's rows, the padded ones dropped
+                tokens = all_gather(tokens, self.mesh.data_axis, 0)[:len(batch["y_out"])]
             pending.append((tokens, batch["y_out"]))
         host = [(tokens.cpu().numpy(), y_out) for tokens, y_out in pending]
         decode_s = time.perf_counter() - t0
@@ -365,7 +410,7 @@ class Trainer:
                           f"{name}_decode_batches": len(host)}
         self.logger.log(self.last_eval, step=int(self.state.step) if self.state is not None else 0, quiet=True)
         metrics = compute_metrics(y_true, y_pred, compute_mv2h=self.compute_mv2h)
-        if save_preds:
+        if save_preds and self.primary:
             os.makedirs(os.path.dirname(save_preds) or ".", exist_ok=True)
             with open(save_preds, "w") as f:
                 for g, p in zip(y_true, y_pred):
@@ -374,7 +419,7 @@ class Trainer:
 
     def test(self, datamodule, save_preds: Optional[str] = None) -> Dict[str, float]:
         datamodule.setup("test")
-        metrics = self.evaluate(datamodule.test_dataloader(), name="test", save_preds=save_preds)
+        metrics = self.evaluate(self._whole(datamodule.test_dataloader()), name="test", save_preds=save_preds)
         self.logger.log(metrics, step=int(self.state.step))
         return metrics
 
@@ -384,10 +429,13 @@ class Trainer:
         hp = dict(self.hparams)
         if extra:
             hp.update(extra)
-        state = {
-            "params": self.model.state_dict(),
-            "opt_state": self.state.optimizer.state_dict(),
+        state = {  # full tensors: every rank gathers, rank 0 writes
+            "params": tp.full_state_dict(self.model, self.mesh),
+            "opt_state": tp.full_optimizer_state(self.model, self.state.optimizer, self.mesh),
             "step": int(self.state.step),
         }
-        ckpt_lib.save_checkpoint(path, state, hparams=hp)
+        if self.primary:
+            ckpt_lib.save_checkpoint(path, state, hparams=hp)
+        if self.mesh is not None:  # no rank reads it before it is written
+            multihost.barrier()
         return path

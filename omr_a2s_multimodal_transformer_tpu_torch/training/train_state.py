@@ -17,6 +17,15 @@ and parameters by ``training/jax_import.py``'s layout: ``encoder``,
 ``decoder``; for a multimodal model ``image_encoder``, ``audio_encoder``,
 ``decoder``, ``cross_attn`` and ``mix_gate``); the others stay frozen, with
 no Adam moments, as under ``optax.set_to_zero``.
+
+On a mesh (a model built with ``build_model(..., mesh=)``) the step is
+JAX's GSPMD step over the global batch: the loss is the global token mean
+(the NLL summed over the data ranks over the summed count, not a mean of
+the ranks' means), the gradients are summed over 'data', and the clip's
+global norm counts every full parameter once (a sharded parameter's
+squares summed over 'model', a replicated one taken once). The step's
+generator must be the mesh's (``Mesh.generator``: every draw at the global
+shape, ``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -29,8 +38,9 @@ import torch
 from torch.func import functional_call
 
 from omr_a2s_multimodal_transformer_tpu_torch.device import DeviceLike, check_module_device
+from omr_a2s_multimodal_transformer_tpu_torch.parallel.collectives import all_reduce
 from omr_a2s_multimodal_transformer_tpu_torch.training.corruption import corrupt_tokens
-from omr_a2s_multimodal_transformer_tpu_torch.training.losses import cross_entropy_ignore_pad
+from omr_a2s_multimodal_transformer_tpu_torch.training.losses import cross_entropy_sums
 from omr_a2s_multimodal_transformer_tpu_torch.utils.debug import check_finite, check_token_ids, debug_checks_enabled
 
 
@@ -88,6 +98,33 @@ class TrainState:
         opt = torch.optim.Adam(trainable_parameters(model, train_only), lr=lr, betas=(0.9, 0.999), eps=1e-8)
         return cls(model, opt, lr, warmup_steps, decay_steps, clip_norm)
 
+    @property
+    def mesh(self):
+        return getattr(self.model, "mesh", None)
+
+    def _global_norm(self) -> torch.Tensor:
+        """The gradients' global norm over the full parameters: on a mesh,
+        a sharded parameter's squares summed over 'model', a replicated
+        one's taken once."""
+        named = [(n, p.grad) for n, p in self.model.named_parameters() if p.grad is not None]
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1:
+            return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for _, g in named]))
+        specs = getattr(self.model, "tp_specs", {})
+        zero = torch.zeros((), dtype=torch.float32, device=named[0][1].device)
+        sharded = sum((g.float().square().sum() for n, g in named if specs.get(n) is not None), zero)
+        replicated = sum((g.float().square().sum() for n, g in named if specs.get(n) is None), zero)
+        return torch.sqrt(all_reduce(sharded, mesh.model_axis) + replicated)
+
+    def _sum_over_data(self) -> None:
+        """Every gradient summed over the data ranks (one flat all-reduce)."""
+        mesh = self.mesh
+        if mesh is None or mesh.data == 1:
+            return
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), mesh.data_axis)
+        torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(torch.split(flat, [g.numel() for g in grads]), grads)])
+
     def current_lr(self) -> float:
         if self.warmup_steps > 0 or self.decay_steps > 0:
             return warmup_cosine(self.step, self.lr, self.warmup_steps, self.decay_steps)
@@ -111,9 +148,10 @@ class TrainState:
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        self._sum_over_data()
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         if self.clip_norm and self.clip_norm > 0:
-            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            norm = self._global_norm()
             scale = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
             torch._foreach_mul_(grads, scale)
         for group in self.optimizer.param_groups:
@@ -137,6 +175,8 @@ def make_train_step(model: torch.nn.Module, vocab_size: int, teacher_forcing_pro
     """
     check_module_device(model, device)
     checks = debug_checks_enabled()
+    mesh = getattr(model, "mesh", None)
+    sharded = mesh is not None and mesh.size > 1
 
     def loss_fn(batch: Dict[str, torch.Tensor], y_in: torch.Tensor, generator: torch.Generator,
                 modality: Optional[str]) -> torch.Tensor:
@@ -153,12 +193,17 @@ def make_train_step(model: torch.nn.Module, vocab_size: int, teacher_forcing_pro
             logits = functional_call(model, params, args, {"generator": generator})
         else:
             logits = model(*args, generator=generator)
-        return cross_entropy_ignore_pad(logits, batch["y_out"], pad_id)
+        nll, count = cross_entropy_sums(logits, batch["y_out"], pad_id)
+        if sharded:  # the global token count (the model ranks hold the same rows)
+            count = all_reduce(count.detach().clone(), mesh.data_axis)
+        return nll / count.clamp_min(1.0)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,
              modality: Optional[str] = None) -> Tuple[TrainState, torch.Tensor]:
         if state.model is not model:
             raise ValueError("the train state holds another model than the step was built for")
+        if sharded and getattr(generator, "mesh", None) is not mesh:
+            raise ValueError("a step on a mesh draws from the mesh's generator (Mesh.generator)")
         if multimodal != (modality is not None):
             raise ValueError(f"a {'multi' if multimodal else 'uni'}modal step takes "
                              f"{'a' if multimodal else 'no'} modality, got {modality!r}")
@@ -173,6 +218,9 @@ def make_train_step(model: torch.nn.Module, vocab_size: int, teacher_forcing_pro
             check_finite("the train loss", [loss.detach()])
             check_finite("the gradients", [p.grad for p in model.parameters()])
         state.apply_gradients()
-        return state, loss.detach()
+        loss = loss.detach()
+        if sharded:  # the global mean: each data rank's part of it summed
+            loss = all_reduce(loss.clone(), mesh.data_axis)
+        return state, loss
 
     return step

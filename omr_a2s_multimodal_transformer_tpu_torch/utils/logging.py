@@ -59,3 +59,16 @@ class MetricsLogger:
         self._fh.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullLogger:
+    """The logger of a rank other than 0 in a multi-process run: records nothing."""
+
+    def __init__(self, run_dir: str):
+        self.path = os.path.join(run_dir, "metrics.jsonl")
+
+    def log(self, metrics: Dict, step: int, quiet: bool = False) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

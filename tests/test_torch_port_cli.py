@@ -5,8 +5,10 @@ last/ and finite metrics, ``cli.test --save_preds`` evaluates best/ and
 writes one row per test sample. Then the audio and multimodal paths: an
 audio model, and a gated attn_both multimodal model warm-started from the
 image and audio checkpoints with only its mixer trained, then ``cli.test
---input_modality both``; each multimodal flag is shown read. Every flag of
-a feature not ported yet raises ``NotImplementedError``; without a GPU and
+--input_modality both``; each multimodal flag is shown read. ``--keep_cache``
+(a disk cache the port does not have) raises ``NotImplementedError``; the
+flags ported since run: ``--remat`` gives the fixture's run exactly, and
+``--mesh_model 2`` trains and tests under two gloo ranks. Without a GPU and
 without ``--device cpu`` both CLIs raise before any work.
 
 Then the inference and serving CLIs on those checkpoints: ``cli.test
@@ -23,6 +25,7 @@ import math
 
 import pytest
 import torch
+import torch_port_dist as D
 
 from omr_a2s_multimodal_transformer_tpu_torch.cli import common
 from omr_a2s_multimodal_transformer_tpu_torch.cli import test as test_cli
@@ -84,7 +87,7 @@ UNPORTED_TEST = {
     "cache_dtype_int4": ["--cache_dtype", "int4"],
 }
 # flags that raised until their feature was ported: their cases now run it
-PORTED_TRAIN = ("device_cache", "device_cache_u8", "cache_dtype_int8", "cache_dtype_int4", "grain")
+PORTED_TRAIN = ("device_cache", "device_cache_u8", "cache_dtype_int8", "cache_dtype_int4", "grain", "remat")
 PORTED_TEST = ("cache_dtype_int4",)
 
 
@@ -101,7 +104,13 @@ def test_train_cli_unported_flags_raise(trained, tmp_path, flag):
     device cache (u8 too) and the worker loader give the fixture's run
     exactly (metrics, best/ and last/ weights: the same batches); an
     int8/int4 cache trains the same and validates and tests by decoding
-    from the quantized cross K/V, its cache_dtype kept in the checkpoint."""
+    from the quantized cross K/V, its cache_dtype kept in the checkpoint;
+    --remat (the encoder's blocks recomputed, dropout replayed) gives the
+    fixture's run exactly. --mesh_model 2 is held under two ranks
+    (``_two_rank_cli_runs``)."""
+    if flag == "mesh_model":
+        _two_rank_cli_runs(trained, tmp_path)
+        return
     if flag not in PORTED_TRAIN:
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train_cli.main(_common(tmp_path) + ["--device", "cpu", "--weights_dir", str(tmp_path / "w")]
@@ -121,6 +130,46 @@ def test_train_cli_unported_flags_raise(trained, tmp_path, flag):
         assert losses[0] == losses[1]
     else:
         assert got == want
+
+
+def _two_rank_cli_runs(trained, tmp_path):
+    """The CLIs on two gloo ranks of the CPU, as ``python -m
+    torch.distributed.run --nproc_per_node 2`` starts them: cli.train on a
+    2 x 1 mesh (data parallel) for one epoch; then cli.train --mesh_model 2
+    (tensor parallel) resumes that run from its last/ for a second epoch,
+    the checkpoint resharded onto the other mesh; then cli.test --mesh_model
+    2 of the best/ on two ranks gives the single-process cli.test's metrics
+    on it (the decode's tokens are the single-process ones). Every
+    checkpoint holds the full tensors of the fixture's; rank 0 alone writes
+    the metrics. In one process, --mesh_model 2 raises before any work (a
+    model axis larger than the world), as JAX's mesh assert does."""
+    ws, want = trained
+    with pytest.raises(ValueError, match="not divisible"):
+        train_cli.main(_common(tmp_path) + ["--device", "cpu", "--mesh_model", "2", "--weights_dir",
+                                            str(tmp_path / "w0")])
+    assert not (tmp_path / "w0").exists() and not (tmp_path / "cache").exists()
+    base = _common(ws) + ["--check_val_every_n_epoch", "1", "--weights_dir", str(tmp_path / "weights"),
+                          "--run_dir", str(tmp_path / "run"), "--no_bf16", "--device", "cpu", "--use_flash_cross",
+                          "--attn_window", "10"]
+    train = "omr_a2s_multimodal_transformer_tpu_torch.cli.train"
+    dp = D.run_ranks(D.cli_main, 2, train, base + ["--epochs", "1"], timeout=240)
+    tp = D.run_ranks(D.cli_main, 2, train, base + ["--epochs", "2", "--mesh_model", "2"], timeout=240)
+    for out in dp + tp:
+        assert all(math.isfinite(out[k]) for k in ("best_val_sym-er", "test_sym-er", "test_seq-er"))
+    recs = [json.loads(line) for line in open(tmp_path / "run" / "metrics.jsonl")]
+    assert [r["epoch"] for r in recs if "train_loss" in r] == [1, 2]  # one writer; the tp run resumed at epoch 2
+    assert any(r.get("resumed_epoch") == 1 for r in recs)
+    ref = ckpt_lib.restore_checkpoint(str(ws / "weights" / "last"))
+    last = ckpt_lib.restore_checkpoint(str(tmp_path / "weights" / "last"))
+    assert last["step"] == ref["step"] == 4
+    assert {k: v.shape for k, v in last["params"].items()} == {k: v.shape for k, v in ref["params"].items()}
+    assert [s["exp_avg"].shape for s in last["opt_state"]["state"].values()] == \
+        [s["exp_avg"].shape for s in ref["opt_state"]["state"].values()]
+    test_args = _common(ws) + ["--checkpoint_path", str(tmp_path / "weights" / "best"), "--no_bf16", "--device", "cpu"]
+    single = test_cli.main(test_args + ["--run_dir", str(tmp_path / "t1")])
+    two = D.run_ranks(D.cli_main, 2, "omr_a2s_multimodal_transformer_tpu_torch.cli.test",
+                      test_args + ["--run_dir", str(tmp_path / "t2"), "--mesh_model", "2"], timeout=240)
+    assert two[0] == two[1] == single
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED_TEST))

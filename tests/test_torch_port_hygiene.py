@@ -84,17 +84,28 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
 
 
 def test_unported_options_raise():
-    """remat and memory_partition raise for every modality; the int8 and
-    int4 cache dtypes, ported since, build every modality and decode a
-    step from their quantized cross K/V (tests/test_torch_port_quant_decode.py
-    holds them against JAX)."""
+    """The options that raised until they were ported: remat builds every
+    modality, its encoders (and decoder, off the flash path) rematerialized
+    (tests/test_torch_port_remat.py holds its gradients); memory_partition
+    without a mesh raises ValueError for every modality, as JAX's sharding
+    constraint raises outside a mesh context (under a mesh:
+    test_torch_port_remat.py); the int8 and int4 cache dtypes build every
+    modality and decode a step from their quantized cross K/V
+    (tests/test_torch_port_quant_decode.py holds them against JAX)."""
     from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
 
     base = dict(vocab_size=11, max_seq_len=4, input_modality="image")
-    for over in (dict(remat=True), dict(memory_partition=("data", "model", None))):
-        for modality in ("image", "audio", "both"):
-            with pytest.raises(NotImplementedError):
-                build_model({**base, **over, "input_modality": modality}, device="cpu")
+    for modality in ("image", "audio", "both"):
+        model, _ = build_model({**base, "remat": True, "input_modality": modality}, device="cpu")
+        encoders = [m for m in model.modules() if hasattr(m, "dscblocks")]
+        assert len(encoders) == (2 if modality == "both" else 1) and all(e.remat for e in encoders)
+        assert model.decoder.remat
+        flash, _ = build_model({**base, "remat": True, "use_flash_cross": True, "input_modality": modality},
+                               device="cpu")
+        assert not flash.decoder.remat  # flash holds no score tensor: JAX remats the decoder only off it
+        with pytest.raises(ValueError, match="needs a mesh"):
+            build_model({**base, "memory_partition": ("data", "model", None), "input_modality": modality},
+                        device="cpu")
     x = {"image": torch.rand(2, 32, 64, 1), "audio": torch.rand(2, 195, 24, 1)}
     for cache_dtype, codes in (("int8", torch.int8), ("int4", torch.uint8)):
         for modality in ("image", "audio", "both"):

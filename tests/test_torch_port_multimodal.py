@@ -312,9 +312,11 @@ def test_build_model_both_and_what_still_raises():
     for mixer, shape in (("attn_img", (1,)), ("attn_audio", (1,)), ("attn_both", (2,))):
         model, _ = build_model(mm_hparams(mixer_type=mixer, mixer_residual=True), device="cpu")
         assert tuple(model.mix_gate.shape) == shape and not model.mix_gate.detach().any()
-    for over in (dict(remat=True), dict(memory_partition=("data", "model", None))):
-        with pytest.raises(NotImplementedError):
-            build_model(mm_hparams(**over), device="cpu")
+    # ported since: remat rematerializes both encoders; memory_partition needs a mesh (tests/test_torch_port_remat.py)
+    model, _ = build_model(mm_hparams(remat=True), device="cpu")
+    assert model.image_encoder.remat and model.audio_encoder.remat and model.decoder.remat
+    with pytest.raises(ValueError, match="needs a mesh"):
+        build_model(mm_hparams(memory_partition=("data", "model", None)), device="cpu")
     for cache_dtype in ("int8", "int4"):  # ported: quantized cross K/V under a bf16 self-cache
         model, _ = build_model(mm_hparams(cache_dtype=cache_dtype), device="cpu")
         assert model.decoder.cache_dtype == cache_dtype

@@ -359,7 +359,8 @@ def test_trainer_arguments_that_raise(start, tmp_path):
     tmp, dj, dp, hp, p0 = start
     with pytest.raises(ValueError, match="nope"):
         _port_trainer(start, tmp_path / "w", tmp_path / "r", epochs=1, train_only=("nope",))
-    with pytest.raises(NotImplementedError):
+    # a mesh is ported (tests/test_torch_port_cli.py trains on two ranks): the model must be built on it
+    with pytest.raises(ValueError, match="mesh"):
         _port_trainer(start, tmp_path / "w", tmp_path / "r", epochs=1, mesh=object())
     # the device cache is ported (tests/test_torch_port_device_cache.py): its flags are kept for fit
     for over in (dict(device_cache=True), dict(device_cache=True, device_cache_u8=True)):
