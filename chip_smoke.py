@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also trace one train step of each model
     python3 chip_smoke.py --out-dir D  # write the result and traces to D (default build/chip_smoke/)
+    python3 chip_smoke.py --min-cards 4  # fail unless four cards are visible
 
 Phases, each of which raises on failure (exit code 1):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
@@ -139,26 +140,43 @@ Phases, each of which raises on failure (exit code 1):
        and teacher forcing off); remat against no remat on the paper and
        the gated attn_both multimodal model (b8, dropout on, the same
        generator state: gradients within REMAT_TOL, peak and step time
-       both ways; a traced step's random-number kernels); K1/K2 at the dp
-       and tp shard shapes alone (device times, the key splits from their
-       launch grids); two ranks on the one card (spawned processes, gloo),
-       each on a dp 2 x 1 and then a tp 1 x 2 mesh: one dropout-0 step
-       with a global-norm clip that fires against the reference (loss and
-       gathered gradients after the clip within PAR_TOL, their global norm
-       the clip's within PAR_CLIP_TOL, at most PAR_OTHERWISE_MAX of the
-       parameter elements updated otherwise), K1 and K2 8 launches a step
-       counted from 0, two dropout steps with finite losses, a third traced
-       (its random-number kernels, K1 and K2 8 each in the rank's trace),
-       K1/K2 held to their plain version on their first call at the
-       shard's shape with the mixed seed and K4's masks of that seed equal
-       to the plain hash, under tp memory_partition's loss equal to the
-       unpartitioned one; then cli.train under
-       torch.distributed.run --nproc_per_node 2 on the cli path's corpus
-       (dp for one epoch, then tp --mesh_model 2 resuming it for a second)
-       and cli.test of its best/ on two ranks, whose metrics must equal
-       the single-process cli.test's (the prediction rows that differ are
-       counted). The two ranks share the card: their times are not
-       scaling figures.
+       both ways; a traced step's random-number kernels); K1/K2 at the full
+       cross shape and at the shard shape of each mesh the ranks run alone
+       (device times, the key splits from their launch grids); with two or
+       more cards, K1, K2 and K4 on cuda:1 tensors while cuda:0 is current
+       (K1 at dropout 0 and K4 equal to the calls on cuda:0 bit for bit, K2
+       within the gate). Then the ranks (spawned processes started by
+       parallel/multihost.py initialize, each logging its backend, current
+       device and the card's PCI bus id): on one card two ranks (gloo) on a
+       dp 2 x 1 and then a tp 1 x 2 mesh, then four (gloo) on the 2 x 2
+       mesh, which time nothing; on four or more cards four ranks, a card each (NCCL, on
+       distinct bus ids), on dp 4 x 1, 2 x 2 and tp 1 x 4. On each mesh one
+       dropout-0 step with a global-norm clip that fires against the
+       reference (loss and gathered gradients after the clip within
+       PAR_TOL, their global norm the clip's within PAR_CLIP_TOL, at most
+       PAR_OTHERWISE_MAX of the parameter elements updated otherwise), K1
+       and K2 8 launches a step counted from 0; then two dropout steps with
+       finite losses, a third traced (its random-number and NCCL kernels,
+       K1 and K2 8 each in the rank's trace), K1/K2 held to their plain
+       version on their first call at the shard's shape with the mixed seed
+       and K4's masks of that seed equal to the plain hash, under a 'model'
+       axis memory_partition's loss equal to the unpartitioned one (the
+       four ranks sharing one card: K1/K2 held to their plain version on
+       the dropout-0 step's first call at dropout 0.1 with the mixed seed,
+       and K4's masks, in place of the dropout steps); with a card a rank,
+       the gated attn_both multimodal model's dropout-0 step on 2 x 2 held
+       to its single-process step as above. Then cli.train under
+       torch.distributed.run on the cli path's corpus cut to 2-10 measures
+       (PAR_CORPUS), on two ranks (four with four or more cards, NCCL): dp
+       for one epoch, then --mesh_model 2 (tp 1 x 2, or 2 x 2) resuming it
+       for a second, and cli.test of its best/ on the same ranks and in
+       this process, both with the checkpoint's bf16 decode cache: the
+       rows, their lengths and the seq-er equal, the rows that differ and
+       the SER gap within PAR_TEST_ROWS_MAX and PAR_TEST_SER_MAX; each rank
+       prints its backend and device (cli/common.py), and NCCL ranks must
+       sit on distinct cards. Ranks that share a card: their times are not
+       scaling figures. With --min-cards N the smoke fails (no result) when
+       fewer than N cards are visible.
      K5a and K5b launch on the stem path only: no model calls the fused
      block, as in the JAX package (fused_stem.py:24-35); L1-L2c on the
      legacy path only (no model calls them either).
@@ -1842,10 +1860,9 @@ def rel_err(got, ref) -> float:
     return max_err(got, ref) / float(ref.detach().float().abs().max())
 
 
-def cli_data(modality: str) -> list:
+def cli_data(modality: str, corpus: dict = CLI_CORPUS, cache: Path = CLI_WS / "cache") -> list:
     return ["--ds_name", "synthetic", "--krn_encoding", "kern", "--synthetic", "--synthetic_config",
-            json.dumps(CLI_CORPUS), "--cache_root", str(CLI_WS / "cache"), "--batch_size", "8",
-            "--input_modality", modality]
+            json.dumps(corpus), "--cache_root", str(cache), "--batch_size", "8", "--input_modality", modality]
 
 
 def cli_run(dev, tag: str, modality: str, epochs: int, test_cli_run: bool, extra=(), train_only=None) -> dict:
@@ -2557,12 +2574,20 @@ def serve_path(dev, out_dir: Path, vocab) -> dict:
 
 
 # ------------------------------------------------------------------ the parallel path
-# Two ranks on the one card (gloo: NCCL refuses two ranks on one GPU), each a process of its own. The ranks share
-# the card, so their times are not scaling figures: each rank's step runs beside the other's.
+# The parallel path's ranks, each a process of its own. With one card they share it under gloo (NCCL refuses two
+# ranks on one GPU): two ranks on a dp 2 x 1 and a tp 1 x 2 mesh, then four on the 2 x 2 mesh; their times are not
+# scaling figures (each rank's step runs beside the others'). With four or more cards each of four ranks takes a
+# card of its own under NCCL (parallel/multihost.py initialize) and runs dp 4 x 1, 2 x 2 and tp 1 x 4 (with two or
+# three cards the two ranks run NCCL and the four ranks of the 2 x 2 mesh gloo).
 PAR_WS = ROOT / "build" / "chip_smoke_parallel"
-PAR_MESHES = (("dp", 1), ("tp", 2))  # the 2-rank mesh: model ranks
+PAR_TWO = (("dp", 2, 1), ("tp", 1, 2))  # (tag, data ranks, model ranks)
+PAR_FOUR = (("dp4", 4, 1), ("2x2", 2, 2), ("tp4", 1, 4))
+PAR_2X2 = (("2x2", 2, 2),)
 PAR_NO_DROPOUT = dict(encoder_dropout=0.0, decoder_dropout=0.0, pos_dropout=0.0)
 PAR_LR = 1e-4
+# the gated attn_both model's mix_gate in the multimodal step: nonzero, so that the mixer's gradients are not 0
+PAR_MM_GATE = (0.7, -1.3)
+PAR_MM = dict(input_modality="both", mixer_type="attn_both", mixer_residual=True)
 # the dropout-0 step's global-norm clip: far below the paper model's gradient norm at its seeded weights, so it
 # fires; the gradients after it, gathered to full tensors, must have the global norm PAR_CLIP to PAR_CLIP_TOL
 # (relative) in the reference and in every rank: a mesh norm that counted a replicated parameter twice or a
@@ -2584,6 +2609,27 @@ PARTITION_TOL = 1e-5  # memory_partition's loss against the unpartitioned one (J
 # run-to-run spread on the card: cuDNN's and K2's atomics, bf16)
 REMAT_TOL = 1e-2
 PAR_RANK_TIMEOUT_S = 900
+# the CLIs under torchrun train and decode the cli path's corpus cut to scores of 2-10 measures at the same image
+# widths and vocabulary (max_seq_len 240 where the cli path's 2-30 measures give 670): a tp rank's greedy step on
+# the one card waits on 25 gloo all-reduces through the host (82 ms a step against dp's 15), and every cli.train
+# validates once and tests once by greedy decode to max_seq_len
+PAR_CORPUS = dict(CLI_CORPUS, n_measures=10, n_measures_range=[2, 10])
+# cli.test on the ranks against the single process on the same checkpoint, both with its default bf16 decode cache:
+# a rank decodes 8 / nproc rows where the single process decodes 8, so the card rounds the cached K/V and the
+# logits otherwise, and a near-tie greedy step can flip a token and what follows it (in one of four runs on an
+# H100 80GB HBM3 at 700 W, at the cli path's corpus: 1 row of 8, SER 181.027 against 180.986, one edit of 2,406
+# reference tokens). Held exactly: the rows, each
+# row's length (where its EOS fell, or max_seq_len) and the seq-er; bounded: the rows that differ (twice that
+# reading) and the SER gap in points (about ten edits of this corpus's 966 test reference tokens)
+PAR_TEST_ROWS_MAX = 2
+PAR_TEST_SER_MAX = 1.0
+
+
+def rank_groups(n_cards: int) -> list:
+    """(world, meshes) of each spawn of the parallel path's ranks on n_cards cards."""
+    if n_cards >= 4:
+        return [(4, PAR_FOUR)]
+    return [(2, PAR_TWO), (4, PAR_2X2)]
 
 
 def _global_norm(grads: dict) -> float:
@@ -2597,9 +2643,10 @@ def _rel_l2(got: dict, want: dict) -> float:
 
 
 def rng_device_ms(fn, path: Path) -> dict:
-    """Device time of one train step fn(): all its kernels, and the random-number kernels among them
-    (PyTorch's distribution kernels: every dropout draw and token corruption), from a profiler trace that holds
-    its 8 K1 and 8 K2 launches (taken again, with another step, up to TRACE_TRIES times)."""
+    """Device time of one train step fn(): all its kernels, the random-number kernels among them (PyTorch's
+    distribution kernels: every dropout draw and token corruption) and NCCL's (the collectives of a rank a card;
+    gloo's run on the host), from a profiler trace that holds its 8 K1 and 8 K2 launches (taken again, with
+    another step, up to TRACE_TRIES times)."""
     for _ in range(TRACE_TRIES):
         events = traced_kernels(fn, 1, path)
         flash = {"K1": sum("flash_fwd_tma" in e["name"] and "merge" not in e["name"] for e in events),
@@ -2608,46 +2655,71 @@ def rng_device_ms(fn, path: Path) -> dict:
             break
         TRACES["retaken"] += 1
     rng = [e["dur"] for e in events if "distribution" in e["name"]]
+    nccl = sorted((e["dur"] for e in events if "nccl" in e["name"].lower()), reverse=True)
     return dict(rng_ms=sum(rng) / 1e3, rng_kernels=len(rng), all_ms=sum(e["dur"] for e in events) / 1e3,
-                flash_kernels=flash)
+                flash_kernels=flash, nccl_ms=sum(nccl) / 1e3, nccl_kernels=len(nccl),
+                nccl_longest_ms=nccl[0] / 1e3 if nccl else 0.0)
 
 
-def parallel_reference(dev) -> dict:
-    """The single-process step the ranks are held to: the paper model at full width (b8 361x4416, bf16, flash
-    cross-attention), dropout and teacher forcing off, one Adam step; its loss, gradients and updated
-    parameters go to PAR_WS/reference.pt."""
-    model = build(dev, attn_window=WINDOW, packed_stem=True, **PAR_NO_DROPOUT)
-    batch = train_batch(dev, torch.Generator(device=dev).manual_seed(2))
-    step = make_train_step(model, VOCAB, teacher_forcing_prob=0.0, bf16_compute=True)
-    state, loss = step(TrainState.create(model, lr=PAR_LR, clip_norm=PAR_CLIP), batch,
-                       torch.Generator(device=dev).manual_seed(3))
-    ref = dict(loss=float(loss), grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
-               params={n: p.detach().cpu() for n, p in model.named_parameters()})
-    norm = _global_norm(ref["grads"])
-    torch.save(ref, PAR_WS / "reference.pt")
-    log(f"[parallel] single-process reference step: loss {ref['loss']:.6f}, clipped gradients' norm {norm:.6f}")
-    if not abs(norm / PAR_CLIP - 1) <= PAR_CLIP_TOL:
-        raise AssertionError(f"the reference step's clip ({PAR_CLIP}) left the gradients' norm at {norm}")
-    del model, step, state
-    torch.cuda.empty_cache()
-    return ref
+def multimodal_batch(dev) -> dict:
+    """The b8 image batch of train_batch with 18 s spectrograms: 1,261 memory keys (13 x 97), the cli path's
+    audio bucket."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = train_batch(dev, g)
+    audio_w = 776
+    xa = torch.rand((B, 195, audio_w, 1), generator=g, device=dev)
+    xa_hw = torch.tensor([[195, audio_w - 40 * i] for i in range(B)], dtype=torch.int32, device=dev)
+    return {"xi": batch["x"], "xi_hw": batch["x_hw"], "xa": xa, "xa_hw": xa_hw, "y_in": batch["y_in"],
+            "y_out": batch["y_out"]}
+
+
+def build_mm(dev, mesh=None):
+    """The gated attn_both model, dropout off (the mixer's own attention dropout too), PAR_MM_GATE."""
+    model = build(dev, mesh, attn_window=WINDOW, packed_stem=True, **PAR_MM, **PAR_NO_DROPOUT)
+    model.cross_attn.dropout = 0.0
+    with torch.no_grad():
+        model.mix_gate.copy_(torch.tensor(PAR_MM_GATE))
+    return model
+
+
+def parallel_reference(dev, multimodal: bool) -> dict:
+    """The single-process steps the ranks are held to, dropout and teacher forcing off, one Adam step clipped at
+    PAR_CLIP: the paper model at full width (b8 361x4416, bf16, flash cross-attention) and, with multimodal, the
+    gated attn_both model (build_mm, multimodal_batch, modality both); their losses, gradients and updated
+    parameters go to PAR_WS/reference.pt and reference_mm.pt."""
+    refs = {}
+    models = [("paper", lambda: build(dev, attn_window=WINDOW, packed_stem=True, **PAR_NO_DROPOUT),
+               lambda: train_batch(dev, torch.Generator(device=dev).manual_seed(2)), None)]
+    if multimodal:
+        models.append(("multimodal", lambda: build_mm(dev), lambda: multimodal_batch(dev), "both"))
+    for tag, make_model, make_batch, modality in models:
+        model, batch = make_model(), make_batch()
+        step = make_train_step(model, VOCAB, teacher_forcing_prob=0.0, bf16_compute=True,
+                               multimodal=modality is not None)
+        state, loss = step(TrainState.create(model, lr=PAR_LR, clip_norm=PAR_CLIP), batch,
+                           torch.Generator(device=dev).manual_seed(3), *(() if modality is None else (modality,)))
+        ref = dict(loss=float(loss), grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                   params={n: p.detach().cpu() for n, p in model.named_parameters()})
+        norm = _global_norm(ref["grads"])
+        torch.save(ref, PAR_WS / ("reference.pt" if modality is None else "reference_mm.pt"))
+        log(f"[parallel] single-process reference step, {tag}: loss {ref['loss']:.6f}, clipped gradients' norm "
+            f"{norm:.6f}")
+        if not abs(norm / PAR_CLIP - 1) <= PAR_CLIP_TOL:
+            raise AssertionError(f"the {tag} reference step's clip ({PAR_CLIP}) left the gradients' norm at {norm}")
+        refs[tag] = ref["loss"]
+        del model, step, state, ref, batch
+        torch.cuda.empty_cache()
+    return refs
 
 
 def remat_phase(dev) -> dict:
     """The paper and the multimodal (gated attn_both) models, b8 at full width, bf16, dropout on, one train step
     each with and without remat from the same generator state: the gradients must agree within REMAT_TOL; the
     peak memory and the step's host time both ways."""
-    g = torch.Generator(device=dev).manual_seed(2)
-    batch = train_batch(dev, g)
-    audio_w = 776  # 18 s of audio: 1,261 memory keys (13 x 97), the cli path's audio bucket
-    xa = torch.rand((B, 195, audio_w, 1), generator=g, device=dev)
-    xa_hw = torch.tensor([[195, audio_w - 40 * i] for i in range(B)], dtype=torch.int32, device=dev)
-    mm_batch = {"xi": batch["x"], "xi_hw": batch["x_hw"], "xa": xa, "xa_hw": xa_hw, "y_in": batch["y_in"],
-                "y_out": batch["y_out"]}
+    mm_batch = multimodal_batch(dev)
+    batch = {"x": mm_batch["xi"], "x_hw": mm_batch["xi_hw"], "y_in": mm_batch["y_in"], "y_out": mm_batch["y_out"]}
     out = {}
-    for tag, hp, b, modality in (
-            ("paper", {}, batch, None),
-            ("multimodal", dict(input_modality="both", mixer_type="attn_both", mixer_residual=True), mm_batch, "both")):
+    for tag, hp, b, modality in (("paper", {}, batch, None), ("multimodal", PAR_MM, mm_batch, "both")):
         runs = {}
         for remat in (False, True):
             model = build(dev, attn_window=WINDOW, packed_stem=True, remat=remat, **hp)
@@ -2669,7 +2741,7 @@ def remat_phase(dev) -> dict:
                     first_loss = loss
             runs[remat] = dict(loss=first_loss, grads=grads, step_ms=times[-1],
                                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-            if tag == "paper" and not remat:  # the single-process step's random-number work, for the ranks'
+            if tag == "paper" and not remat:  # the single-process step's device time, beside the ranks'
                 runs[remat]["rng"] = rng_device_ms(lambda: step(state, b, gen), PAR_WS / "rng_single.json")
             del model, step, state
             torch.cuda.empty_cache()
@@ -2698,19 +2770,23 @@ def keep_masks_equal(args) -> dict:
     return dict(seed=int(seed), shape=list(got.shape), kept=float(got.float().mean()))
 
 
-def parallel_rank_mesh(dev, mesh, tag: str, ref: dict) -> dict:
+def held_step(dev, mesh, who: str, model, batch, ref: dict, modality=None) -> dict:
+    """One dropout-0 step of model (built on mesh) on this rank's rows of batch, counted from 0: K1 and K2 8
+    launches, nothing else; the loss, the gathered gradients after the clip and the gathered updated parameters
+    held to the single-process step ref (PAR_TOL, PAR_CLIP_TOL, PAR_OTHERWISE_MAX)."""
     from omr_a2s_multimodal_transformer_tpu_torch.parallel import tp
     from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import shard_batch
 
-    who = f"parallel {tag} rank {mesh.rank}"
-    out = {}
-    # one deterministic step against the single-process step
-    model = build(dev, mesh, attn_window=WINDOW, packed_stem=True, **PAR_NO_DROPOUT)
-    local = shard_batch(train_batch(dev, torch.Generator(device=dev).manual_seed(2)), mesh)
-    step = make_train_step(model, VOCAB, teacher_forcing_prob=0.0, bf16_compute=True)
+    local = shard_batch(batch, mesh)
+    step = make_train_step(model, VOCAB, teacher_forcing_prob=0.0, bf16_compute=True,
+                           multimodal=modality is not None)
     reset_counts()
-    state, loss = step(TrainState.create(model, lr=PAR_LR, clip_norm=PAR_CLIP), local, mesh.generator(dev, 3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(TrainState.create(model, lr=PAR_LR, clip_norm=PAR_CLIP), local, mesh.generator(dev, 3),
+                       *(() if modality is None else (modality,)))
     loss = float(loss)
+    step_ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts()
     specs = model.tp_specs
     grads = {n: tp.gather_full(p.grad, specs[n], mesh).cpu() for n, p in model.named_parameters()}
@@ -2718,23 +2794,64 @@ def parallel_rank_mesh(dev, mesh, tag: str, ref: dict) -> dict:
     moved = max(float((params[k] - ref["params"][k]).abs().max()) for k in ref["params"])
     differ = sum(int(((params[k] - ref["params"][k]).abs() > 1e-3 * PAR_LR).sum()) for k in ref["params"])
     total = sum(v.numel() for v in ref["params"].values())
-    out["step"] = dict(loss=loss, loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]), grad_rel_l2=_rel_l2(grads, ref["grads"]),
-                       clipped_grad_norm=_global_norm(grads), param_max_abs_over_lr=moved / PAR_LR,
-                       params_updated_otherwise=differ / total,
-                       local_rows=int(local["x"].shape[0]), local_heads=model.decoder.layers[0].self_attn.heads,
-                       launches=counts)
-    log(f"[{who}] step at dropout 0: {out['step']}")
+    rows = next(v for k, v in local.items() if k in ("x", "xi")).shape[0]
+    st = dict(loss=loss, loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]), grad_rel_l2=_rel_l2(grads, ref["grads"]),
+              clipped_grad_norm=_global_norm(grads), param_max_abs_over_lr=moved / PAR_LR,
+              params_updated_otherwise=differ / total, local_rows=int(rows),
+              local_heads=model.decoder.layers[0].self_attn.heads, launches=counts, first_step_ms=step_ms)
+    log(f"[{who}] step at dropout 0: {st}")
     want = {name: 8 if name in ("K1 flash fwd", "K2 flash bwd") else 0 for name in KERNELS}
     if counts != want:
         raise AssertionError(f"{who}: launched {counts}, expected {want}")
-    st = out["step"]
     if not (st["loss_rel"] <= PAR_TOL and st["grad_rel_l2"] <= PAR_TOL and st["params_updated_otherwise"] <= PAR_OTHERWISE_MAX
             and abs(st["clipped_grad_norm"] / PAR_CLIP - 1) <= PAR_CLIP_TOL):
         raise AssertionError(f"{who}: the step differs from the single-process step: {st}")
-    del model, step, state, grads, params
-    torch.cuda.empty_cache()
+    del step, state, grads, params
+    return st
 
-    # two steps at the default dropouts (stem 0.5, decoder and positions 0.1, teacher forcing 0.2)
+
+def flash_args_at(args: dict, rate: float) -> dict:
+    """The arguments of the first K1 and K2 calls (FirstCalls) at dropout rate: K2's o and lse from K1 at that
+    rate on K2's own q, k, v (its call is the last decoder layer's backward, K1's the first layer's forward)."""
+    q, k, v, kv_len, kv_valid, seed, _, heads, bq, bk = args["K1 flash fwd"]
+    q2, k2, v2, kv_len2, kv_valid2, seed2, _, _, do, _, heads2, bq2, bk2 = args["K2 flash bwd"]
+    o, lse = fp.flash_fwd_cuda(q2, k2, v2, kv_len2, kv_valid2, seed2, rate, heads2, bq2, bk2)
+    return {"K1 flash fwd": (q, k, v, kv_len, kv_valid, seed, rate, heads, bq, bk),
+            "K2 flash bwd": (q2, k2, v2, kv_len2, kv_valid2, seed2, o, lse, do, rate, heads2, bq2, bk2)}
+
+
+def parallel_rank_mesh(dev, mesh, tag: str, full: bool) -> dict:
+    """One mesh of a rank: the paper model's dropout-0 step held to the reference (held_step). full: then the
+    default dropouts (stem 0.5, decoder and positions 0.1, teacher forcing 0.2), two steps timed by the host
+    clock and a third traced (its random-number and NCCL kernels), K1/K2 held to their plain version on their
+    first call there (the shard's shape, the mixed seed; K4's masks of that seed equal to the plain hash), and
+    under a 'model' axis memory_partition; else K1/K2 held to their plain version on the inputs of their first
+    call in the dropout-0 step at dropout 0.1 (flash_args_at: the shard's shape, the mixed seed) and K4's masks
+    of that seed. On a 2 x 2 mesh whose ranks each have a card, then the multimodal model's dropout-0 step held
+    to its reference."""
+    who = f"parallel {tag} rank {mesh.rank}"
+    out = {}
+    batch = train_batch(dev, torch.Generator(device=dev).manual_seed(2))
+    ref = torch.load(PAR_WS / "reference.pt", weights_only=True)
+    with contextlib.nullcontext() if full else FirstCalls() as first:
+        out["step"] = held_step(dev, mesh, who, build(dev, mesh, attn_window=WINDOW, packed_stem=True,
+                                                      **PAR_NO_DROPOUT), batch, ref)
+    del ref
+    torch.cuda.empty_cache()
+    if not full:
+        args = flash_args_at(first.args, 0.1)
+        errs = check_cli_flash(args, who)
+        masks = keep_masks_equal(args["K1 flash fwd"])
+        out["dropout_0.1_check"] = dict(max_abs_err=errs, keep_masks=masks, kernel_rows=int(args["K1 flash fwd"][0].shape[0]),
+                                        kernel_heads=int(args["K1 flash fwd"][7]))
+        log(f"[{who}] K1/K2 at {out['dropout_0.1_check']['kernel_rows']} rows x "
+            f"{out['dropout_0.1_check']['kernel_heads']} heads, dropout 0.1, seed {masks['seed']} (mixed): within the "
+            f"gate; K4's masks equal the plain hash")
+        return out
+
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import shard_batch
+
+    local = shard_batch(batch, mesh)
     model = build(dev, mesh, attn_window=WINDOW, packed_stem=True)
     step = make_train_step(model, VOCAB, teacher_forcing_prob=0.2, bf16_compute=True)
     state, gen = TrainState.create(model, lr=PAR_LR), mesh.generator(dev, 3)
@@ -2751,9 +2868,10 @@ def parallel_rank_mesh(dev, mesh, tag: str, ref: dict) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if counts != {name: 2 * n for name, n in want.items()} or not all(map(math.isfinite, losses)):
+    want = {name: 16 if name in ("K1 flash fwd", "K2 flash bwd") else 0 for name in KERNELS}
+    if counts != want or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{who}: dropout steps launched {counts}, losses {losses}")
-    # a third step, traced: the random-number kernels of the global-shape draws, on this rank alone
+    # a third step, traced: its random-number and NCCL kernels, on this rank alone
     rng = rng_device_ms(lambda: step(state, local, gen), PAR_WS / f"rng_{tag}_{mesh.rank}.json")
     # the rank's own trace of one step (the launch counts above are the gate; a trace that recorded no kernel at
     # all, the profiler's known fault, is logged and not held)
@@ -2763,16 +2881,32 @@ def parallel_rank_mesh(dev, mesh, tag: str, ref: dict) -> dict:
     torch.cuda.empty_cache()
     errs = check_cli_flash(first.args, who)  # K1/K2 against the plain version at the shard's shape, mixed seed
     masks = keep_masks_equal(first.args["K1 flash fwd"])
+    k1 = first.args["K1 flash fwd"]
     out["dropout"] = dict(losses=losses, step_ms=times, peak_gib=peak, launches=counts, max_abs_err=errs, rng=rng,
-                          keep_masks=masks, mixed_seed_part=fp.shard_seed(mesh.data_index, mesh.model_index,
-                                                                          fp.shard_heads(HEADS, 64, mesh.model)))
-    log(f"[{who}] dropout steps: losses {losses}, {times[-1]:.1f} ms (the other rank's step on the same card), "
-        f"peak {peak:.2f} GiB; K4 masks of seed {masks['seed']} equal the plain hash; a traced step's random-number "
-        f"kernels {rng['rng_ms']:.3f} ms of {rng['all_ms']:.1f} ms device time")
+                          keep_masks=masks, kernel_rows=int(k1[0].shape[0]), kernel_heads=int(k1[7]),
+                          mixed_seed_part=fp.shard_seed(mesh.data_index, mesh.model_index,
+                                                        fp.shard_heads(HEADS, 64, mesh.model)))
+    log(f"[{who}] dropout steps: losses {losses}, host {times[-1]:.1f} ms, peak {peak:.2f} GiB; K1/K2 at "
+        f"{out['dropout']['kernel_rows']} rows x {out['dropout']['kernel_heads']} heads; K4 masks of seed "
+        f"{masks['seed']} equal the plain hash; a traced step: {rng['all_ms']:.1f} ms device time, random-number "
+        f"kernels {rng['rng_ms']:.3f} ms, NCCL {rng['nccl_ms']:.3f} ms in {rng['nccl_kernels']} kernels (longest "
+        f"{rng['nccl_longest_ms']:.3f} ms)")
     del first
     if mesh.model > 1:  # memory_partition: the memory held split over S across the model ranks
         out["memory_partition"] = partition_check(dev, mesh, local)
+    if (mesh.data, mesh.model) == (2, 2):  # a full 2 x 2 mesh: four ranks, a card each
+        ref = torch.load(PAR_WS / "reference_mm.pt", weights_only=True)
+        out["multimodal"] = held_step(dev, mesh, who + " multimodal", build_mm(dev, mesh), multimodal_batch(dev),
+                                      ref, modality="both")
+        del ref
+        torch.cuda.empty_cache()
     return out
+
+
+def dist_backend() -> str:
+    import torch.distributed as dist
+
+    return dist.get_backend()
 
 
 def partition_check(dev, mesh, local) -> dict:
@@ -2801,27 +2935,36 @@ def partition_check(dev, mesh, local) -> dict:
     return dict(res, rel=rel)
 
 
-def parallel_rank(rank: int, port: int, world: int = 2) -> None:
-    """One rank of the parallel path (a process of its own): gloo over the one card; the dp 2 x 1 and the tp
-    1 x 2 mesh in turn; its result to PAR_WS/rank{rank}.json."""
-    import torch.distributed as dist
+def bus_id(index: int) -> str:
+    """Card index's PCI address, domain:bus:device.function."""
+    p = torch.cuda.get_device_properties(index)
+    return f"{p.pci_domain_id:04x}:{p.pci_bus_id:02x}:{p.pci_device_id:02x}.0"
 
+
+def parallel_rank(rank: int, port: int, world: int, meshes) -> None:
+    """One rank of the parallel path (a process of its own), started by the port's multihost.initialize: a card
+    of its own under NCCL when the cards allow, else the current card under gloo; each of meshes in turn (full
+    procedure where the rank has a card of its own, or on a mesh of two ranks); its result to
+    PAR_WS/rank{rank}_{world}.json."""
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel import multihost
     from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
 
     global OUT_DIR
     OUT_DIR = PAR_WS
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
-                            timeout=__import__("datetime").timedelta(seconds=PAR_RANK_TIMEOUT_S))
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cuda")
     try:
-        ref = torch.load(PAR_WS / "reference.pt", weights_only=True)
-        out = {}
-        for tag, model_axis in PAR_MESHES:
-            out[tag] = parallel_rank_mesh(dev, make_mesh(model=model_axis), tag, ref)
-        (PAR_WS / f"rank{rank}.json").write_text(json.dumps(out))
+        dev = torch.device("cuda", torch.cuda.current_device())
+        ident = dict(backend=dist_backend(), current_device=torch.cuda.current_device(), bus_id=bus_id(dev.index))
+        log(f"[parallel rank {rank} of {world}] backend {ident['backend']}, current device "
+            f"{ident['current_device']}, bus id {ident['bus_id']}")
+        out = dict(ident=ident)
+        for tag, data, model in meshes:
+            mesh = make_mesh(data, model)
+            out[tag] = parallel_rank_mesh(dev, mesh, tag, full=ident["backend"] == "nccl" or world == 2)
+        (PAR_WS / f"rank{rank}_{world}.json").write_text(json.dumps(out))
     finally:
-        dist.destroy_process_group()
+        multihost.shutdown()
 
 
 def _free_port() -> int:
@@ -2832,12 +2975,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(world: int = 2) -> list:
-    """parallel_rank in ``world`` spawned processes; every one joined or killed."""
+def run_ranks(world: int, meshes) -> list:
+    """parallel_rank in ``world`` spawned processes; every one joined or killed. Under NCCL the ranks must sit
+    on distinct cards."""
     import torch.multiprocessing as mp
 
     ctx, port = mp.get_context("spawn"), _free_port()
-    procs = [ctx.Process(target=parallel_rank, args=(r, port, world)) for r in range(world)]
+    procs = [ctx.Process(target=parallel_rank, args=(r, port, world, meshes)) for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.time() + PAR_RANK_TIMEOUT_S
@@ -2852,17 +2996,24 @@ def run_ranks(world: int = 2) -> list:
     codes = [p.exitcode for p in procs]
     if codes != [0] * world:
         raise AssertionError(f"parallel ranks exited with {codes}")
-    return [json.loads((PAR_WS / f"rank{r}.json").read_text()) for r in range(world)]
+    ranks = [json.loads((PAR_WS / f"rank{r}_{world}.json").read_text()) for r in range(world)]
+    idents = [r["ident"] for r in ranks]
+    if idents[0]["backend"] == "nccl" and len({i["bus_id"] for i in idents}) != world:
+        raise AssertionError(f"NCCL ranks share a card: {idents}")
+    return ranks
 
 
 def shard_kernels(dev) -> dict:
-    """K1 and K2 at the shard shapes of the 2-rank meshes (the cross shape's rows and heads of one rank: dp 4 rows
-    x 4 heads, tp 8 rows x 2 heads), dropout 0.1 and 0, against the plain version, device-timed on the card alone;
-    the key splits of K1 (fwd_splits) and K3a (dq_splits) as their launches' grids give them, beside the full
-    shape's."""
+    """K1 and K2 at the full cross shape and at the shard shapes of the meshes the ranks run (rank_groups: the
+    cross shape's rows and heads of one rank, one card dp 2 x 1 4 rows x 4 heads, tp 1 x 2 8 x 2, 2 x 2 4 x 2;
+    four cards dp 4 x 1 2 x 4, 2 x 2, and tp 1 x 4's 8 x 1, the heads a rank holds: its dispatch gathers them to
+    8 x 4 before the kernel, JAX's 128-lane rule), dropout 0.1 and 0, against the plain version, device-timed on
+    the card alone; the key splits of K1 (fwd_splits) and K3a (dq_splits) as their launches' grids give them."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    for tag, b, heads in (("full", B, HEADS), ("dp shard", B // 2, HEADS), ("tp shard", B, HEADS // 2)):
+    meshes = [m for _, group in rank_groups(torch.cuda.device_count()) for m in group]
+    for tag, data, model in [("full", 1, 1), *meshes]:
+        b, heads = B // data, HEADS // model
         g = torch.Generator(device=dev).manual_seed(0)
         kv_valid = memory_valid_from_hw(ragged_hw(B, dev), GRID_H, GRID_W)[:b].contiguous()
         kv_len = torch.full((b,), LK, dtype=torch.int32, device=dev)
@@ -2920,118 +3071,202 @@ def launch_grid(name: str, fn, symbol: str) -> list:
     raise AssertionError(f"{name}: no kernel named {symbol} in {TRACE_TRIES} traces of 10 calls")
 
 
-def torchrun(module: str, args: list, tag: str, timeout: float = 900) -> float:
-    """``python -m torch.distributed.run --nproc_per_node 2 -m module args`` from the checkout's root; its output
-    to PAR_WS/<tag>.log; returns its wall seconds."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
-           "--master_port", str(_free_port()), "-m", module, *args]
+def cross_card_check() -> dict:
+    """K1, K2 and K4 of the cross shape on cuda:1 tensors, called while cuda:0 is the runtime's current device (the
+    launchers opted their kernels in to their shared memory on cuda:0 before): K1 at dropout 0 and K4 (dropout 0.1)
+    equal to the same calls on cuda:0 bit for bit, K2 (dropout 0.1) within KERNEL_TOL of its plain version on
+    cuda:1."""
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    torch.cuda.set_device(d0)
+    g = torch.Generator(device=d0).manual_seed(0)
+    kv_valid = memory_valid_from_hw(ragged_hw(B, d0), GRID_H, GRID_W).contiguous()
+    kv_len = torch.full((B,), LK, dtype=torch.int32, device=d0)
+    seed = torch.tensor([20240611], dtype=torch.int32, device=d0)
+    bq, bk = fp.mask_geometry(LQ, LK)
+    q, k, v, do = (torch.randn((B, n, HEADS * 64), generator=g, device=d0).to(torch.bfloat16) for n in (LQ, LK, LK, LQ))
+    on0 = (q, k, v, kv_len, kv_valid, seed)
+    on1 = tuple(t.to(d1) for t in on0)
+    outs = {}
+    for d, ins in ((d0, on0), (d1, on1)):
+        o, lse = fp.flash_fwd_cuda(*ins, 0.0, HEADS, bq, bk)
+        mask = fp.keep_mask_cuda(ins[5], B, HEADS, -(-LQ // bq) * bq, -(-LK // bk) * bk, 0.1, bq, bk)
+        outs[d.index] = (o.cpu(), lse.cpu(), mask.cpu())
+    torch.cuda.synchronize(d1)
+    o1, lse1 = fp.flash_fwd_cuda(*on1, 0.1, HEADS, bq, bk)
+    do1 = do.to(d1)
+    grads = fp.flash_bwd_cuda(*on1, o1, lse1, do1, 0.1, HEADS, bq, bk)
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in on1[:3])
+    o_p, _ = fp.flash_attention_plain(qr, kr, vr, *on1[3:], 0.1, HEADS, False, -1, bq, bk)
+    grads_p = torch.autograd.grad(o_p, (qr, kr, vr), do1)
+    err2 = max(check_vs(f"K2 {n} on cuda:1", a, p) for n, a, p in zip(("dq", "dk", "dv"), grads, grads_p))
+    current = torch.cuda.current_device()
+    equal = dict(K1=all(torch.equal(a, b) for a, b in zip(outs[0][:2], outs[1][:2])),
+                 K4=torch.equal(outs[0][2], outs[1][2]))
+    res = dict(current_device=current, bit_equal=equal, K2_max_abs_err=err2, devices=[str(t.device) for t in grads])
+    log(f"[parallel cross-card] K1/K2/K4 on cuda:1 tensors with cuda:{current} current: {res}")
+    if current != 0 or not all(equal.values()) or res["devices"] != ["cuda:1"] * 3:
+        raise AssertionError(f"a kernel launched off its tensors' card: {res}")
+    del on1, o1, lse1, do1, grads, grads_p, o_p, qr, kr, vr
+    torch.cuda.empty_cache()
+    return res
+
+
+def torchrun(module: str, args: list, tag: str, nproc: int, timeout: float = 900) -> dict:
+    """``python -m torch.distributed.run --nproc_per_node nproc -m module args`` from the checkout's root; its
+    output to PAR_WS/<tag>.log; returns its wall seconds and the process-group line each rank printed
+    (cli/common.py init_cli). Under NCCL the ranks must sit on distinct cards."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc), "--master_addr",
+           "127.0.0.1", "--master_port", str(_free_port()), "-m", module, *args]
     t0 = time.perf_counter()
     run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
     (PAR_WS / f"{tag}.log").write_text(run.stdout + "\n--- stderr ---\n" + run.stderr)
     if run.returncode != 0:
         raise AssertionError(f"torchrun {tag} exited with {run.returncode}:\n{run.stderr[-3000:]}")
-    log(f"[parallel cli] {tag}: {wall:.1f} s")
-    return wall
+    found = set(re.findall(r"process group: rank (\d+) of (\d+), backend (\w+), device (cuda:\d+)", run.stdout))
+    groups = [f"rank {r} of {w}, backend {b}, device {d}" for r, w, b, d in sorted(found)]
+    backends, devices = {b for _, _, b, _ in found}, {d for *_, d in found}
+    if len(found) != nproc or (backends == {"nccl"} and len(devices) != nproc):
+        raise AssertionError(f"torchrun {tag}: the ranks' process-group lines {groups}")
+    log(f"[parallel cli] {tag}: {wall:.1f} s; {groups}")
+    return dict(wall_s=wall, ranks=groups)
 
 
-def parallel_cli() -> dict:
-    """cli.train and cli.test under ``torch.distributed.run --nproc_per_node 2`` on the cli path's corpus and
-    cache (the paper model, b8 global, bf16, flash cross-attention): dp for one epoch; then tp (--mesh_model 2)
-    resumes it for a second epoch (the checkpoint resharded onto the other mesh); then cli.test of the run's
-    best/ on two ranks (dp), whose metrics must equal the single-process cli.test's on the same checkpoint
-    (the prediction rows that differ are counted). Each cli.train validates and tests by greedy decode; under tp every decode step's collectives
-    go through gloo."""
+def parallel_cli(n_cards: int) -> dict:
+    """cli.train and cli.test under ``torch.distributed.run`` on PAR_CORPUS (the paper model, b8 global, bf16, flash
+    cross-attention): two ranks (gloo on one card, else NCCL), or four under NCCL with four or more cards. Data
+    parallel for one epoch; then --mesh_model 2 (tp 1 x 2, or 2 x 2 on four ranks) resumes it for a second epoch
+    (the checkpoint resharded onto the other mesh), validating once; then cli.test of the run's best/ on the same
+    ranks (dp) and in this process, each with the checkpoint's decode cache, held to each other as PAR_TEST_*
+    says. Each cli.train validates and tests by greedy decode; under tp on the one card every decode step's
+    collectives go through gloo."""
     from omr_a2s_multimodal_transformer_tpu_torch.cli import test as test_cli
     from omr_a2s_multimodal_transformer_tpu_torch.training import checkpoint as ckpt_lib
 
+    nproc = 4 if n_cards >= 4 else 2
     train, test = ("omr_a2s_multimodal_transformer_tpu_torch.cli." + m for m in ("train", "test"))
-    out = {}
+    data = cli_data("image", PAR_CORPUS, PAR_WS / "cache")
+    out = dict(nproc=nproc)
 
     def train_args(epochs, *extra):
-        return cli_data("image") + ["--attn_window", str(WINDOW), "--use_flash_cross", "--epochs", str(epochs),
-                                    "--check_val_every_n_epoch", "1", "--weights_dir", str(PAR_WS / "weights"),
-                                    "--run_dir", str(PAR_WS / "run"), *extra]
+        return data + ["--attn_window", str(WINDOW), "--use_flash_cross", "--epochs", str(epochs),
+                       "--check_val_every_n_epoch", "1", "--weights_dir", str(PAR_WS / "weights"),
+                       "--run_dir", str(PAR_WS / "run"), *extra]
 
-    for tag, args in (("dp", train_args(1)), ("tp resumed", train_args(2, "--mesh_model", "2"))):
-        wall = torchrun(train, args, tag.replace(" ", "_"))
+    resumed = "tp resumed" if nproc == 2 else "2x2 resumed"
+    for tag, args in (("dp", train_args(1)), (resumed, train_args(2, "--mesh_model", "2"))):
+        run = torchrun(train, args, tag.replace(" ", "_"), nproc)
         recs = cli_records(PAR_WS / "run")
         epochs = [r for r in recs if "train_loss" in r]
         last = epochs[-1]
         if not all(math.isfinite(r["train_loss"]) for r in epochs):
             raise AssertionError(f"parallel cli {tag}: losses {[r['train_loss'] for r in epochs]}")
-        steps = CLI_CORPUS["n"] // 8  # one process ran this epoch alone: its StepTimer totals are its own
-        out[tag] = dict(wall_s=wall, epochs=[r["epoch"] for r in epochs], train_loss=last["train_loss"],
+        steps = PAR_CORPUS["n"] // 8  # one process ran this epoch alone: its StepTimer totals are its own
+        decodes = {k: r[k] for r in recs for k in ("val_decode_s", "test_decode_s", "val_decode_steps",
+                                                    "test_decode_steps") if k in r}
+        out[tag] = dict(run, epochs=[r["epoch"] for r in epochs], train_loss=last["train_loss"],
                         samples_per_sec=last["samples_per_sec"], data_ms_mean=last["time_data_total_s"] * 1e3 / (steps + 1),
-                        step_ms_mean=last["time_step_total_s"] * 1e3 / steps)
+                        step_ms_mean=last["time_step_total_s"] * 1e3 / steps, last_decodes=decodes)
         log(f"[parallel cli] {tag}: {out[tag]}")
-    if out["tp resumed"]["epochs"] != [1, 2] or not any("resumed_from" in r for r in cli_records(PAR_WS / "run")):
+    if out[resumed]["epochs"] != [1, 2] or not any("resumed_from" in r for r in cli_records(PAR_WS / "run")):
         raise AssertionError(f"parallel cli epochs: {out}")
-    tp_last = str(PAR_WS / "weights" / "last")
-    single_model, _ = build_model(ckpt_lib.load_hparams(tp_last), device="cpu")
-    shapes = {k: tuple(v.shape) for k, v in ckpt_lib.restore_checkpoint(tp_last)["params"].items()}
+    last_ckpt = str(PAR_WS / "weights" / "last")
+    single_model, _ = build_model(ckpt_lib.load_hparams(last_ckpt), device="cpu")
+    shapes = {k: tuple(v.shape) for k, v in ckpt_lib.restore_checkpoint(last_ckpt)["params"].items()}
     if shapes != {k: tuple(v.shape) for k, v in single_model.state_dict().items()}:
-        raise AssertionError("the tp run's checkpoint does not hold a single-process model's full tensors")
-    best = str(PAR_WS / "weights" / "best")
-    base = cli_data("image") + ["--checkpoint_path", best]
+        raise AssertionError(f"the {resumed} run's checkpoint does not hold a single-process model's full tensors")
+    base = data + ["--checkpoint_path", str(PAR_WS / "weights" / "best")]
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     single = test_cli.main(base + ["--run_dir", str(PAR_WS / "test_single"), "--save_preds",
                                    str(PAR_WS / "preds_single.jsonl")])
     t_single = time.perf_counter() - t0
-    wall = torchrun(test, base + ["--run_dir", str(PAR_WS / "test_two"), "--save_preds",
-                                  str(PAR_WS / "preds_two.jsonl")], "test_two_ranks")
-    two = [r for r in cli_records(PAR_WS / "test_two") if "test_sym-er" in r][-1]
-    # the predictions are recorded, not held: a rank decodes 4 rows where the single process decodes 8, and the
-    # card's GEMMs for another batch may round a logit otherwise, so a near-tie can flip a token
+    torch.cuda.empty_cache()
+    run = torchrun(test, base + ["--run_dir", str(PAR_WS / "test_ranks"), "--save_preds",
+                                 str(PAR_WS / "preds_ranks.jsonl")], "test_ranks", nproc)
+    ranks = {k: v for k, v in [r for r in cli_records(PAR_WS / "test_ranks") if "test_sym-er" in r][-1].items()
+             if k in single}
     rows = [[json.loads(line)["y_pred"] for line in (PAR_WS / f"preds_{who}.jsonl").read_text().splitlines()]
-            for who in ("single", "two")]
-    flipped = sum(a != b for a, b in zip(*rows))
-    out["test"] = dict(single={k: single[k] for k in single}, two_ranks={k: two[k] for k in single},
-                       preds_rows_differing=flipped, preds_rows=len(rows[0]), single_s=t_single, two_ranks_s=wall)
-    log(f"[parallel cli] cli.test single process {single}, two ranks {out['test']['two_ranks']}; prediction rows "
-        f"that differ: {flipped} of {len(rows[0])}")
-    if out["test"]["two_ranks"] != out["test"]["single"] or len(rows[0]) != len(rows[1]):
-        raise AssertionError("cli.test on two ranks differs from the single-process cli.test")
+            for who in ("single", "ranks")]
+    # each row's first differing token, None where the rows agree as far as the shorter goes (lengths held below)
+    first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None) for a, b in zip(*rows)]
+    flipped = sum(f is not None for f in first)
+    gap = abs(ranks["test_sym-er"] - single["test_sym-er"])
+    out["test"] = dict(single=single, ranks=ranks, preds_rows_differing=flipped, preds_rows=len(rows[0]),
+                       first_differing_token=first, ser_gap=gap, single_s=t_single, ranks_s=run["wall_s"],
+                       ranks_groups=run["ranks"])
+    log(f"[parallel cli] cli.test single process {single}, {nproc} ranks {ranks}; prediction rows that differ: "
+        f"{flipped} of {len(rows[0])} (first differing token of each row {first}), SER gap {gap:.4f}")
+    if len(rows[0]) != PAR_CORPUS["n_test"] or len(rows[1]) != len(rows[0]) \
+            or [len(r) for r in rows[0]] != [len(r) for r in rows[1]] \
+            or ranks["test_seq-er"] != single["test_seq-er"] or flipped > PAR_TEST_ROWS_MAX or gap > PAR_TEST_SER_MAX:
+        raise AssertionError(f"cli.test on {nproc} ranks against the single-process cli.test: {out['test']}")
     return out
 
 
 def parallel_phase(dev) -> dict:
     """The single-process half of the parallel path, run before the cli path (a profiler trace the smoke takes
     after the cli and serve paths, or after other processes have used the card, held no kernel on the H100 in 5
-    takes): the reference step the ranks are held to, remat against no remat, K1/K2 at the shard shapes."""
+    takes): the reference steps the ranks are held to, remat against no remat, K1/K2 at the shard shapes, and with
+    two or more cards the cross-card check."""
     import shutil
 
     shutil.rmtree(PAR_WS, ignore_errors=True)
     PAR_WS.mkdir(parents=True)
     t0 = time.perf_counter()
-    ref = parallel_reference(dev)
-    out = dict(reference_loss=ref["loss"], remat=remat_phase(dev), shard_kernels=shard_kernels(dev))
-    del ref
+    # the multimodal step runs on the 2 x 2 mesh where its ranks each have a card (four or more cards)
+    out = dict(reference_loss=parallel_reference(dev, multimodal=torch.cuda.device_count() >= 4),
+               remat=remat_phase(dev), shard_kernels=shard_kernels(dev))
+    if torch.cuda.device_count() >= 2:
+        out["cross_card"] = cross_card_check()
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0
     log(f"[parallel phase] wall {out['phase_s']:.1f} s")
     return out
 
 
+def run_group(world: int, meshes) -> dict:
+    t0 = time.perf_counter()
+    out = dict(ranks=run_ranks(world, meshes), wall_s=time.perf_counter() - t0)
+    log(f"[parallel path] {world} ranks ({out['ranks'][0]['ident']['backend']}, meshes "
+        f"{[tag for tag, *_ in meshes]}): {out['wall_s']:.1f} s")
+    return out
+
+
 def parallel_path(dev, out_dir: Path, phase: dict) -> dict:
     """The parallel path (parallel/, ops/flash_packed.py's sharded dispatch, remat, memory_partition, the CLIs under
-    torchrun), after parallel_phase: two ranks on the card, each on a dp 2 x 1 and a tp 1 x 2 mesh (one step
-    against the reference, K1/K2 8 a step counted from 0 and held to their plain version at the shard's shape
-    with the mixed seed's K4 masks, two dropout steps, memory_partition under tp); then the CLIs under torchrun.
-    The CLIs' logs and metrics go to out_dir/parallel_path/."""
+    torchrun), after parallel_phase: each group of rank_groups in turn (parallel_rank_mesh on each of its meshes),
+    then the CLIs under torchrun (parallel_cli). The CLIs' logs and metrics go to out_dir/parallel_path/."""
     import shutil
 
     t0 = time.perf_counter()
-    ranks = run_ranks()
+    n_cards = torch.cuda.device_count()
+    groups = {world: run_group(world, meshes) for world, meshes in rank_groups(n_cards)}
     t_ranks = time.perf_counter() - t0
-    cli = parallel_cli()
+    cli = parallel_cli(n_cards)
     wall = time.perf_counter() - t0
     (out_dir / "parallel_path").mkdir(parents=True, exist_ok=True)
     for path in [*PAR_WS.glob("*.log"), *PAR_WS.glob("*.jsonl"), *PAR_WS.glob("*/metrics.jsonl")]:
         shutil.copyfile(path, out_dir / "parallel_path" / str(path.relative_to(PAR_WS)).replace("/", "_"))
-    log(f"[parallel path] wall {wall:.1f} s (ranks {t_ranks:.1f} s; the phase before the cli path "
-        f"{phase['phase_s']:.1f} s)")
-    return dict(phase, ranks=ranks, cli=cli, wall_s=wall, ranks_s=t_ranks)
+    log(f"[parallel path] wall {wall:.1f} s on {n_cards} card(s) (ranks {t_ranks:.1f} s; the phase before the cli "
+        f"path {phase['phase_s']:.1f} s)")
+    return dict(phase, cards=n_cards, groups=groups, cli=cli, wall_s=wall, ranks_s=t_ranks)
+
+
+def parallel_kernel_rows(kernels: list, parallel: dict) -> None:
+    """K1's and K2's rows of the kernels line gain each rank's launches a step on the parallel path and the shard
+    readings (shard_kernels)."""
+    for k in kernels:
+        if k["name"] not in ("K1 flash fwd", "K2 flash bwd"):
+            continue
+        key = k["name"][:2]
+        k["launches_parallel_path"] = {f"{tag} rank {r}": rank[tag]["step"]["launches"][k["name"]]
+                                       for group in parallel["groups"].values()
+                                       for r, rank in enumerate(group["ranks"]) for tag in rank if tag != "ident"}
+        k["shard_readings"] = {tag: dict(rows=row["rows"], heads=row["heads"], bound_ms=row["bound_ms"][key],
+                                         ms={rate: row[rate][f"{key}_ms"] for rate in ("dropout 0.1", "dropout 0.0")},
+                                         max_abs_err=max(row[rate][f"{key}_err"] for rate in ("dropout 0.1", "dropout 0.0")))
+                               for tag, row in parallel["shard_kernels"].items()}
 
 
 def main(argv=None):
@@ -3040,13 +3275,20 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true", help="trace one train step of each model")
     ap.add_argument("--out-dir", type=Path, default=ROOT / "build" / "chip_smoke",
                     help="where the result file and the traces go")
+    ap.add_argument("--min-cards", type=int, default=1,
+                    help="fail (no result) unless at least this many cards are visible")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if torch.cuda.device_count() < args.min_cards:
+        print(f"chip_smoke: {torch.cuda.device_count()} card(s) visible, --min-cards {args.min_cards}",
+              file=sys.stderr)
+        return 1
     dev = torch.device("cuda")
     card = card_line()
-    log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[card] {card}; {torch.cuda.device_count()} card(s) visible; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     paths = cuda_build.build_all()
     log(f"[build] {sorted(p.name for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
@@ -3056,7 +3298,6 @@ def main(argv=None):
                 log(f"[build] {name}: {line.strip()}")
     args.out_dir.mkdir(parents=True, exist_ok=True)
     OUT_DIR = args.out_dir
-
     cross = phase_cross(dev)
     self_rows = phase_self(dev)
     stem = phase_stem(dev)
@@ -3098,24 +3339,22 @@ def main(argv=None):
                                          for tag, r in cli["runs"].items()}
             k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_cli_path"])
         k.update(KERNEL_INFO.get(k["name"], {}))
-        if k["name"] in ("K1 flash fwd", "K2 flash bwd"):  # the parallel path's shards: each rank's 8 a step
-            key = k["name"][:2]
-            k["launches_parallel_path"] = {f"{tag} rank {r}": rank[tag]["step"]["launches"][k["name"]]
-                                           for r, rank in enumerate(parallel["ranks"]) for tag, _ in PAR_MESHES}
-            k["shard_readings"] = {tag: dict(rows=row["rows"], heads=row["heads"], bound_ms=row["bound_ms"][key],
-                                             ms={rate: row[rate][f"{key}_ms"] for rate in ("dropout 0.1", "dropout 0.0")},
-                                             max_abs_err=max(row[rate][f"{key}_err"] for rate in ("dropout 0.1", "dropout 0.0")))
-                                   for tag, row in parallel["shard_kernels"].items()}
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
 
-    log(f"[trace] {TRACES['taken']} profiler traces, {TRACES['retaken']} taken again "
-        f"(TEARDOWN_CUPTI={os.environ.get('TEARDOWN_CUPTI')})")
+    parallel_kernel_rows(kernels, parallel)
     result = dict(card=card, kernels=kernels, flagship=flagship, paper=paper, quant_path=quant, op_path=ops,
                   stem_path=dict(launches=stem_launches, max_abs_err=stem_errs), legacy_path=legacy,
                   cli_path=cli, serve_path=serve, parallel_path=parallel, traces=dict(TRACES),
                   wall_s=time.perf_counter() - t0)
-    (args.out_dir / "chip_smoke_result.json").write_text(json.dumps(result, indent=1))
+    return finish(card, result, args.out_dir, kernels)
+
+
+def finish(card: str, result: dict, out_dir: Path, kernels) -> int:
+    """The result file, then the card line, the kernels line and the contract line."""
+    log(f"[trace] {TRACES['taken']} profiler traces, {TRACES['retaken']} taken again "
+        f"(TEARDOWN_CUPTI={os.environ.get('TEARDOWN_CUPTI')})")
+    (out_dir / "chip_smoke_result.json").write_text(json.dumps(result, indent=1))
     log(f"[smoke] wall {result['wall_s']:.1f} s, the build included")
     log(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -10,8 +10,9 @@ Data and tensor parallelism: launched by ``python -m torch.distributed.run
 --nproc_per_node N`` (or with the JAX package's COORDINATOR_ADDRESS,
 NUM_PROCESSES and PROCESS_ID), a CLI starts the process group
 (``parallel/multihost.py``: NCCL when each rank has a card, gloo when the
-ranks share one or run on the CPU) and runs on a ('data', 'model') mesh of
-the world with ``--mesh_model`` ranks on 'model' (``make_mesh_if_needed``).
+ranks share one or run on the CPU; each rank prints its rank, backend and
+device) and runs on a ('data', 'model') mesh of the world with
+``--mesh_model`` ranks on 'model' (``make_mesh_if_needed``).
 
 ``--keep_cache`` keeps the JAX package's preprocess disk cache, which the
 port does not have: set, it raises ``NotImplementedError``
@@ -150,6 +151,10 @@ def init_cli(args) -> bool:
     started = multihost.launched() and not torch.distributed.is_initialized()
     if started:
         multihost.initialize(device=args.device)
+        dist = torch.distributed
+        # one write, newline included: the ranks share torchrun's stdout
+        print(f"process group: rank {dist.get_rank()} of {dist.get_world_size()}, backend {dist.get_backend()}, "
+              f"device {resolve_device(args.device)}\n", end="", flush=True)
     seed_everything(args.seed)
     return started
 

@@ -46,13 +46,9 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, con
   int err = hopper::make_qkv_maps(&tq, &tdo, &tk, &tv, q, dout, k, v, B, Lq, Lk, H * DH);
   if (!err) err = hopper::make_map_f32(&tdq, dq_acc, B, Lq, H * DH, 64);
   if (err) return err;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(flash_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               k2::smem_bytes<true, 1>());
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  const cudaError_t e =
+      cudaFuncSetAttribute(flash_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k2::smem_bytes<true, 1>());
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((Lk + k2::KEYS - 1) / k2::KEYS, H, B);
   flash_bwd_kernel<<<grid, k2::THREADS, k2::smem_bytes<true, 1>(), (cudaStream_t)stream>>>(
       tq, tdo, tk, tv, tdq, (const int*)kv_len, (const uint8_t*)kv_valid, (const int*)seed, (const float*)stats,

@@ -51,13 +51,9 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v, con
   const int err = hopper::make_qkv_maps(&tq, &tdo, &tk, &tv, q, dout, k, v, B, Lq, Lk, H * DH);
   if (err) return err;
   auto kernel = causal ? &flash_dkv_kernel<true> : &flash_dkv_kernel<false>;
-  static bool configured[2] = {false, false};
-  if (!configured[causal ? 1 : 0]) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k2::smem_bytes<false, 1>());
-    if (e != cudaSuccess) return (int)e;
-    configured[causal ? 1 : 0] = true;
-  }
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k2::smem_bytes<false, 1>());
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((Lk + k2::KEYS - 1) / k2::KEYS, H, B);
   kernel<<<grid, k2::THREADS, k2::smem_bytes<false, 1>(), (cudaStream_t)stream>>>(
       tq, tdo, tk, tv, (const int*)kv_len, (const uint8_t*)kv_valid, (const int*)seed, (const float*)stats, (bf16*)dk,

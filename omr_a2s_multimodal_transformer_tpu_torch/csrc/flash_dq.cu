@@ -76,12 +76,8 @@ static int launch_dq(const CUtensorMap& tq, const CUtensorMap& tdo, const CUtens
                      float rate, float keep_scale, unsigned int thresh, cudaStream_t st) {
   auto kernel = &flash_dq_kernel<NCONS, CAUSAL>;
   constexpr int smem = k3a::smem_bytes<NCONS, 1>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((Lq + 64 * NCONS - 1) / (64 * NCONS), H, B * n_split);
   kernel<<<grid, 128 * (NCONS + 1), smem, st>>>(
       tq, tdo, tk, tv, (const int*)kv_len, (const uint8_t*)kv_valid, (const int*)seed, (const float*)stats, (bf16*)dq,

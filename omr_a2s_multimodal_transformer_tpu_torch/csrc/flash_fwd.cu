@@ -130,13 +130,11 @@ extern "C" void flash_fwd_causal_plan(int B, int H, int Lq, int* out) {
   out[5] = k1c::CONSUMERS;
 }
 
-// Opt a kernel in to `bytes` of dynamic shared memory, once per process.
+// Opt a kernel in to `bytes` of dynamic shared memory on the current device,
+// the tensors' (the wrapper launches under it), at every launch.
 template <typename Kernel>
-static int allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = e == cudaSuccess;
-  return (int)e;
+static int allow_smem(Kernel kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // causal: K1c, on its band in one chunk (n_split 1; o_part and lse_part
@@ -159,8 +157,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, con
   if (!err) err = hopper::make_map_bf16(&tv, v, B, Lk, H * DH, 64);
   if (err) return err;
   if (causal) {
-    static bool configured_c = false;
-    err = allow_smem(flash_fwd_causal_tma_kernel, K1C_SMEM, configured_c);
+    err = allow_smem(flash_fwd_causal_tma_kernel, K1C_SMEM);
     if (err) return err;
     int plan[6];
     flash_fwd_causal_plan(B, H, Lq, plan);
@@ -170,8 +167,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, con
     return (int)cudaGetLastError();
   }
   constexpr int K1_SMEM = k1::smem_bytes<K1_NCONS, 1>();
-  static bool configured = false;
-  err = allow_smem(flash_fwd_tma_kernel, K1_SMEM, configured);
+  err = allow_smem(flash_fwd_tma_kernel, K1_SMEM);
   if (err) return err;
   dim3 grid((Lq + K1_ROWS - 1) / K1_ROWS, H, B * n_split);
   flash_fwd_tma_kernel<<<grid, K1_THREADS, K1_SMEM, st>>>(

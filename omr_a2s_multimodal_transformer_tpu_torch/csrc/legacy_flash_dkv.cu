@@ -50,12 +50,8 @@ static int launch_dkv(const CUtensorMap& tq, const CUtensorMap& tdo, const CUten
                       int Lq, int Lk, int D, int window, float scale, cudaStream_t st) {
   auto kernel = &lf_dkv_kernel<CAUSAL, NB>;
   constexpr int smem = k2::smem_bytes<false, NB>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((Lk + k2::KEYS - 1) / k2::KEYS, H, B);
   kernel<<<grid, k2::THREADS, smem, st>>>(tq, tdo, tk, tv, (const int*)kv_len, (const uint8_t*)kv_valid,
                                           (const float*)stats, (bf16*)dk, (bf16*)dv, H, Lq, Lk, D, window, scale);

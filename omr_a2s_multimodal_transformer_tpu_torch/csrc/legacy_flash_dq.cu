@@ -61,12 +61,8 @@ static int launch_dq(const CUtensorMap& tq, const CUtensorMap& tdo, const CUtens
                      int H, int Lq, int Lk, int D, int window, int n_split, int per, float scale, cudaStream_t st) {
   auto kernel = &lf_dq_kernel<NCONS, CAUSAL, NB>;
   constexpr int smem = k3a::smem_bytes<NCONS, NB>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((Lq + 64 * NCONS - 1) / (64 * NCONS), H, B * n_split);
   kernel<<<grid, 128 * (NCONS + 1), smem, st>>>(tq, tdo, tk, tv, (const int*)kv_len, (const uint8_t*)kv_valid,
                                                 (const float*)stats, (bf16*)dq, (float*)dq_part, B, H, Lq, Lk, D,

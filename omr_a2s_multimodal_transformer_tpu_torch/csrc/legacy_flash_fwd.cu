@@ -101,13 +101,9 @@ static int launch_fwd(const FwdArgs& a, bool with_lse) {
   constexpr int smem = k1::smem_bytes<NCONS, NB>();
   auto l1 = &lf_fwd_chunk<NCONS, CAUSAL, NB>;
   auto l2 = &lf_fwd_lse_chunk<NCONS, CAUSAL, NB>;
-  static bool configured[2] = {false, false};
-  if (!configured[with_lse]) {
-    const cudaError_t e = with_lse ? cudaFuncSetAttribute(l2, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-                                   : cudaFuncSetAttribute(l1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    configured[with_lse] = true;
-  }
+  const cudaError_t e = with_lse ? cudaFuncSetAttribute(l2, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+                                 : cudaFuncSetAttribute(l1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((a.Lq + 64 * NCONS - 1) / (64 * NCONS), a.H, a.B * a.n_split);
   if (with_lse)
     l2<<<grid, 128 * (NCONS + 1), smem, a.st>>>(*a.tq, *a.tk, *a.tv, (const int*)a.kv_len, (const uint8_t*)a.kv_valid,

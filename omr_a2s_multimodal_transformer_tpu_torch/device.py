@@ -15,12 +15,18 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means ``cuda``; raises if that is asked for and absent."""
+    """``None`` means ``cuda``; raises if that is asked for and absent. A
+    CUDA device without an index is the runtime's current device, named
+    with its index (in a run of a rank a card, the rank's card:
+    ``parallel/multihost.py`` ``initialize`` makes it current)."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the port on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the port on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -40,9 +46,11 @@ def module_device(module: torch.nn.Module) -> torch.device:
 
 
 def check_module_device(module: torch.nn.Module, device: DeviceLike) -> torch.device:
-    """Resolve ``device`` by the entry-point rule and require the module on it."""
-    dev = resolve_device(device)
+    """Check ``device`` by the entry-point rule and require the module on
+    it (on any card for ``cuda`` without an index); returns the module's."""
+    resolve_device(device)
+    asked = torch.device("cuda" if device is None else device)
     have = module_device(module)
-    if have.type != dev.type or (dev.index is not None and have.index != dev.index):
-        raise ValueError(f"model lives on {have}, entry point asked for {dev}")
+    if have.type != asked.type or (asked.index is not None and have.index != asked.index):
+        raise ValueError(f"model lives on {have}, entry point asked for {asked}")
     return have

@@ -6,6 +6,7 @@ libraries go to ``build/torch_kernels/`` at the root of the checkout (a
 git-ignored directory), named by a hash of the sources and flags, so a
 changed source is rebuilt and an unchanged one is reused. ``build_all``
 starts one ``nvcc`` per source, all at once. Nothing here runs at import.
+``launch`` calls a launch function on the card of its tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -144,6 +147,17 @@ def load(name: str):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(name: str, device, *args) -> int:
+    """Library ``name``'s launch function called with ``args`` while
+    ``device`` (the card of the tensors it launches on) is the CUDA
+    runtime's current device: a launch goes to the current device, and a
+    launcher opts its kernel in to its shared memory there. Returns the
+    launcher's cudaError_t (0: launched)."""
+    fn = load(name)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def build_log(name: str) -> str:

@@ -296,12 +296,12 @@ def _launch_fwd(q, k, v, kv_len, kv_valid, seed, dropout_rate, n_heads, mask_bq,
     if n_split > 1:  # scratch of K1's key chunks
         o_part = torch.empty((n_split, b, lq, pd), device=q.device, dtype=torch.float32)
         lse_part = torch.empty((n_split, b, n_heads, lq), device=q.device, dtype=torch.float32)
-    fn = cuda_build.load("flash_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
-             seed.data_ptr(), o.data_ptr(), lse.data_ptr(), None if o_part is None else o_part.data_ptr(),
-             None if lse_part is None else lse_part.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk,
-             int(causal), band_window(causal, window), n_split, per, *_dropout_args(dropout_rate), stream)
+    err = cuda_build.launch(
+        "flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
+        seed.data_ptr(), o.data_ptr(), lse.data_ptr(), None if o_part is None else o_part.data_ptr(),
+        None if lse_part is None else lse_part.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk,
+        int(causal), band_window(causal, window), n_split, per, *_dropout_args(dropout_rate), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
     return o, lse
@@ -380,12 +380,12 @@ def flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, dropout_rate, n_
     dq_acc = torch.zeros((b, lq, pd), device=q.device, dtype=torch.float32)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = cuda_build.load("flash_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
-             seed.data_ptr(), do.data_ptr(), stats.data_ptr(), dq_acc.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk,
-             *_dropout_args(dropout_rate), stream)
+    err = cuda_build.launch(
+        "flash_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
+        seed.data_ptr(), do.data_ptr(), stats.data_ptr(), dq_acc.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk,
+        *_dropout_args(dropout_rate), stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd launch failed: cudaError {err}")
     flash_bwd_cuda.launches += 1
@@ -416,12 +416,12 @@ def flash_dq_cuda(q, k, v, kv_len, kv_valid, seed, do, lse, delta, dropout_rate,
     stats = bwd_stats(lse, delta)
     dq = torch.empty_like(q)
     dq_part = torch.empty((n_split, b, lq, pd), device=q.device, dtype=torch.float32) if n_split > 1 else None
-    fn = cuda_build.load("flash_dq")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
-             seed.data_ptr(), do.data_ptr(), stats.data_ptr(), dq.data_ptr(),
-             None if dq_part is None else dq_part.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk, int(causal),
-             band_window(causal, window), n_split, per, *_dropout_args(dropout_rate), stream)
+    err = cuda_build.launch(
+        "flash_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
+        seed.data_ptr(), do.data_ptr(), stats.data_ptr(), dq.data_ptr(),
+        None if dq_part is None else dq_part.data_ptr(), b, n_heads, lq, lk, mask_bq, mask_bk, int(causal),
+        band_window(causal, window), n_split, per, *_dropout_args(dropout_rate), stream)
     if err != 0:
         raise RuntimeError(f"flash_dq launch failed: cudaError {err}")
     flash_dq_cuda.launches += 1
@@ -441,12 +441,12 @@ def flash_dkv_cuda(q, k, v, kv_len, kv_valid, seed, do, lse, delta, dropout_rate
     stats = bwd_stats(lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = cuda_build.load("flash_dkv")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
-             seed.data_ptr(), do.data_ptr(), stats.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             b, n_heads, lq, k.shape[1], mask_bq, mask_bk, int(causal), band_window(causal, window),
-             *_dropout_args(dropout_rate), stream)
+    err = cuda_build.launch(
+        "flash_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), kv_valid.data_ptr(),
+        seed.data_ptr(), do.data_ptr(), stats.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, n_heads, lq, k.shape[1], mask_bq, mask_bk, int(causal), band_window(causal, window),
+        *_dropout_args(dropout_rate), stream)
     if err != 0:
         raise RuntimeError(f"flash_dkv launch failed: cudaError {err}")
     flash_dkv_cuda.launches += 1
@@ -469,10 +469,9 @@ def keep_mask_cuda(seed: torch.Tensor, batch: int, n_heads: int, lq_p: int, lk_p
     if seed.device.type != "cuda" or seed.dtype != torch.int32 or seed.numel() != 1:
         raise ValueError("seed must be a one-element int32 CUDA tensor")
     out = torch.empty((batch, n_heads, lq_p, lk_p), device=seed.device, dtype=torch.bool)
-    fn = cuda_build.load("keep_mask")
     stream = torch.cuda.current_stream(seed.device).cuda_stream
-    err = fn(seed.data_ptr(), out.data_ptr(), batch, n_heads, lq_p, lk_p, mask_bq, mask_bk,
-             dropout_threshold(rate), stream)
+    err = cuda_build.launch("keep_mask", seed.device, seed.data_ptr(), out.data_ptr(), batch, n_heads, lq_p, lk_p,
+                            mask_bq, mask_bk, dropout_threshold(rate), stream)
     if err != 0:
         raise RuntimeError(f"keep_mask launch failed: cudaError {err}")
     keep_mask_cuda.launches += 1

@@ -399,10 +399,10 @@ def fused_stem_k1_cuda(x, w1, b1, w2, b2, drop: Optional[Dict], *, f_in: int, ti
     y2 = torch.empty((b, h, wp, f_in * co), device=x.device, dtype=x.dtype)
     partial = torch.empty((b, n_tiles, 2, co), device=x.device, dtype=torch.float32)
     stats = torch.empty((b, 2, co), device=x.device, dtype=torch.float32)
-    fn = cuda_build.load("fused_stem_k1")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(*_ptrs(x, bits, fchan, scal, w1, w1op, b1, w2, w2op, b2, y2, partial, stats), code,
-             int(drop is not None), b, h, w, ci, co, rows, tw, *launch, t_keep, inv_e, stream)
+    err = cuda_build.launch("fused_stem_k1", x.device,
+                            *_ptrs(x, bits, fchan, scal, w1, w1op, b1, w2, w2op, b2, y2, partial, stats), code,
+                            int(drop is not None), b, h, w, ci, co, rows, tw, *launch, t_keep, inv_e, stream)
     if err != 0:
         raise RuntimeError(f"fused_stem_k1 launch failed: cudaError {err}")
     fused_stem_k1_cuda.launches += 1
@@ -446,10 +446,10 @@ def fused_stem_k2_cuda(y2, mean_inv, w3, b3, drop: Optional[Dict], *, f_in: int,
     bits, fchan, scal, t_keep, inv_e = _drop_args(drop, b, h, wp, c, co, y2.device)
     y2, mean_inv, w3, b3 = (t.contiguous() for t in (y2, mean_inv, w3, b3))
     out = torch.empty((b, _cdiv(h, sh), wp, f_out * co), device=y2.device, dtype=y2.dtype)
-    fn = cuda_build.load("fused_stem_k2")
     stream = torch.cuda.current_stream(y2.device).cuda_stream
-    err = fn(*_ptrs(y2, mean_inv, bits, fchan, scal, w3, w3op, b3, out), code, int(drop is not None),
-             b, h, w, co, sh, sw, f_in, f_out, rows, two, *launch, t_keep, inv_e, stream)
+    err = cuda_build.launch("fused_stem_k2", y2.device, *_ptrs(y2, mean_inv, bits, fchan, scal, w3, w3op, b3, out),
+                            code, int(drop is not None), b, h, w, co, sh, sw, f_in, f_out, rows, two, *launch, t_keep,
+                            inv_e, stream)
     if err != 0:
         raise RuntimeError(f"fused_stem_k2 launch failed: cudaError {err}")
     fused_stem_k2_cuda.launches += 1

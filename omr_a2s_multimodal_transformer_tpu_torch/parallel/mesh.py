@@ -38,6 +38,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from omr_a2s_multimodal_transformer_tpu_torch.device import resolve_device
+
+
 @dataclass(frozen=True)
 class Axis:
     """One axis of the mesh as this rank sees it: its size, this rank's
@@ -79,8 +82,10 @@ class Mesh:
         return self.data * self.model
 
     def generator(self, device, seed: int) -> "ShardedGenerator":
-        """The dropout generator of a step on this mesh (the same state on every rank)."""
-        g = ShardedGenerator(device=device)
+        """The dropout generator of a step on this mesh (the same state on
+        every rank), on ``device`` (``cuda`` without an index: the current
+        card, the rank's own under a rank a card)."""
+        g = ShardedGenerator(device=resolve_device(device))
         g.manual_seed(seed)
         g.mesh = self
         return g

@@ -88,7 +88,10 @@ def is_primary() -> bool:
 
 def barrier() -> None:
     if dist.is_initialized() and dist.get_world_size() > 1:
-        dist.barrier()
+        if dist.get_backend() == "nccl":  # NCCL's barrier is a collective on this rank's card (set by initialize)
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
 
 
 @contextlib.contextmanager

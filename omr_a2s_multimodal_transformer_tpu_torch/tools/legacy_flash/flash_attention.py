@@ -218,11 +218,11 @@ def launch_fwd(q, k, v, kv_len, kv_valid, causal: bool, window: int, with_lse: b
         o_part = torch.empty((n_split, *qp.shape), device=q.device, dtype=torch.float32)
         lse_part = torch.empty((n_split, b, h, lq), device=q.device, dtype=torch.float32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    fn = cuda_build.load("legacy_flash_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), kv_len.data_ptr(), ptr(kv_valid), o.data_ptr(), ptr(lse),
-             ptr(o_part), ptr(lse_part), b, h, lq, lk, qp.shape[3], int(causal), band_window(causal, window),
-             int(with_lse), n_split, per, 1.0 / d ** 0.5, stream)
+    err = cuda_build.launch("legacy_flash_fwd", q.device, qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                            kv_len.data_ptr(), ptr(kv_valid), o.data_ptr(), ptr(lse), ptr(o_part), ptr(lse_part), b, h,
+                            lq, lk, qp.shape[3], int(causal), band_window(causal, window), int(with_lse), n_split, per,
+                            1.0 / d ** 0.5, stream)
     if err != 0:
         raise RuntimeError(f"legacy_flash_fwd launch failed: cudaError {err}")
     return unpad_head_dim(o, d), lse
@@ -249,12 +249,12 @@ def legacy_any_fwd_cuda(q, k, v, kv_len, kv_valid, causal: bool, window: int, wi
     qp, kp, vp = any_operands(q, k, v)
     o = torch.empty_like(qp)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32) if with_lse else None
-    fn = cuda_build.load("legacy_flash_any_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), kv_len.data_ptr(),
-             kv_valid.data_ptr() if with_lse else None, o.data_ptr(), None if lse is None else lse.data_ptr(),
-             KERNEL_DTYPES[q.dtype], b, h, lq, k.shape[2], qp.shape[3], int(causal), band_window(causal, window),
-             int(with_lse), 1.0 / d ** 0.5, stream)
+    err = cuda_build.launch("legacy_flash_any_fwd", q.device, qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                            kv_len.data_ptr(), kv_valid.data_ptr() if with_lse else None, o.data_ptr(),
+                            None if lse is None else lse.data_ptr(), KERNEL_DTYPES[q.dtype], b, h, lq, k.shape[2],
+                            qp.shape[3], int(causal), band_window(causal, window), int(with_lse), 1.0 / d ** 0.5,
+                            stream)
     if err != 0:
         raise RuntimeError(f"legacy_flash_any_fwd launch failed: cudaError {err}")
     legacy_any_fwd_cuda.launches += 1

@@ -110,7 +110,7 @@ def legacy_any_dq_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool =
     cores) on checked inputs: dq [B, H, Lq, D] in q's dtype. Deterministic."""
     padded, ptrs, ints, scale, stream = _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
     dq = torch.empty_like(padded[0])
-    err = cuda_build.load("legacy_flash_any_dq")(*ptrs, dq.data_ptr(), *ints, scale, stream)
+    err = cuda_build.launch("legacy_flash_any_dq", q.device, *ptrs, dq.data_ptr(), *ints, scale, stream)
     if err != 0:
         raise RuntimeError(f"legacy_flash_any_dq launch failed: cudaError {err}")
     legacy_any_dq_cuda.launches += 1
@@ -126,7 +126,8 @@ def legacy_any_dkv_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool 
     Deterministic."""
     padded, ptrs, ints, scale, stream = _any_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
     dk, dv = torch.empty_like(padded[1]), torch.empty_like(padded[1])
-    err = cuda_build.load("legacy_flash_any_dkv")(*ptrs, dk.data_ptr(), dv.data_ptr(), *ints, scale, stream)
+    err = cuda_build.launch("legacy_flash_any_dkv", q.device, *ptrs, dk.data_ptr(), dv.data_ptr(), *ints, scale,
+                            stream)
     if err != 0:
         raise RuntimeError(f"legacy_flash_any_dkv launch failed: cudaError {err}")
     legacy_any_dkv_cuda.launches += 1
@@ -160,8 +161,8 @@ def legacy_dq_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool = Fal
         n_split, per = _split_of(-(-lk // KERNEL_TILE), n_split)
     dq = torch.empty_like(padded[0])
     dq_part = torch.empty((n_split, *dq.shape), device=q.device, dtype=torch.float32) if n_split > 1 else None
-    err = cuda_build.load("legacy_flash_dq")(*ptrs, dq.data_ptr(), None if dq_part is None else dq_part.data_ptr(),
-                                             *ints, n_split, per, scale, stream)
+    err = cuda_build.launch("legacy_flash_dq", q.device, *ptrs, dq.data_ptr(),
+                            None if dq_part is None else dq_part.data_ptr(), *ints, n_split, per, scale, stream)
     if err != 0:
         raise RuntimeError(f"legacy_flash_dq launch failed: cudaError {err}")
     legacy_dq_cuda.launches += 1
@@ -181,7 +182,7 @@ def legacy_dkv_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal: bool = Fa
         return legacy_any_dkv_cuda(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
     padded, ptrs, ints, scale, stream = _bwd_args(q, k, v, kv_len, kv_valid, do, lse, delta, causal, window)
     dk, dv = torch.empty_like(padded[1]), torch.empty_like(padded[1])
-    err = cuda_build.load("legacy_flash_dkv")(*ptrs, dk.data_ptr(), dv.data_ptr(), *ints, scale, stream)
+    err = cuda_build.launch("legacy_flash_dkv", q.device, *ptrs, dk.data_ptr(), dv.data_ptr(), *ints, scale, stream)
     if err != 0:
         raise RuntimeError(f"legacy_flash_dkv launch failed: cudaError {err}")
     legacy_dkv_cuda.launches += 1

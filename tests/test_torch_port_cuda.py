@@ -17,7 +17,8 @@ TMA box and the key chunks, a row whose only key is in the last chunk,
 grids smaller than the SM count, and dK/dV bit-equal across runs; the
 K3a/K3b cases lengths off the 128-row blocks, four key chunks of K3a, a
 whole invalid 128-key block of K3b, a batch row with no valid key (finite,
-zero gradients) and dq, dk, dv bit-equal across runs. The train CLI on
+zero gradients) and dq, dk, dv bit-equal across runs; K1 and K2 on the
+tensors of the last visible card while card 0 is current. The train CLI on
 a tiny corpus with flash cross-attention launches K1 and K2 8 times per
 train step and no other kernel, for the image, the audio and the
 multimodal model. The inference layer on a tiny model: beam search, an
@@ -129,6 +130,36 @@ def test_flash_kernels_match_plain_on_gpu(case):
         _assert_close(name, a.grad, r.grad)
     _, lse = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, case["rate"], H, bq, bk)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.detach().cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_kernels_launch_on_the_card_of_their_tensors(rate):
+    """K1 and K2 on the tensors of the highest-numbered visible card, called
+    while card 0 is the runtime's current device (a CLI run with --device
+    cuda:1, a server on a second card): each wrapper launches on its
+    tensors' card and the launcher opts its kernel in to its shared memory
+    there, so both match the plain version on that card. On a machine with
+    one card it is the same card."""
+    _cuda()
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    q, k, v, w, kv_len, kv_valid = _inputs(2, 150, 700, dev)
+    do = w.to(torch.bfloat16)
+    seed = torch.tensor([77], dtype=torch.int32, device=dev)
+    bq, bk = fp.mask_geometry(150, 700)
+    with torch.cuda.device(0):
+        o, lse = fp.flash_fwd_cuda(q, k, v, kv_len, kv_valid, seed, rate, H, bq, bk)
+        grads = fp.flash_bwd_cuda(q, k, v, kv_len, kv_valid, seed, o, lse, do, rate, H, bq, bk)
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_ref, lse_ref = fp.flash_attention_plain(*ref_ins, kv_len, kv_valid, seed, rate, H, block_q=bq, block_k=bk)
+    ref_grads = torch.autograd.grad(o_ref, ref_ins, do)
+    assert o.device == dev and all(g.device == dev for g in grads)
+    _assert_close("o", o, o_ref)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.detach().cpu().numpy(), rtol=1e-4, atol=1e-4)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        _assert_close(name, a, r)
 
 
 def _audio_shape_inputs(dev, seed=14):

@@ -146,6 +146,32 @@ def step_and_decode(rank, model_axis, seed, batch, lr, clip, decode_batches, hp)
                 local_heads=model.decoder.layers[0].self_attn.heads)
 
 
+def multimodal_step(rank, model_axis, seed, batch, lr, clip, gate):
+    """On a mesh of ``model_axis`` model ranks: one Adam step of the tiny
+    gated attn_both multimodal model (seeded weights, ``mix_gate`` set to
+    ``gate``, the mixer's own attention dropout off as every other) on the
+    global ``batch`` (numpy), both modalities. Returns the global loss and,
+    on rank 0, the gathered parameters after the step and the gathered
+    gradients after the clip."""
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel import tp
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from omr_a2s_multimodal_transformer_tpu_torch.training.train_state import TrainState, make_train_step
+
+    mesh = make_mesh(model=model_axis)
+    model = _tiny(mesh, seed, input_modality="both", mixer_type="attn_both", mixer_residual=True)
+    model.cross_attn.dropout = 0.0
+    with torch.no_grad():
+        model.mix_gate.copy_(torch.tensor(gate))
+    step = make_train_step(model, 31, teacher_forcing_prob=0.0, bf16_compute=False, multimodal=True, device="cpu")
+    state = TrainState.create(model, lr, clip_norm=clip)
+    local = {k: torch.from_numpy(v) for k, v in shard_batch(batch, mesh).items()}
+    state, loss = step(state, local, mesh.generator("cpu", 0), "both")
+    params = _np(tp.full_state_dict(model, mesh))
+    grads = _np({n: tp.gather_full(p.grad, model.tp_specs.get(n), mesh) for n, p in model.named_parameters()})
+    return dict(loss=float(loss), params=params if rank == 0 else None, grads=grads if rank == 0 else None,
+                local_rows=int(local["xi"].shape[0]), local_heads=model.cross_attn.attention.heads)
+
+
 def partition_loss(rank, seed, batch, spec):
     """The loss of the tiny model under tensor parallelism, with and without
     ``memory_partition`` (deterministic), and its gradient norm with."""
