@@ -52,7 +52,7 @@ Phases, each of which raises on failure (exit code 1):
        dk/dv at the legacy cross shape in float32 D 64, float16 D 64 and
        bf16 D 192, each against the plain version, with its bound, plain
        time and SDPA's forward or backward (event and device time);
-  3. nine paths, each with every kernel's launch count set to 0 just
+  3. ten paths, each with every kernel's launch count set to 0 just
      before it (the serve path: before each of its steps) and read just
      after:
      - stem path: fused_packed_block forward and backward at the three
@@ -132,6 +132,24 @@ Phases, each of which raises on failure (exit code 1):
        function on the CPU, tokens (4, max_seq_len). It logs decode ms,
        steps and ms a step, each request's latency, batch_stats, peak
        memory and the path's wall time.
+     - tools path: the port's experiment layer (tools/) on the card, each
+       part counted from 0, every cli.train it runs counted on its own:
+       run_grid at the paper model's full width (b8, bf16, flash
+       cross-attention, the r05 recipe's hparams with dropouts 0) on 16
+       train and 8 val/test samples of short scores (2-4 measures) at
+       production height, the corpus's own vocabulary and max lengths:
+       legs image, audio and the gated attn_img mixer warm-started from
+       both (cross_attn and mix_gate trained), 2 epochs each, validating at
+       the last, then Smith-Waterman and weighted a=0.5 fusion; on the image
+       leg's best/ eval_cache_dtypes (bf16, int8, int4, beam 1), beam_sweep
+       (beams 1 and 2) and diagnose_errors; then run_convergence, control
+       (plain cross-attention) and production (flash), 3 epochs each. K1
+       and K2 8 launches a train step in every leg and the production run,
+       none in the control run or any decode (diagnose_errors' teacher-forced
+       forwards K1 8 a batch); K1/K2 held to their plain version on their
+       first call in the grid; every SER finite, every report key present,
+       trajectory_match's mean relative loss difference within 2e-2, and no
+       argv holding --keep_cache.
      - parallel path (its single-process part, up to the shard
        kernels, runs before the cli path: after the cli and serve paths
        this process's profiler traces held no kernel on the H100): the
@@ -2216,9 +2234,10 @@ def patched(module, name, value):
         setattr(module, name, saved)
 
 
-def counted(tag: str, fn):
-    """Runs fn with every kernel's launch count set to 0 first; raises if a
-    kernel launched (no decode or frontend runs one)."""
+def counted(tag: str, fn, want=None):
+    """Runs fn with every kernel's launch count set to 0 first; raises unless
+    the launches are ``want``'s (0 for a kernel not named: no decode or
+    frontend runs one)."""
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2226,15 +2245,16 @@ def counted(tag: str, fn):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    if any(launches.values()):
-        raise AssertionError(f"serve {tag}: kernels launched {launches}")
+    expected = {k: (want or {}).get(k, 0) for k in launches}
+    if launches != expected:
+        raise AssertionError(f"{tag}: kernels launched {launches}, expected {expected}")
     return out, wall
 
 
 def finite_metrics(tag: str, metrics: dict, keys) -> None:
     bad = {k: metrics.get(k) for k in keys if not (k in metrics and math.isfinite(metrics[k]))}
     if bad:
-        raise AssertionError(f"serve {tag}: metrics {bad} of {metrics}")
+        raise AssertionError(f"{tag}: metrics {bad} of {metrics}")
 
 
 def log_decodes(tag: str, calls: list) -> None:
@@ -2253,10 +2273,10 @@ def serve_cli_evals(dev, out_dir: Path) -> dict:
     img, aud = str(CLI_WS / "weights_image" / "best"), str(CLI_WS / "weights_audio" / "best")
     out = {}
     with patched(loop, "beam_decode_fn", Timed(loop.beam_decode_fn)) as beam:
-        metrics, wall = counted("beam", lambda: test_cli.main(cli_data("image") + [
+        metrics, wall = counted("serve beam", lambda: test_cli.main(cli_data("image") + [
             "--device", dev.type, "--checkpoint_path", img, "--run_dir", str(CLI_WS / "test_run_beam"), "--beam_size", "4",
             "--length_penalty", "0.6", "--compute_mv2h", "--save_preds", str(out_dir / "preds_beam.jsonl")]))
-    finite_metrics("beam", metrics, ["test_sym-er", "test_seq-er"] + [f"test_{k}" for k in MV2H_KEYS])
+    finite_metrics("serve beam", metrics, ["test_sym-er", "test_seq-er"] + [f"test_{k}" for k in MV2H_KEYS])
     if not beam.calls or beam.calls[0]["batch"] != CLI_CORPUS["n_test"]:
         raise AssertionError(f"serve beam: decodes {beam.calls}")
     log_decodes("beam k4", beam.calls)
@@ -2266,10 +2286,10 @@ def serve_cli_evals(dev, out_dir: Path) -> dict:
 
     both = cli_data("both")[:-2] + ["--device", dev.type]  # the fusion CLIs take no --input_modality
     with patched(weighted_test, "weighted_decode_fn", Timed(weighted_test.weighted_decode_fn)) as weighted:
-        metrics, wall = counted("weighted", lambda: weighted_test.main(both + [
+        metrics, wall = counted("serve weighted", lambda: weighted_test.main(both + [
             "--image_checkpoint_path", img, "--audio_checkpoint_path", aud, "--alpha", "0.5",
             "--run_dir", str(CLI_WS / "run_weighted"), "--save_preds", str(out_dir / "preds_weighted.jsonl")]))
-    finite_metrics("weighted", metrics, ["sym-er", "seq-er"])
+    finite_metrics("serve weighted", metrics, ["sym-er", "seq-er"])
     log_decodes("weighted a=0.5", weighted.calls)
     log(f"[serve weighted] cli.weighted_test --alpha 0.5: {metrics}; wall {wall:.1f} s")
     out["weighted"] = dict(metrics=metrics, decodes=weighted.summary(), wall_s=wall)
@@ -2285,9 +2305,9 @@ def serve_cli_evals(dev, out_dir: Path) -> dict:
 
     with patched(sw_test, "greedy_decode_fn", Timed(sw_test.greedy_decode_fn)) as greedy, \
             patched(sw_test, "fuse_predictions", timed_fuse):
-        metrics, wall = counted("sw", lambda: sw_test.main(both + [
+        metrics, wall = counted("serve sw", lambda: sw_test.main(both + [
             "--image_checkpoint_path", img, "--audio_checkpoint_path", aud, "--run_dir", str(CLI_WS / "run_sw")]))
-    finite_metrics("sw", metrics, ["sym-er", "seq-er"])
+    finite_metrics("serve sw", metrics, ["sym-er", "seq-er"])
     if len(sw_s) != CLI_CORPUS["n_test"]:
         raise AssertionError(f"serve sw: {len(sw_s)} fused pairs")
     log_decodes("sw greedy", greedy.calls)
@@ -2320,7 +2340,7 @@ def serve_files(dev) -> dict:
     from omr_a2s_multimodal_transformer_tpu_torch.data.sources import make_source
     from omr_a2s_multimodal_transformer_tpu_torch.utils.mv2h import seq2kern_lines
 
-    (img_ckpt, aud_ckpt), wall = counted("split", lambda: split_ckpt.main([
+    (img_ckpt, aud_ckpt), wall = counted("serve split", lambda: split_ckpt.main([
         "--ckpt_path", str(CLI_WS / "weights_both" / "best"), "--out_prefix", str(CLI_WS / "split")]))
     log(f"[serve split] cli.split_ckpt: {Path(img_ckpt).name}, {Path(aud_ckpt).name} in {wall:.1f} s")
     files = CLI_WS / "files"
@@ -2355,7 +2375,7 @@ def serve_files(dev) -> dict:
             _write(tokens, path)
 
         with patched(transcribe, "seq2kern", recording):
-            n, wall = counted(f"transcribe {tag}", lambda: transcribe.main(argv + [
+            n, wall = counted(f"serve transcribe {tag}", lambda: transcribe.main(argv + [
                 "--vocab_path", str(vocab_path), "--out_dir", str(out_dir), "--batch_size", "8",
                 "--device", dev.type]))
         krn = sorted(out_dir.glob("*.krn"))
@@ -2530,7 +2550,7 @@ def serve_resize(dev, model, vocab, samples) -> dict:
     transcribe = inference.make_image_transcriber(model, vocab.sos_id, vocab.eos_id, img_height=RESIZE_HEIGHT,
                                                   device=dev)
     with patched(inference, "preprocess_image_batch", recording):
-        (tokens, scores), wall = counted("resize", lambda: transcribe(raw, hw))
+        (tokens, scores), wall = counted("serve resize", lambda: transcribe(raw, hw))
     (x, hw2), = seen
     x_cpu, hw_cpu = preprocess_image_batch(raw, hw, target_height=RESIZE_HEIGHT)
     err = float((x.cpu() - x_cpu).abs().max())
@@ -2571,6 +2591,183 @@ def serve_path(dev, out_dir: Path, vocab) -> dict:
     out["wall_s"] = time.perf_counter() - t0
     log(f"[serve path] peak memory {out['peak_gib']:.2f} GiB; wall {out['wall_s']:.1f} s")
     return out
+
+
+# ------------------------------------------------------------------ the tools path
+# The port's experiment layer (omr_a2s_multimodal_transformer_tpu_torch/tools/) as a user runs it: the grid
+# driver, the checkpoint evaluators and the diagnostics on the grid's image checkpoint, then the convergence run.
+# The corpus: production image height on short scores (2-4 measures at the 30-measure geometry's density: 57-59 px
+# of width a measure), "bands" audio, 16 train and 8 val/test samples; the max lengths and the vocabulary the
+# corpus's own (--max_lens corpus), so every decode ends at its longest transcript. The hparams: the paper model at
+# full width (attn_window 100, packed stem, bf16, flash cross-attention, b8) with the recipe of
+# reports/grid_r05_bands.json's config (lr 3e-4, warmup 5 and cosine 150 epochs, clip 1.0, dropouts and token
+# corruption 0), cut to TOOLS_EPOCHS a leg and CONV_EPOCHS a convergence run.
+TOOLS_WS = ROOT / "build" / "chip_smoke_tools"
+TOOLS_CORPUS = ["--train_n", "16", "--eval_n", "8", "--n_measures", "4", "--measures_range", "2", "4",
+                "--render_style", "grand"]
+TOOLS_RECIPE = ["--batch", "8", "--learning_rate", "3e-4", "--clip_norm", "1.0", "--encoder_dropout", "0",
+                "--decoder_dropout", "0", "--pos_dropout", "0", "--teacher_forcing_prob", "0"]
+TOOLS_STEPS_PER_EPOCH = 2  # 16 train samples at b8
+TOOLS_EPOCHS = 2  # each grid leg, validating at the last
+TOOLS_LEGS = ("image", "audio", "attn_img")
+CONV_EPOCHS = 3  # the control and the production run alike (trajectory_match compares from the third epoch)
+TRAJECTORY_TOL = 2e-2  # the mean relative train-loss difference, production against control, dropouts 0
+DIAG_BATCHES = 1  # diagnose_errors' batches a split (train and val), each a tf_eval forward: K1 8 times
+
+
+class CliTrains:
+    """cli.train.main wrapped while the tools path runs: each call's kernel
+    launches (the difference of the counts around it, which it does not
+    reset), its steps (the Trainer's step at its last epoch) and wall."""
+
+    def __init__(self):
+        from omr_a2s_multimodal_transformer_tpu_torch.cli import train as train_cli
+
+        self.module, self.real, self.calls = train_cli, train_cli.main, []
+
+    def __call__(self, argv):
+        before = read_counts()
+        t0 = time.perf_counter()
+        out = self.real(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = read_counts()
+        run_dir = Path(argv[argv.index("--run_dir") + 1])
+        steps = [r["step"] for r in cli_records(run_dir) if "train_loss" in r][-1]
+        flash = "--use_flash_cross" in argv
+        launches = {k: after[k] - before[k] for k in after}
+        want = {k: 8 * steps if flash and k in ("K1 flash fwd", "K2 flash bwd") else 0 for k in after}
+        log(f"[tools] cli.train {run_dir.name}: {steps} steps, launches {launches}, {wall:.1f} s")
+        if launches != want:
+            raise AssertionError(f"tools cli.train {run_dir.name} launched {launches}, expected {want}")
+        self.calls.append(dict(run=run_dir.name, steps=steps, flash=flash, launches=launches, wall_s=wall))
+        return out
+
+
+def tools_path(dev, out_dir: Path) -> dict:
+    """The port's tools on the card: run_grid (legs image, audio and the gated attn_img mixer warm-started from
+    both with only cross_attn and mix_gate trained; TOOLS_EPOCHS each; then Smith-Waterman and weighted a=0.5
+    fusion), then on the image leg's best/ eval_cache_dtypes (bf16, int8, int4 at beam 1), beam_sweep (beams 1
+    and 2, length penalties 0 and 0.6) and diagnose_errors, then run_convergence (control and production,
+    CONV_EPOCHS each). Every cli.train counted (CliTrains): K1 and K2 8 launches a train step in every leg and in
+    the production run, none in the control run; no decode launches a kernel (each evaluator counted from 0;
+    diagnose_errors' teacher-forced forwards launch K1 8 times a batch). K1 and K2 held to their plain version
+    on the inputs of their first call in the grid (check_cli_flash). Every SER finite, every report key present,
+    trajectory_match's mean within TRAJECTORY_TOL, and no argv given to a parser holds --keep_cache."""
+    import argparse
+    import shutil
+
+    from omr_a2s_multimodal_transformer_tpu_torch.tools import (
+        beam_sweep,
+        diagnose_errors,
+        eval_cache_dtypes,
+        run_convergence,
+        run_grid,
+    )
+
+    shutil.rmtree(TOOLS_WS, ignore_errors=True)
+    grid_ws, flash_pair = TOOLS_WS / "grid", ("K1 flash fwd", "K2 flash bwd")
+    best = str(grid_ws / "weights" / "image" / "best")
+    evals = TOOLS_CORPUS + ["--batch", "8", "--checkpoint", best, "--cache_root", str(grid_ws / "grandstaff_cache"),
+                            "--device", dev.type]
+    argvs = []
+    real_parse = argparse.ArgumentParser.parse_args
+
+    def parse(self, args=None, namespace=None):
+        if args is not None:
+            argvs.append([str(a) for a in args])
+        return real_parse(self, args, namespace)
+
+    trains = CliTrains()
+    t0 = time.perf_counter()
+    out = {}
+    with patched(argparse.ArgumentParser, "parse_args", parse), patched(trains.module, "main", trains):
+        grid_argv = ["--workdir", str(grid_ws), *TOOLS_CORPUS, "--audio_style", "bands", *TOOLS_RECIPE,
+                     "--epochs", str(TOOLS_EPOCHS), "--check_val_every_n_epoch", str(TOOLS_EPOCHS),
+                     "--warmup_epochs", "5", "--schedule_epochs", "150", "--legs", *TOOLS_LEGS, "--mixer_residual",
+                     "--warm_start_mixers", "--mixer_train_only", "cross_attn,mix_gate", "--alphas", "0.5",
+                     "--max_lens", "corpus", "--device", dev.type]
+        steps = len(TOOLS_LEGS) * TOOLS_EPOCHS * TOOLS_STEPS_PER_EPOCH
+        with FirstCalls() as first:
+            grid, grid_s = counted("tools run_grid", lambda: run_grid.main(grid_argv),
+                                   {k: 8 * steps for k in flash_pair})
+        errs = check_cli_flash(first.args, "tools grid")
+        del first
+        out["eval_cache_dtypes"], out["eval_cache_dtypes_s"] = counted("tools eval_cache_dtypes", lambda: (
+            eval_cache_dtypes.main(evals + ["--workdir", str(TOOLS_WS / "cache_dtypes"), "--dtypes", "bfloat16",
+                                            "int8", "int4", "--beams", "1"])))
+        out["beam_sweep"], out["beam_sweep_s"] = counted("tools beam_sweep", lambda: beam_sweep.main(
+            evals + ["--workdir", str(TOOLS_WS / "beam_sweep"), "--beams", "1", "2", "--lps", "0.0", "0.6"]))
+        diag_argv = ["--workdir", str(grid_ws), "--ckpt", best, "--train_n", "16", "--eval_n", "8", "--n_measures",
+                     "4", "--measures_range", "2", "4", "--render_style", "grand", "--n_batches", str(DIAG_BATCHES),
+                     "--out", str(TOOLS_WS / "diagnose_errors.json"), "--device", dev.type]
+        out["diagnose_errors"], out["diagnose_errors_s"] = counted(
+            "tools diagnose_errors", lambda: diagnose_errors.main(diag_argv), {"K1 flash fwd": 8 * 2 * DIAG_BATCHES})
+        conv_argv = ["--workdir", str(TOOLS_WS / "convergence"), *TOOLS_CORPUS, "--audio_style", "bands",
+                     *TOOLS_RECIPE, "--eval_n", "8", "--epochs", str(CONV_EPOCHS), "--control_epochs",
+                     str(CONV_EPOCHS), "--check_val_every_n_epoch", str(CONV_EPOCHS), "--warmup_steps",
+                     str(5 * TOOLS_STEPS_PER_EPOCH), "--decay_steps", str(150 * TOOLS_STEPS_PER_EPOCH),
+                     "--max_lens", "corpus", "--device", dev.type]
+        conv_steps = CONV_EPOCHS * TOOLS_STEPS_PER_EPOCH
+        out["convergence"], out["convergence_s"] = counted(
+            "tools run_convergence", lambda: run_convergence.main(conv_argv), {k: 8 * conv_steps for k in flash_pair})
+    wall = time.perf_counter() - t0
+
+    # the launches of every cli.train: a leg or the production run 8 a step, the control none (CliTrains held each)
+    runs = {c["run"]: c for c in trains.calls}
+    if sorted(runs) != sorted([*TOOLS_LEGS, "control", "production"]) or runs["control"]["flash"] \
+            or not all(runs[r]["flash"] for r in (*TOOLS_LEGS, "production")):
+        raise AssertionError(f"tools: the cli.train runs {trains.calls}")
+    keep = [a for a in argvs if "--keep_cache" in a]
+    if keep:
+        raise AssertionError(f"tools: an argv holds --keep_cache: {keep}")
+
+    # the reports: every SER and loss finite, every key present
+    conv = out["convergence"]
+    match = conv.get("trajectory_match", {})
+    checks = [(f"grid leg {leg}", grid["legs"].get(leg, {}), ("best_val_sym-er", "test_sym-er", "test_seq-er"))
+              for leg in TOOLS_LEGS]
+    checks += [(f"fusion {name}", grid["fusion"].get(name, {}), ("sym-er", "seq-er"))
+               for name in ("smith_waterman", "weighted_a0.5")]
+    checks += [(f"{name} row {i}", row, ("test_sym-er", "test_seq-er", "wall_s"))
+               for name in ("eval_cache_dtypes", "beam_sweep") for i, row in enumerate(out[name]["rows"])]
+    checks += [(f"diagnose_errors {split}", out["diagnose_errors"].get(split, {}),
+                ("sym-er", "seq-er", "tf_eval_loss", "tf_eval_top1")) for split in ("train", "val")]
+    checks += [("trajectory_match", match, ("epochs_compared", "mean_rel_loss_diff", "max_rel_loss_diff"))]
+    trajectories = {f"grid leg {leg}": (grid["legs"].get(leg, {}).get("trajectory", []), TOOLS_EPOCHS)
+                    for leg in TOOLS_LEGS}
+    trajectories.update({f"convergence {tag}": (conv.get(f"{tag}_trajectory", []), CONV_EPOCHS)
+                         for tag in ("control", "production")})
+    for tag, (traj, epochs) in trajectories.items():
+        if len(traj) != epochs:
+            raise AssertionError(f"tools {tag}: {len(traj)} epochs, expected {epochs}: {traj}")
+        checks += [(f"{tag} epoch {t['epoch']}", t, ("train_loss",)) for t in traj]
+        checks.append((f"{tag} validation", traj[-1], ("val_sym-er", "val_seq-er")))
+    for tag, metrics, keys in checks:
+        finite_metrics(f"tools {tag}", metrics, keys)
+    if [len(out[name]["rows"]) for name in ("eval_cache_dtypes", "beam_sweep")] != [3, 3] \
+            or "best" not in out["beam_sweep"]:
+        raise AssertionError(f"tools: the evaluators' rows {out['eval_cache_dtypes']}, {out['beam_sweep']}")
+    if match["epochs_compared"] < 1 or not match["mean_rel_loss_diff"] <= TRAJECTORY_TOL:
+        raise AssertionError(f"tools convergence: trajectory_match {match} (mean within {TRAJECTORY_TOL})")
+    table = run_grid._markdown(grid)
+
+    (out_dir / "tools_path").mkdir(parents=True, exist_ok=True)
+    for path in TOOLS_WS.rglob("*"):
+        if path.name in ("metrics.jsonl", "report.json", "diagnose_errors.json"):
+            shutil.copyfile(path, out_dir / "tools_path" / str(path.relative_to(TOOLS_WS)).replace("/", "_"))
+    log("[tools] run_grid table:\n" + table)
+    dtypes = [(r["cache_dtype"], r["beam_size"], r["test_sym-er"]) for r in out["eval_cache_dtypes"]["rows"]]
+    beams = [(r["beam"], r["length_penalty"], r["test_sym-er"]) for r in out["beam_sweep"]["rows"]]
+    log(f"[tools] eval_cache_dtypes {dtypes}; beam_sweep {beams}; "
+        f"diagnose_errors val sym-er {out['diagnose_errors']['val']['sym-er']}, tf loss "
+        f"{out['diagnose_errors']['val']['tf_eval_loss']}; trajectory_match {match}")
+    log(f"[tools path] wall {wall:.1f} s: run_grid {grid_s:.1f} s (cli.train "
+        + ", ".join(f"{c['run']} {c['wall_s']:.1f}" for c in trains.calls) + f"), eval_cache_dtypes "
+        f"{out['eval_cache_dtypes_s']:.1f} s, beam_sweep {out['beam_sweep_s']:.1f} s, diagnose_errors "
+        f"{out['diagnose_errors_s']:.1f} s, run_convergence {out['convergence_s']:.1f} s")
+    return dict(out, grid=grid, grid_s=grid_s, trains=trains.calls, argvs=len(argvs), wall_s=wall,
+                steps=dict(grid=steps, production=conv_steps), max_abs_err=errs)
 
 
 # ------------------------------------------------------------------ the parallel path
@@ -3328,6 +3525,7 @@ def main(argv=None):
     cli["loader_runs"] = {tag: loader_run(dev, tag, extra, cli["runs"]["image"]["epochs"][-1])
                           for tag, extra in LOADER_RUNS.items()}
     serve = serve_path(dev, args.out_dir, cli.pop("vocab"))
+    tools = tools_path(dev, args.out_dir)
     parallel = parallel_path(dev, args.out_dir, par_phase)
     for k in kernels:  # K1/K2 held to their plain version at the cross shape and at each cli run's first call
         if k["name"] in cli["max_abs_err"]:
@@ -3338,6 +3536,12 @@ def main(argv=None):
                                                       if k["name"] == "K2 flash bwd" else {}))
                                          for tag, r in cli["runs"].items()}
             k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_cli_path"])
+            # and on the tools path: at its first call in the grid, and the launches of each cli.train it ran
+            k["max_abs_err_tools_path"] = dict(err=tools["max_abs_err"][k["name"]], rel=tools["max_abs_err"]["rel"][
+                k["name"]], lk=tools["max_abs_err"]["lk"], lq=tools["max_abs_err"]["lq"])
+            k["max_abs_err"] = max(k["max_abs_err"], tools["max_abs_err"][k["name"]])
+            k["launches_tools_path"] = {c["run"]: dict(launches=c["launches"][k["name"]], steps=c["steps"])
+                                        for c in tools["trains"]}
         k.update(KERNEL_INFO.get(k["name"], {}))
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
@@ -3345,7 +3549,7 @@ def main(argv=None):
     parallel_kernel_rows(kernels, parallel)
     result = dict(card=card, kernels=kernels, flagship=flagship, paper=paper, quant_path=quant, op_path=ops,
                   stem_path=dict(launches=stem_launches, max_abs_err=stem_errs), legacy_path=legacy,
-                  cli_path=cli, serve_path=serve, parallel_path=parallel, traces=dict(TRACES),
+                  cli_path=cli, serve_path=serve, tools_path=tools, parallel_path=parallel, traces=dict(TRACES),
                   wall_s=time.perf_counter() - t0)
     return finish(card, result, args.out_dir, kernels)
 
