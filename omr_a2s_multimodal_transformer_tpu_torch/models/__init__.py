@@ -18,7 +18,8 @@ def build_model(hparams: Dict, device: DeviceLike = None, seed: int = 0, mesh: O
     "audio" a UnimodalTransformer.
 
     ``device`` defaults to ``cuda`` and raises when no GPU is present.
-    Weights are random from ``seed``; ``training/jax_import.py`` loads a
+    Weights are random from ``seed``, drawn from the JAX package's
+    initialisers (``models/init.py``); ``training/jax_import.py`` loads a
     JAX param tree.
 
     ``conv_mode`` is accepted and read nowhere: it only picks the JAX

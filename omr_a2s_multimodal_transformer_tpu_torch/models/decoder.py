@@ -6,7 +6,8 @@ post-LN decoder layers (4 heads, d_model 256, ff 256, ReLU, dropout 0.1)
 and a pointwise classifier. Parameters carry the reference PyTorch
 state_dict names (``transformer_decoder.layers.{i}.self_attn.in_proj_*``,
 ``multihead_attn``, ``linear{1,2}``, ``norm{1,2,3}``, ``out_layer`` as a
-Conv1d weight [V, D, 1]).
+Conv1d weight [V, D, 1]) and are drawn as JAX's are: lecun_normal kernels
+and zero biases (``models/init.py``), the embedding from normal(1.0).
 
 Ported: the full-sequence forward with plain or flash cross-attention
 (``ops/flash_packed.py``, kernels K1/K2 on CUDA), windowed self-attention
@@ -41,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from omr_a2s_multimodal_transformer_tpu_torch.models.init import dense_, lecun_normal_
 from omr_a2s_multimodal_transformer_tpu_torch.models.positional import positional_encoding_1d
 from omr_a2s_multimodal_transformer_tpu_torch.ops import masks as M
 from omr_a2s_multimodal_transformer_tpu_torch.ops.attention import (
@@ -134,10 +136,10 @@ class MultiheadProj(nn.Module):
         super().__init__()
         self.n_heads = n_heads
         self.head_dim = d_model // n_heads
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        # JAX draws three [d, d] Dense kernels (fan_in d each) and zero biases
+        self.in_proj_weight = nn.Parameter(lecun_normal_(torch.empty(3 * d_model, d_model)))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
-        nn.init.xavier_uniform_(self.in_proj_weight)
+        self.out_proj = dense_(nn.Linear(d_model, d_model))
         self.mesh = None  # parallel.tp.shard_model sets it
 
     @property
@@ -192,8 +194,8 @@ class DecoderLayer(nn.Module):
         super().__init__()
         self.self_attn = MultiheadProj(d_model, n_heads)
         self.multihead_attn = MultiheadProj(d_model, n_heads)
-        self.linear1 = nn.Linear(d_model, ff_dim)
-        self.linear2 = nn.Linear(ff_dim, d_model)
+        self.linear1 = dense_(nn.Linear(d_model, ff_dim))
+        self.linear2 = dense_(nn.Linear(ff_dim, d_model))
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
@@ -307,7 +309,7 @@ class KernDecoder(nn.Module):
         self.transformer_decoder = _Layers(
             DecoderLayer(d_model, n_heads, ff_dim, dropout, use_flash_cross) for _ in range(n_layers)
         )
-        self.out_layer = nn.Conv1d(d_model, vocab_size, 1)
+        self.out_layer = dense_(nn.Conv1d(d_model, vocab_size, 1))
         self.register_buffer("pe", torch.from_numpy(positional_encoding_1d(max_seq_len, d_model)), persistent=False)
 
     @property

@@ -9,7 +9,8 @@ The public boundary is NHWC like the JAX module. Inside, the convolutions
 are ``F.conv2d`` on NCHW tensors kept in channels-last memory, so the NHWC
 views the instance norm takes are free. Parameters carry the reference
 PyTorch state_dict names (``conv_blocks.{i}.conv{j}``,
-``dscblocks.{i}.conv{j}.{depth_conv,point_conv}``).
+``dscblocks.{i}.conv{j}.{depth_conv,point_conv}``), drawn as flax's
+``nn.Conv`` draws them (``models/init.py``).
 
 Dropout follows the JAX module's positioned MixDropout: per block one of
 three sites is active; there a coin picks elementwise dropout (p) or
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from omr_a2s_multimodal_transformer_tpu_torch.models.init import dense_
 from omr_a2s_multimodal_transformer_tpu_torch.models.remat import remat
 from omr_a2s_multimodal_transformer_tpu_torch.ops.norm import instance_norm
 from omr_a2s_multimodal_transformer_tpu_torch.parallel import mesh as mesh_lib
@@ -105,9 +107,9 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, stride=(1, 1), dropout: float = 0.5):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
-        self.conv3 = nn.Conv2d(out_ch, out_ch, 3, padding=1, stride=stride)
+        self.conv1 = dense_(nn.Conv2d(in_ch, out_ch, 3, padding=1))
+        self.conv2 = dense_(nn.Conv2d(out_ch, out_ch, 3, padding=1))
+        self.conv3 = dense_(nn.Conv2d(out_ch, out_ch, 3, padding=1, stride=stride))
         self.out_ch, self.stride, self.drop = out_ch, tuple(stride), MixDropout(dropout)
 
     def forward(self, x, generator=None, valid=None):
@@ -125,8 +127,8 @@ class DepthSepConv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, stride=(1, 1)):
         super().__init__()
-        self.depth_conv = nn.Conv2d(in_ch, in_ch, 3, stride=stride, padding=1, groups=in_ch)
-        self.point_conv = nn.Conv2d(in_ch, out_ch, 1)
+        self.depth_conv = dense_(nn.Conv2d(in_ch, in_ch, 3, stride=stride, padding=1, groups=in_ch))
+        self.point_conv = dense_(nn.Conv2d(in_ch, out_ch, 1))
 
     def forward(self, x):
         return conv2d(conv2d(x, self.depth_conv), self.point_conv)

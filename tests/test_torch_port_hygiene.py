@@ -2,6 +2,8 @@
 entry points that never fall back to the CPU."""
 
 import ast
+import json
+import os
 import importlib.util
 import pkgutil
 import subprocess
@@ -139,6 +141,23 @@ def test_bench_flash_packed_defaults_to_cuda_and_runs_on_the_cpu():
     assert min(out["new_ms"], out["old_ms"], out["new_dropout_ms"]) > 0
 
 
+BENCH_TOOLS = ("bench_train_max", "bench_decode_max", "bench_serve", "bench_ingest")
+
+
+@pytest.mark.parametrize("name", BENCH_TOOLS)
+def test_bench_tools_are_scanned_and_default_to_cuda(name):
+    """The measurement tools are port modules (the two scans above cover
+    them) and, like every entry point, raise without a GPU unless given
+    ``--device cpu``."""
+    module = f"{port.__name__}.tools.{name}"
+    assert module in _port_modules() and (PORT_DIR / "tools" / f"{name}.py").is_file()
+    main = importlib.import_module(module).main
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([])
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", PORT_DIR.parent / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
@@ -237,3 +256,18 @@ def test_probe_turns_copies_a_port_beside_the_scripts(tmp_path):
         ["chip_smoke.py", "probe_turns.py", "probe_split_bwd.py", probe_turns.PORT])
     assert [p.name for p in (root / probe_turns.PORT).iterdir()] == ["ops.py"]
     assert (root / "chip_smoke.py").read_text() == (PORT_DIR.parent / "chip_smoke.py").read_text()
+
+
+def test_diag_grad_split_imports_no_jax_and_runs_on_the_cpu(tmp_path):
+    """diag_grad_split.py imports no JAX; at its tiny CPU size it compares
+    every leaf at both initialisers, and a step against itself reads 0."""
+    path = PORT_DIR.parent / "diag_grad_split.py"
+    assert not {name.split(".")[0] for name in _imported_roots(path)} & set(FORBIDDEN)
+    env = {**os.environ, "DIAG_DEV": "cpu", "OMP_NUM_THREADS": "1"}  # tiny shapes: threads only contend
+    out = subprocess.run([sys.executable, str(path), "--out", str(tmp_path)], capture_output=True, text=True,
+                         timeout=300, cwd=str(PORT_DIR.parent), env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads((tmp_path / "diag.json").read_text())
+    for init in ("jax_init", "torch_init"):
+        assert res[f"{init} bf16 8 rows, run to run"]["rel_l2"] == 0.0  # the CPU is deterministic
+        assert 0 < res[f"{init} bf16 8 rows vs 4+4"]["rel_l2"] < 1e-1

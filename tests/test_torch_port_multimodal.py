@@ -98,13 +98,11 @@ def test_single_modality_logits_match_jax(modality, flash):
     np.testing.assert_allclose(got, want, rtol=0, atol=_tol(flash) * np.abs(want).max())
 
 
-def test_attn_both_gradients_match_jax():
-    """The port's float32 gradients against the JAX package's in float64:
-    JAX's own float32 audio-encoder gradient on these spectrograms lies
-    6e-4 (relative L2) from its float64 one, the port's 1.6e-6, and the two
-    float64 gradients agree to 3e-7 (the instance norm's E[x^2] - E[x]^2,
-    as for the image encoder in test_torch_port_trainer.py)."""
+def _attn_both_gradients(port_dtype):
+    """The attn_both model's loss and gradients in JAX (float64) and in the port (port_dtype), on the same weights
+    and batch: (the port's loss, JAX's, {group: relative L2 distance of the port's gradients from JAX's})."""
     model, params = mm_port_and_jax_params(seed=3, mixer_type="attn_both", mixer_residual=True)
+    model.to(port_dtype)
     b = mm_batch(seed=3)
     jm = jax_mm_model(mixer_type="attn_both", mixer_residual=True)
 
@@ -115,20 +113,47 @@ def test_attn_both_gradients_match_jax():
     with jax.enable_x64(True):
         loss_j, grads_j = jax.jit(jax.value_and_grad(jloss))(jax.tree.map(lambda w: jnp.asarray(w, jnp.float64), params))
         grads_j = jax.tree.map(np.asarray, grads_j)
-    tb = to_torch(b)
+    tb = {k: v.to(port_dtype) if v.is_floating_point() else v for k, v in to_torch(b).items()}
     loss_t = cross_entropy_ignore_pad(model(*(tb[k] for k in MM_KEYS)), tb["y_out"])
     loss_t.backward()
-    np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-5)
-    grads_t = mm_state_dict_to_jax({n: p.grad for n, p in model.named_parameters()})
+    grads_t = mm_state_dict_to_jax({n: p.grad.double() for n, p in model.named_parameters()})
     flat_t = dict(jax.tree_util.tree_leaves_with_path(grads_t))
     flat_j = dict(jax.tree_util.tree_leaves_with_path(grads_j["params"]))
     assert flat_t.keys() == flat_j.keys()
     assert np.abs(np.asarray(flat_j[(jax.tree_util.DictKey("mix_gate"),)])).min() > 0  # the gates are trained
+    dist = {}
     for group in ("image_encoder", "audio_encoder", "decoder", "cross_attn", "mix_gate"):
         keys = [k for k in flat_j if k[0].key == group]
         assert keys, group
-        assert_rel_l2(np.concatenate([np.ravel(flat_t[k]) for k in keys]),
-                      np.concatenate([np.ravel(np.asarray(flat_j[k])) for k in keys]), 1e-4, group)
+        got = np.concatenate([np.ravel(np.asarray(flat_t[k], np.float64)) for k in keys])
+        want = np.concatenate([np.ravel(np.asarray(flat_j[k], np.float64)) for k in keys])
+        dist[group] = np.linalg.norm(got - want) / np.linalg.norm(want)
+    return float(loss_t.detach()), float(loss_j), dist
+
+
+def test_attn_both_gradients_match_jax():
+    """The port's gradients against the JAX package's, both in float64: at
+    JAX's initialisers both packages' float32 audio-encoder gradients on
+    these spectrograms lie 1.6e-2 (relative L2) from their float64 ones, in
+    the port and in JAX alike (a ReLU input of the last DSC block lies
+    within float32 rounding of 0 and flips), and JAX's float32 image-encoder
+    gradient 8e-4."""
+    loss_t, loss_j, dist = _attn_both_gradients(torch.float64)
+    np.testing.assert_allclose(loss_t, loss_j, rtol=1e-5)
+    for group, d in dist.items():
+        assert d <= 1e-4, f"{group}: relative L2 error {d:.3g} > 1e-4"
+
+
+def test_attn_both_gradients_float32_port_match_jax_float64():
+    """The port at its own float32 against JAX in float64. Read here: the
+    image encoder 4.0e-5, the decoder 1.3e-5, the mixer 1.7e-5 and 1.1e-5,
+    held at the float64 test's 1e-4; the audio encoder 1.6e-2 (its ReLU
+    flip above), held at 3.5e-2."""
+    loss_t, loss_j, dist = _attn_both_gradients(torch.float32)
+    np.testing.assert_allclose(loss_t, loss_j, rtol=1e-5)
+    for group, d in dist.items():
+        tol = 3.5e-2 if group == "audio_encoder" else 1e-4
+        assert d <= tol, f"{group}: relative L2 error {d:.3g} > {tol}"
 
 
 def test_bf16_train_step_is_finite_and_near_f32():

@@ -10,7 +10,9 @@ in JAX), dropout and teacher forcing off, the float32 non-flash path.
 While they run, the parent computes JAX's single-device step and the
 port's single-process one.
 
-- One Adam step (lr 3e-3, global-norm clip 0.5, which clips here): the
+- One Adam step (lr 3e-3, global-norm clip 0.5, which clips here), JAX's
+  in float64 (``_jax_step``: at JAX's initialisers its float32 gradients
+  lie 3-4e-3 in relative L2 from its float64 ones, the port's 5e-5): the
   loss is JAX's to 1e-4 relative; the gradients after the clip, gathered
   to full tensors, have the global norm 0.5 to 1e-5 relative (the clip
   fired, and the mesh's norm counted every full parameter once: Adam's
@@ -73,6 +75,15 @@ MESHES = {"dp": (2, 1), "tp": (1, 2), "2x2": (2, 2)}  # (data, model) ranks
 MM_GATE = (0.7, -1.3)  # the multimodal model's mix_gate: nonzero, so that the gated paths are read
 
 
+def _jax_step(jstep, params, b, *args):
+    """JAX's single-device Adam step in float64, from the port's weights."""
+    with jax.enable_x64(True):
+        state = JTrainState.create(jax.tree.map(lambda w: jnp.asarray(w, np.float64), params["params"]),
+                                   j_adam(LR, 0, 0, CLIP))
+        jb = {k: jnp.asarray(v, np.float64 if v.dtype == np.float32 else v.dtype) for k, v in b.items()}
+        return jstep(state, jb, jax.random.PRNGKey(0), *args)
+
+
 def _inputs():
     b = batch(seed=3, b=4)
     return b, [(b["x"], b["x_hw"]), (b["x"][:3], b["x_hw"][:3])]
@@ -88,8 +99,7 @@ def runs():
     model, params = port_and_jax_params(seed=SEED, **NO_DROPOUT)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     jstep = j_make_train_step(jax_model(**NO_DROPOUT), V, teacher_forcing_prob=0.0, bf16_compute=False)
-    jstate, jloss = jstep(JTrainState.create(params["params"], j_adam(LR, 0, 0, CLIP)),
-                          {k: jnp.asarray(v) for k, v in b.items()}, jax.random.PRNGKey(0))
+    jstate, jloss = _jax_step(jstep, params, b)
 
     with torch.no_grad():
         decode = greedy_decode_fn(model, 12, sos_id=1, eos_id=V - 1)
@@ -202,8 +212,7 @@ def test_multimodal_step_on_the_2x2_mesh_matches_jax_and_single_process(monkeypa
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     monkeypatch.setattr(j_multimodal, "CrossAttention", _NoDropoutCrossAttention)
     jstep = j_make_train_step(jax_mm_model(**hp), V, teacher_forcing_prob=0.0, bf16_compute=False, multimodal=True)
-    jstate, jloss = jstep(JTrainState.create(params["params"], j_adam(LR, 0, 0, CLIP)),
-                          {k: jnp.asarray(v) for k, v in b.items()}, jax.random.PRNGKey(0), "both")
+    jstate, jloss = _jax_step(jstep, params, b, "both")
     adam_state, = [s for s in jax.tree_util.tree_leaves(jstate.opt_state,
                                                          is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
                    if isinstance(s, optax.ScaleByAdamState)]
