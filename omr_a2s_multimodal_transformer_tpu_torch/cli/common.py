@@ -14,9 +14,9 @@ ranks share one or run on the CPU; each rank prints its rank, backend and
 device) and runs on a ('data', 'model') mesh of the world with
 ``--mesh_model`` ranks on 'model' (``make_mesh_if_needed``).
 
-``--keep_cache`` keeps the JAX package's preprocess disk cache, which the
-port does not have: set, it raises ``NotImplementedError``
-(``check_unported``). ``--threefry_prng`` picks a JAX PRNG and is accepted
+``cli.train``'s ``--keep_cache`` keeps the frontend disk cache
+(``data/frontends.py``) after the run, which it empties otherwise, as the
+JAX package's does. ``--threefry_prng`` picks a JAX PRNG and is accepted
 and ignored; ``--conv_mode`` is accepted and read nowhere, as in
 ``build_model``.
 """
@@ -71,17 +71,6 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
                    help="override the decode KV-cache dtype from the checkpoint hparams "
                         "(int8/int4: quantized cross K/V, the self cache in bfloat16)")
     p.add_argument("--device", default="cuda", help="torch device to run on: cuda (default) or cpu")
-
-
-# each flag of a feature not ported -> whether args set it
-def _unported(args) -> Dict[str, bool]:
-    return {"--keep_cache (the preprocess disk cache: the port has none)": bool(getattr(args, "keep_cache", False))}
-
-
-def check_unported(args) -> None:
-    asked = [flag for flag, on in _unported(args).items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported yet: {'; '.join(asked)}")
 
 
 def make_datamodule(args, input_modality: str) -> ARDataModule:

@@ -60,7 +60,6 @@ def start(args):
     """Build the server and its HTTP front from parsed flags -> (server,
     httpd, modality); the caller stops both (``httpd.shutdown()``,
     ``server.stop()``)."""
-    common.check_unported(args)
     common.init_cli(args)
     model, hp, multimodal = common.build_from_checkpoint(args.checkpoint_path, hparams_override={
         "cache_dtype": args.cache_dtype,

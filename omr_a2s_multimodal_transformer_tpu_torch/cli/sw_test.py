@@ -52,7 +52,6 @@ def decode_split(model, loader, vocab, multimodal_key: str, device):
 def main(argv=None) -> dict:
     """Evaluate the aligned and fused pair on the test split; returns the metrics."""
     args = build_parser().parse_args(argv)
-    common.check_unported(args)
     common.init_cli(args)
     for path in (args.image_checkpoint_path, args.audio_checkpoint_path):
         if not os.path.exists(path):

@@ -39,7 +39,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Evaluate the checkpoint on the test split; returns the metrics."""
     args = build_parser().parse_args(argv)
-    common.check_unported(args)
     started = common.init_cli(args)
     try:
         return _test(args)

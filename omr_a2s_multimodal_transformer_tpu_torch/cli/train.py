@@ -15,7 +15,8 @@ blocks in the backward. Data and tensor parallelism, two ranks of one
 card (gloo) or of two (NCCL), ``--mesh_model 2`` for tensor parallelism:
   python -m torch.distributed.run --nproc_per_node 2 \
     -m omr_a2s_multimodal_transformer_tpu_torch.cli.train ... [--mesh_model 2]
-``--keep_cache`` raises (``cli/common.py`` ``check_unported``).
+The frontend disk cache (``data/frontends.py``) is emptied after the run
+(the JAX package's ``cli/train.py:170-174``) unless ``--keep_cache``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import argparse
 import os
 
 from omr_a2s_multimodal_transformer_tpu_torch.cli import common
+from omr_a2s_multimodal_transformer_tpu_torch.data.frontends import clear_cache
 from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
 from omr_a2s_multimodal_transformer_tpu_torch.parallel import multihost
 from omr_a2s_multimodal_transformer_tpu_torch.training.loop import Trainer
@@ -94,7 +96,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "dequantized on the device to the streaming batch's bits")
     p.add_argument("--weights_dir", default=None, help="default: weights/<ds_name>")
     p.add_argument("--keep_cache", action="store_true",
-                   help="keep the preprocess disk cache (the port has none: not ported)")
+                   help="keep the frontend disk cache after the run (emptied otherwise)")
     return p
 
 
@@ -102,7 +104,6 @@ def main(argv=None) -> dict:
     """Train, validate, keep best/last checkpoints, test the best. Returns
     the fit result and the test metrics."""
     args = build_parser().parse_args(argv)
-    common.check_unported(args)
     started = common.init_cli(args)
     try:
         return _train(args)
@@ -188,6 +189,8 @@ def _train(args) -> dict:
     if multihost.is_primary():
         print(f"Best val_sym-er: {result['best_val_sym-er']:.4f} (epoch {result['best_epoch']})")
         print({k: round(v, 4) for k, v in metrics.items()})
+        if not args.keep_cache:  # free the frontend disk cache (reference train.py:161)
+            clear_cache()
     return {**result, **metrics}
 
 

@@ -143,7 +143,6 @@ def _main_fused(args) -> int:
 def main(argv=None) -> int:
     """Returns the number of .krn files written."""
     args = build_parser().parse_args(argv)
-    common.check_unported(args)
     common.init_cli(args)
     if args.audio_checkpoint_path:
         return _main_fused(args)

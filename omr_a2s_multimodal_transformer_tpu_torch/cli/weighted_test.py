@@ -37,7 +37,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Evaluate the fused pair on the test split; returns the metrics."""
     args = build_parser().parse_args(argv)
-    common.check_unported(args)
     common.init_cli(args)
     for path in (args.image_checkpoint_path, args.audio_checkpoint_path):
         if not os.path.exists(path):

@@ -9,10 +9,13 @@ while the device runs the current one.
 
 Samples are {"x", "y"} for the image and the audio modality and
 {"xi", "xa", "y"} for both; the audio frontend is the host numpy
-``preprocess_audio``, as in the JAX package, and no frontend output is
-cached on disk. ``loader_backend="grain"`` takes the worker-process
-loader of ``data/grain_pipeline.py`` (the same batches) in place of the
-thread loader.
+``preprocess_audio``, as in the JAX package, and the frontends read and
+write their disk cache (``data/frontends.py``: the spectrograms and the
+resized images) in every loader: the thread loader, the worker processes
+and the device cache's build.
+``loader_backend="grain"`` takes the worker-process loader of
+``data/grain_pipeline.py`` (the same batches) in place of the thread
+loader.
 """
 
 from __future__ import annotations

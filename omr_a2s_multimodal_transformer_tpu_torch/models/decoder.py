@@ -108,11 +108,20 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
 
 def row_parallel(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], axis) -> torch.Tensor:
     """``linear`` of a row-parallel layer: this rank's input columns, the
-    products summed over ``axis``, then the (replicated) bias."""
+    partial products summed over ``axis``, then the (replicated) bias.
+
+    Each rank's partial sum is a float32 (or wider) product of the
+    operands (exact products of bf16 ones; TF32 is off, ``device.py``),
+    all-reduced at that width, the bias added there, and the sum rounded to
+    the layer's dtype once, as the single process's one product with its
+    bias is; bf16 partial sums would round each rank's share, their sum and
+    the biased sum."""
     if axis is None:
         return linear(x, weight, bias)
-    y = reduce_from(linear(x, weight, None), axis)
-    return y if bias is None else y + bias.to(y.dtype)
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    wide = torch.promote_types(dt, torch.float32)
+    y = reduce_from(F.linear(x.to(wide), weight.to(wide)), axis)
+    return (y if bias is None else y + bias.to(wide)).to(dt)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],

@@ -8,15 +8,19 @@ Port of ``tools/bench_ingest.py``. The backends are the thread loader
 one epoch of ``--n`` synthetic grand renders (355-362 x 4300-4412 px, 30
 measures; JAX's ``make_dm`` kwargs) twice:
 
-- cold: the first epoch of a fresh ``cache_root``'s train loader (the
-  worker loader starts its processes in it);
-- warm: the second epoch of the same loader (JAX asks the data module for
-  a second loader, which reads its disk cache).
+- cold: the first epoch of the train loader after the frontend disk cache
+  (``data/frontends.py``) is emptied and a fresh ``cache_root`` set up
+  (the worker loader starts its processes in it; the max-lens scan of the
+  set-up renders every image once, as JAX's does);
+- warm: the second epoch of the same loader, which reads the frontends
+  back from the disk cache (JAX asks the data module for a second loader).
+  The port caches the audio frontend and a resized image only
+  (``data/frontends.py``): with ``--modality image`` the renders at their
+  own height are computed in both epochs, so warm differs from cold by the
+  renders and the max-lens scan alone.
 
-The port has no joblib frontend cache (the JAX package's renders are
-cached on disk after epoch 1, so its warm epoch reads them back): every
-epoch renders every sample, and JAX's ``--keep_cache`` is dropped. One
-JSON line a backend:
+``--keep_cache`` does not empty the disk cache first (cold is warm then),
+as in JAX. One JSON line a backend:
 
     python -m omr_a2s_multimodal_transformer_tpu_torch.tools.bench_ingest [--n 64] [--batch 4] [--modality image]
 
@@ -35,6 +39,7 @@ import os
 import shutil
 import time
 
+from omr_a2s_multimodal_transformer_tpu_torch.data.frontends import clear_cache
 from omr_a2s_multimodal_transformer_tpu_torch.device import resolve_device
 
 
@@ -86,6 +91,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backends", default="threads,grain")
     p.add_argument("--measures_range", nargs=2, type=int, default=None)
     p.add_argument("--audio_style", default="tones", choices=["tones", "bands"])
+    p.add_argument("--keep_cache", action="store_true",
+                   help="do not empty the frontend disk cache first (warm-cache throughput only)")
     p.add_argument("--workdir", default="runs/bench_ingest", help="the backends' cache roots")
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     return p
@@ -96,6 +103,8 @@ def main(argv=None) -> list:
     resolve_device(args.device)  # without a GPU, fail before any work unless --device cpu
     out = []
     for backend in args.backends.split(","):
+        if not args.keep_cache:  # an empty frontend cache a backend: honest cold numbers
+            clear_cache()
         cache_root = os.path.join(args.workdir, f"ingest_cache_{backend}")
         shutil.rmtree(cache_root, ignore_errors=True)  # a fresh cache root a backend: honest cold numbers
         dm = make_dm(backend, args.n, args.batch, args.modality, args.workers, cache_root,

@@ -25,7 +25,7 @@ comparison. Runs on ``cuda`` unless given ``--device cpu``:
   python -m omr_a2s_multimodal_transformer_tpu_torch.tools.run_convergence [--epochs 300] [--train_n 256]
   python -m omr_a2s_multimodal_transformer_tpu_torch.tools.run_convergence --smoke --device cpu --train_n 4 \
       --epochs 3 --control_epochs 3
-No CLI is given ``--keep_cache``; the vocabulary and max lengths follow
+Each ``cli.train`` is given ``--keep_cache``, as in JAX; the vocabulary and max lengths follow
 ``run_real_shape_e2e.seed_caches`` (``--vocab_path``, ``--max_lens``).
 """
 
@@ -172,6 +172,7 @@ def main(argv=None) -> dict:
         "--attn_window", "100",
         "--batch_size", str(args.batch),
         "--teacher_forcing_prob", str(args.teacher_forcing_prob),
+        "--keep_cache",
         "--learning_rate", str(args.learning_rate),
         "--warmup_steps", str(args.warmup_steps),
         "--decay_steps", str(args.decay_steps),

@@ -15,7 +15,8 @@ Geometry is measure-count scaled (default --n_measures 10, about 1/3 of
 the 30-measure GRANDSTAFF shapes); every model is the production recipe
 (packed stem, flash cross-attention, bf16, warmup-cosine). On the card
 each leg's train step launches the flash kernels K1 and K2 (8 each a
-step); no decode launches a kernel. No CLI is given ``--keep_cache``.
+step); no decode launches a kernel. Each leg's ``cli.train`` is given
+``--keep_cache`` (the frontend disk cache outlives it), as in JAX.
 
 Runs on ``cuda`` unless given ``--device cpu``, which is passed to every
 CLI and Trainer:
@@ -166,6 +167,7 @@ def main(argv=None) -> dict:
         elif not args.skip_training:
             print(f"\n=== train {name} ({args.epochs} epochs) ===", flush=True)
             argv = data_args + [
+                "--keep_cache",
                 "--input_modality", modality,
                 "--attn_window", "100",
                 "--batch_size", str(args.batch),

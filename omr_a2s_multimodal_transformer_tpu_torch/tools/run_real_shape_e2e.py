@@ -16,8 +16,7 @@ collection's 6,997-token ``ar_w2i_kern.json``) into the cache; without it
 the corpus builds its own over all of its splits, as any run of the CLIs
 does. ``--max_lens corpus`` leaves the max-lens files to the corpus's scan
 too (short-score runs: shapes and decodes end at the corpus's longest
-sample). No CLI is given ``--keep_cache`` (the port has no preprocess disk
-cache and refuses it).
+sample). Both ``cli.train`` stages are given ``--keep_cache``, as in JAX.
 
 Writes stage wall times and the validation trajectories to
 ``<workdir>/report.json``. Runs on ``cuda`` unless given ``--device cpu``,
@@ -165,7 +164,7 @@ def main(argv=None) -> dict:
           "--epochs", str(args.epochs), "--patience", "5",
           "--check_val_every_n_epoch", str(args.check_val_every_n_epoch),
           "--batch_size", str(args.image_batch),
-          "--use_flash_cross",
+          "--use_flash_cross", "--keep_cache",
           "--weights_dir", img_dir,
           "--run_dir", os.path.join(args.workdir, "runs", "image"))
 
@@ -173,7 +172,7 @@ def main(argv=None) -> dict:
           "--input_modality", "audio", "--attn_window", "100",
           "--epochs", str(args.epochs), "--patience", "5",
           "--check_val_every_n_epoch", str(args.check_val_every_n_epoch),
-          "--batch_size", str(args.audio_batch),
+          "--batch_size", str(args.audio_batch), "--keep_cache",
           "--weights_dir", aud_dir,
           "--run_dir", os.path.join(args.workdir, "runs", "audio"))
 

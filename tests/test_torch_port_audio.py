@@ -37,6 +37,7 @@ from omr_a2s_multimodal_transformer_tpu_torch.data import dataset as pds
 from omr_a2s_multimodal_transformer_tpu_torch.data import frontends as pfe
 from omr_a2s_multimodal_transformer_tpu_torch.inference import make_audio_transcriber
 from omr_a2s_multimodal_transformer_tpu_torch.ops import stft as pstft
+import torch_port_cache  # noqa: F401, E402  (a frontend cache folder of this process)
 
 SYN = dict(n=6, img_height_range=(32, 33), img_width_range=(64, 96), audio_seconds_range=(0.3, 0.5), n_measures=1)
 SR = jstft.SAMPLE_RATE

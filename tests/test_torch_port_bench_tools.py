@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from omr_a2s_multimodal_transformer_tpu_torch.tools import bench_decode_max, bench_ingest, bench_serve, bench_train_max
+import torch_port_cache  # noqa: F401, E402  (a frontend cache folder of this process)
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY_IMAGE = ["--image", "32", "64", "--audio", "195", "24", "--max_len", "12", "--vocab", "31"]

@@ -5,9 +5,9 @@ last/ and finite metrics, ``cli.test --save_preds`` evaluates best/ and
 writes one row per test sample. Then the audio and multimodal paths: an
 audio model, and a gated attn_both multimodal model warm-started from the
 image and audio checkpoints with only its mixer trained, then ``cli.test
---input_modality both``; each multimodal flag is shown read. ``--keep_cache``
-(a disk cache the port does not have) raises ``NotImplementedError``; the
-flags ported since run: ``--remat`` gives the fixture's run exactly, and
+--input_modality both``; each multimodal flag is shown read. The flags
+ported since run: ``--keep_cache`` (the frontend disk cache kept after the
+run) and ``--remat`` give the fixture's run exactly, and
 ``--mesh_model 2`` trains and tests under two gloo ranks. Without a GPU and
 without ``--device cpu`` both CLIs raise before any work.
 
@@ -31,6 +31,7 @@ from omr_a2s_multimodal_transformer_tpu_torch.cli import common
 from omr_a2s_multimodal_transformer_tpu_torch.cli import test as test_cli
 from omr_a2s_multimodal_transformer_tpu_torch.cli import train as train_cli
 from omr_a2s_multimodal_transformer_tpu_torch.training import checkpoint as ckpt_lib
+import torch_port_cache  # noqa: F401, E402  (a frontend cache folder of this process)
 
 SYN = dict(n=6, img_height_range=[32, 33], img_width_range=[64, 96], audio_seconds_range=[0.3, 0.5], n_measures=1)
 
@@ -87,7 +88,8 @@ UNPORTED_TEST = {
     "cache_dtype_int4": ["--cache_dtype", "int4"],
 }
 # flags that raised until their feature was ported: their cases now run it
-PORTED_TRAIN = ("device_cache", "device_cache_u8", "cache_dtype_int8", "cache_dtype_int4", "grain", "remat")
+PORTED_TRAIN = ("device_cache", "device_cache_u8", "cache_dtype_int8", "cache_dtype_int4", "grain", "remat",
+                "keep_cache")
 PORTED_TEST = ("cache_dtype_int4",)
 
 
@@ -106,7 +108,9 @@ def test_train_cli_unported_flags_raise(trained, tmp_path, flag):
     int8/int4 cache trains the same and validates and tests by decoding
     from the quantized cross K/V, its cache_dtype kept in the checkpoint;
     --remat (the encoder's blocks recomputed, dropout replayed) gives the
-    fixture's run exactly. --mesh_model 2 is held under two ranks
+    fixture's run exactly, and so does --keep_cache (the frontend disk
+    cache kept, test_torch_port_frontend_cache.py holds what it keeps).
+    --mesh_model 2 is held under two ranks
     (``_two_rank_cli_runs``)."""
     if flag == "mesh_model":
         _two_rank_cli_runs(trained, tmp_path)

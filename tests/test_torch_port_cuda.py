@@ -51,6 +51,7 @@ import pytest
 import torch
 
 from omr_a2s_multimodal_transformer_tpu_torch.ops import flash_packed as fp
+import torch_port_cache  # noqa: F401, E402  (a frontend cache folder of this process)
 
 H = 4
 REL_TOL = 2e-2

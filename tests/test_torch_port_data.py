@@ -27,6 +27,7 @@ from omr_a2s_multimodal_transformer_tpu_torch.data import frontends as pfe
 from omr_a2s_multimodal_transformer_tpu_torch.data import sources as psrc
 from omr_a2s_multimodal_transformer_tpu_torch.utils import edit_distance as ped
 from omr_a2s_multimodal_transformer_tpu_torch.utils import metrics as pmetrics
+import torch_port_cache  # noqa: F401, E402  (a frontend cache folder of this process)
 
 # the corpus of tests/test_cli_e2e.py
 SYN = dict(n=6, img_height_range=(32, 33), img_width_range=(64, 96), audio_seconds_range=(0.3, 0.5), n_measures=1)

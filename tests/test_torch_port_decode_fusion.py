@@ -47,6 +47,7 @@ from omr_a2s_multimodal_transformer_tpu.training import decode as jdecode
 from omr_a2s_multimodal_transformer_tpu_torch.fusion import smith_waterman as psw
 from omr_a2s_multimodal_transformer_tpu_torch.ops.image import preprocess_image_batch
 from omr_a2s_multimodal_transformer_tpu_torch.training import decode as pdecode
+import torch_port_cache  # noqa: F401, E402  (a frontend cache folder of this process)
 
 NO_DROPOUT = dict(encoder_dropout=0.0, decoder_dropout=0.0, pos_dropout=0.0)
 AUDIO_T = 24

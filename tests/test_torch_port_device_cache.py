@@ -27,6 +27,7 @@ from omr_a2s_multimodal_transformer_tpu.data.device_cache import DeviceCacheLoad
 from omr_a2s_multimodal_transformer_tpu_torch.data import collate as C
 from omr_a2s_multimodal_transformer_tpu_torch.data.dataset import ARDataModule, Loader
 from omr_a2s_multimodal_transformer_tpu_torch.data.device_cache import DeviceCacheLoader
+import torch_port_cache  # noqa: F401, E402  (a frontend cache folder of this process)
 
 torch.set_num_threads(2)  # several pytest workers share the host
 

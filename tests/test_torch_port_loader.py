@@ -22,6 +22,7 @@ import pytest
 
 from omr_a2s_multimodal_transformer_tpu_torch.data import dataset as pds
 from omr_a2s_multimodal_transformer_tpu_torch.data.grain_pipeline import GrainLoader
+import torch_port_cache  # noqa: F401, E402  (a frontend cache folder of this process)
 
 SYN = dict(n=7, img_height_range=(32, 33), img_width_range=(64, 96), audio_seconds_range=(0.3, 0.5), n_measures=1)
 WORKERS = 2

@@ -32,6 +32,7 @@ from omr_a2s_multimodal_transformer_tpu_torch import inference
 from omr_a2s_multimodal_transformer_tpu_torch.models import build_model
 from omr_a2s_multimodal_transformer_tpu_torch.serving import TranscriptionServer, serve_http
 from omr_a2s_multimodal_transformer_tpu_torch.training.decode import cut_at_eos
+import torch_port_cache  # noqa: F401, E402  (a frontend cache folder of this process)
 
 V, MAXLEN = 31, 12
 WIDTHS = (40, 64, 96)

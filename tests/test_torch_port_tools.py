@@ -58,6 +58,7 @@ from tools import oracle_synth_floor as jos
 from tools import run_convergence as jconv
 from tools import run_grid as jgrid
 from tools import run_real_shape_e2e as je2e
+import torch_port_cache  # noqa: F401, E402  (a frontend cache folder of this process)
 
 TF_LOSS_RTOL = 1e-5  # tf_eval's loss: the float32 forwards of the two packages sum in other orders
 

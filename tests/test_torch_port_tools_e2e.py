@@ -4,9 +4,9 @@ CPU (``--device cpu``, the smoke corpus's tiny shapes):
 - ``run_grid --smoke``: legs image, audio and concat, 1 epoch each, then
   Smith-Waterman and weighted (a=0.5) fusion: every report key present,
   every SER finite, the report file equal to the returned report, its
-  markdown equal to the JAX tool's ``_markdown`` of it, and no argv given
-  to a parser (the tool's, each CLI's) holding ``--keep_cache``; every
-  CLI is given ``--device cpu``.
+  markdown equal to the JAX tool's ``_markdown`` of it; each leg's
+  ``cli.train`` argv holds ``--keep_cache`` and no other argv does, as in
+  the JAX tool; every CLI is given ``--device cpu``.
 - ``eval_cache_dtypes``: its bfloat16 beam-1 row equals ``cli.test``'s SER
   on the same checkpoint and split (the row rounds to 3 decimals, as the
   JAX tool's); its int8 row is finite.
@@ -31,6 +31,7 @@ from omr_a2s_multimodal_transformer_tpu_torch.tools import diagnose_seq_errors, 
 from omr_a2s_multimodal_transformer_tpu_torch.tools import run_grid as pgrid
 from omr_a2s_multimodal_transformer_tpu_torch.tools.run_convergence import synth_cfg
 from tools import run_grid as jgrid
+import torch_port_cache  # noqa: F401, E402  (a frontend cache folder of this process)
 
 torch.set_num_threads(2)  # several pytest workers share the host
 
@@ -85,12 +86,12 @@ def test_run_grid_report(grid):
 
 def test_run_grid_argvs(grid):
     _, _, argvs = grid
-    assert not [a for a in argvs if "--keep_cache" in a]
     clis = [a for a in argvs if "--ds_name" in a]  # cli.train x3, cli.test (test_of_best) x3, sw_test, weighted_test
     assert len(clis) == 2 * len(LEGS) + 2
     assert all(a[a.index("--device") + 1] == "cpu" for a in clis)
     trains = [a for a in clis if "--use_flash_cross" in a]
     assert len(trains) == len(LEGS) and all("--remat" in a and "--device_cache" in a for a in trains)
+    assert [a for a in argvs if "--keep_cache" in a] == trains
 
 
 def test_eval_cache_dtypes_bf16_greedy_equals_cli_test(grid, tmp_path):

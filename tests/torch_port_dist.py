@@ -230,3 +230,33 @@ def flash_heads_gathered(rank, n_heads, q, k, v, kv_len, kv_valid, seed, rate):
     (o * w).sum().backward()
     return dict(o=o.detach().numpy(), dq=ql.grad.numpy(), dk=kl.grad.numpy(), dv=vl.grad.numpy(),
                 split=fp.shard_heads(n_heads, 64, 2))
+
+
+def row_parallel_sums(rank, x, w, b):
+    """On a 1 x 2 mesh in bf16: this rank's half of the input columns of
+    ``x @ w.T + b`` through ``row_parallel`` (float32 partial sums) and
+    through a bf16 partial sum all-reduced in bf16; both as float32 numpy."""
+    from omr_a2s_multimodal_transformer_tpu_torch.models.decoder import linear, row_parallel
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel.collectives import reduce_from
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
+
+    axis = make_mesh(model=2).model_axis
+    k = x.shape[-1] // 2
+    xs = torch.from_numpy(x[..., rank * k:(rank + 1) * k]).to(torch.bfloat16)
+    ws = torch.from_numpy(w[:, rank * k:(rank + 1) * k]).to(torch.bfloat16)
+    bias = torch.from_numpy(b).to(torch.bfloat16)
+    wide = row_parallel(xs, ws, bias, axis)
+    narrow = reduce_from(linear(xs, ws, None), axis) + bias
+    assert wide.dtype == narrow.dtype == torch.bfloat16
+    return wide.float().numpy(), narrow.float().numpy()
+
+
+def write_frontend_key(root, start, wave, sr, n):
+    """A process of its own: ``preprocess_audio(wave, sr)`` n times into the
+    frontend cache at ``root``, from when ``start`` is set."""
+    from omr_a2s_multimodal_transformer_tpu_torch.data import frontends
+
+    os.environ[frontends.CACHE_ENV] = root
+    start.wait(60)
+    for _ in range(n):
+        frontends.preprocess_audio(wave, sr)
