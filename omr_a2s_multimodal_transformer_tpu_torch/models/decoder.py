@@ -20,11 +20,14 @@ self-cache.
 
 Tensor parallelism (``parallel/``, after ``parallel.tp.shard_model``): the
 q/k/v rows of each packed ``in_proj`` block and ``linear1`` are
-column-parallel, so each rank runs its heads and FF columns; ``out_proj``
-and ``linear2`` are row-parallel, summed over 'model' by an all-reduce
-before their bias; ``out_layer`` is column-parallel when the vocabulary
-divides, its logits gathered. Decoding runs on the local heads too; int4's
-per-token scale is a max over all channels, an all-reduce over 'model'.
+column-parallel, so each rank runs its heads and FF columns, and their
+input's gradient is summed over 'model' in float32 (``column_parallel``;
+the memory's over all layers' k and v first, then once, ``summed_once``);
+``out_proj`` and ``linear2`` are row-parallel, summed over 'model' in
+float32 before their bias (``row_parallel``); ``out_layer`` is
+column-parallel when the vocabulary divides, its logits gathered.
+Decoding runs on the local heads too; int4's per-token scale is a max
+over all channels, an all-reduce over 'model'.
 ``remat`` recomputes each layer in the backward (``models/remat.py``); the
 models ask for it only off the flash path, as JAX's do.
 
@@ -56,7 +59,7 @@ from omr_a2s_multimodal_transformer_tpu_torch.ops.banded_attention import band_c
 from omr_a2s_multimodal_transformer_tpu_torch.models.remat import remat
 from omr_a2s_multimodal_transformer_tpu_torch.ops.flash_packed import MASK_BK, MASK_BQ, flash_attention_packed_auto
 from omr_a2s_multimodal_transformer_tpu_torch.parallel import mesh as mesh_lib
-from omr_a2s_multimodal_transformer_tpu_torch.parallel.collectives import all_reduce, copy_to, gather_from, reduce_from
+from omr_a2s_multimodal_transformer_tpu_torch.parallel.collectives import all_reduce, gather_from, reduce_from
 
 INT32_MAX = 2 ** 31 - 1
 CACHE_DTYPES = ("float32", "bfloat16", "int8", "int4")
@@ -124,6 +127,87 @@ def row_parallel(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Ten
     return (y if bias is None else y + bias.to(wide)).to(dt)
 
 
+class _ColumnParallel(torch.autograd.Function):
+    """``linear(x, w, b)`` for each (w, b) of a column-parallel layer on the
+    input ``x``, replicated over ``axis`` (``dtype``: x is ``summed_once``'s
+    float32 copy of an input of that dtype, which the products read). The
+    backward's input gradient is one float32 (or wider) product of the
+    bf16 operands summed over the pairs; without ``dtype`` it is
+    all-reduced over ``axis`` at that width and rounded to x's dtype once,
+    with it it stays this layer's float32 partial for ``summed_once``. Each
+    weight's and bias's gradient is the one F.linear's backward gives
+    (aten's addmm: (x^T g)^T, and g summed over the rows)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dtype, *pairs):
+        weights, biases = pairs[0::2], pairs[1::2]
+        ctx.axis, ctx.dtype, ctx.with_bias = axis, dtype, [b is not None for b in biases]
+        ctx.save_for_backward(x, *weights)
+        xc = x if dtype is None else x.to(dtype)
+        return tuple(linear(xc, w, b) for w, b in zip(weights, biases))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, *weights = ctx.saved_tensors
+        dt = grads[0].dtype
+        gx = None
+        if ctx.needs_input_grad[0]:
+            wide = torch.promote_types(dt, torch.float32)
+            gx = sum(torch.matmul(g.to(wide), w.to(wide)) for g, w in zip(grads, weights))
+            gx = (gx if ctx.dtype is not None else all_reduce(gx.contiguous(), ctx.axis)).to(x.dtype)
+        out = [gx, None, None]
+        x2 = x.reshape(-1, x.shape[-1]).to(dt)
+        for i, (g, w, has_b) in enumerate(zip(grads, weights, ctx.with_bias)):
+            g2 = g.reshape(-1, g.shape[-1])
+            need_w, need_b = ctx.needs_input_grad[3 + 2 * i], ctx.needs_input_grad[4 + 2 * i]
+            out.append(torch.mm(x2.t(), g2).t().to(w.dtype) if need_w else None)
+            out.append(g2.sum(0).to(w.dtype) if has_b and need_b else None)
+        return tuple(out)
+
+
+def column_parallel(x: torch.Tensor, axis, *pairs, dtype=None) -> Tuple[torch.Tensor, ...]:
+    """``linear(x, w, b)`` for each ``(w, b)`` in ``pairs``: the products of
+    a column-parallel layer (this rank's output columns) on an input
+    replicated over ``axis``, whose gradient is the sum of theirs over the
+    ranks. The sum is taken in float32 (``_ColumnParallel``) and rounded
+    once, as the single process rounds its one product's input gradient;
+    bf16 partial sums would round each rank's share and their sum.
+    ``dtype``: x is ``summed_once``'s float32 copy of an input of that
+    dtype, read by several such layers; the products read the input, and
+    its gradient is summed over the layers and the ranks by ``summed_once``.
+    With ``axis`` None (or of one rank) the plain products, as the single
+    process computes them."""
+    if axis is None or axis.size == 1:
+        xc = x if dtype is None else x.to(dtype)
+        return tuple(linear(xc, w, b) for w, b in pairs)
+    return _ColumnParallel.apply(x, axis, dtype, *(t for pair in pairs for t in pair))
+
+
+class _SummedOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.dtype = axis, x.dtype
+        wide = torch.promote_types(x.dtype, torch.float32)
+        return x.to(wide) if wide != x.dtype else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.axis).to(ctx.dtype), None
+
+
+def summed_once(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` (replicated over ``axis``) as float32, exactly, for the
+    column-parallel layers that all read it (``column_parallel(...,
+    dtype=x.dtype)``; the decoder's memory, read by every layer's k and v):
+    autograd sums their float32 input-gradient partials at that width, and
+    the sum is all-reduced over ``axis`` once and rounded to x's dtype once,
+    where an all-reduce a layer would move the gradient as many times. With
+    ``axis`` None (or of one rank), x."""
+    if axis is None or axis.size == 1:
+        return x
+    return _SummedOnce.apply(x, axis)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             model_dim: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout; the bits are this rank's slice of the global draw
@@ -162,13 +246,20 @@ class MultiheadProj(nn.Module):
         """The heads this rank computes."""
         return self.in_proj_weight.shape[0] // (3 * self.head_dim)
 
-    def inp(self, x):
-        """An input of the projections (replicated over 'model'): its gradient is summed over the heads' ranks."""
-        return copy_to(x, self.axis)
+    def _pair(self, i):
+        """(weight, bias) of projection i (0 q, 1 k, 2 v): this rank's heads' rows of the packed in_proj."""
+        n = self.in_proj_weight.shape[0] // 3
+        return self.in_proj_weight[i * n:(i + 1) * n], self.in_proj_bias[i * n:(i + 1) * n]
 
     def _proj(self, x, i):
-        n = self.in_proj_weight.shape[0] // 3
-        return linear(x, self.in_proj_weight[i * n:(i + 1) * n], self.in_proj_bias[i * n:(i + 1) * n])
+        return linear(x, *self._pair(i))
+
+    def project(self, x, *which, dtype=None):
+        """The projections ``which`` (0 q, 1 k, 2 v) of ``x``, an input
+        replicated over 'model': its gradient, theirs summed, is summed over
+        the heads' ranks in float32 (``column_parallel``; ``dtype``: x is
+        ``summed_once``'s copy of an input of that dtype)."""
+        return column_parallel(x, self.axis, *(self._pair(i) for i in which), dtype=dtype)
 
     def q_proj(self, x):
         return self._proj(x, 0)
@@ -182,15 +273,12 @@ class MultiheadProj(nn.Module):
     def out(self, x):
         return row_parallel(x, self.out_proj.weight, self.out_proj.bias, self.axis)
 
-    def forward(self, q_in, kv_in, mask, dropout_rate=0.0, generator=None, kv_in_copied=False):
-        """``kv_in_copied``: ``kv_in`` has been through ``inp`` already (the
-        decoder's memory, whose gradient is summed over 'model' once for all
-        its layers)."""
-        same = kv_in is q_in
-        q_in = self.inp(q_in)
-        kv_in = q_in if same else (kv_in if kv_in_copied else self.inp(kv_in))
+    def forward(self, q_in, kv_in, mask, dropout_rate=0.0, generator=None, kv_dtype=None):
+        """``kv_dtype``: kv_in is ``summed_once``'s copy of an input of that dtype."""
         h = self.heads
-        q, k, v = (split_heads(f(x), h) for f, x in ((self.q_proj, q_in), (self.k_proj, kv_in), (self.v_proj, kv_in)))
+        qkv = self.project(q_in, 0, 1, 2) if kv_in is q_in else \
+            self.project(q_in, 0) + self.project(kv_in, 1, 2, dtype=kv_dtype)
+        q, k, v = (split_heads(t, h) for t in qkv)
         o = attend(q, k, v, mask, dropout_rate, generator, heads_sharded=self.axis is not None)
         return self.out(merge_heads(o))
 
@@ -219,21 +307,21 @@ class DecoderLayer(nn.Module):
 
     def _ff(self, x, generator):
         ax = self.ff_axis
-        h = torch.relu(linear(copy_to(x, ax), self.linear1.weight, self.linear1.bias))
+        (h,) = column_parallel(x, ax, (self.linear1.weight, self.linear1.bias))
+        h = torch.relu(h)
         h = dropout(h, self.dropout, generator, model_dim=None if ax is None else -1)
         return row_parallel(h, self.linear2.weight, self.linear2.bias, ax)
 
     def forward(self, x, memory, self_mask, mem_mask, generator=None, memory_valid=None,
-                banded_window: int = 0, self_key_bias=None):
+                banded_window: int = 0, self_key_bias=None, memory_dtype=None):
         """banded_window > 0 computes the self-attention as that exact band
         (``self_key_bias`` [B, L] its additive key bias); else ``self_mask``.
-        ``memory`` has been through the cross-attention's ``inp`` (the
-        decoder does it once for all layers)."""
+        ``memory_dtype``: ``memory`` is ``summed_once``'s copy of a memory of
+        that dtype (the decoder makes it once for all layers)."""
         rate = self.dropout if generator is not None else 0.0
         if banded_window > 0:
             sa = self.self_attn
-            xs = sa.inp(x)
-            q, k, v = (split_heads(f(xs), sa.heads) for f in (sa.q_proj, sa.k_proj, sa.v_proj))
+            q, k, v = (split_heads(t, sa.heads) for t in sa.project(x, 0, 1, 2))
             h = banded_causal_attention(q, k, v, banded_window, key_bias=self_key_bias, dropout_rate=rate,
                                         generator=generator, heads_sharded=sa.axis is not None)
             h = sa.out(merge_heads(h))
@@ -246,9 +334,8 @@ class DecoderLayer(nn.Module):
             # Under a mesh the kernel runs on this rank's rows and heads
             # (flash_attention_packed_auto); each projection is contiguous.
             ca = self.multihead_attn
-            qp = ca.q_proj(ca.inp(x)).to(torch.bfloat16).contiguous()
-            kp = ca.k_proj(memory).to(torch.bfloat16).contiguous()
-            vp = ca.v_proj(memory).to(torch.bfloat16).contiguous()
+            qkv = ca.project(x, 0) + ca.project(memory, 1, 2, dtype=memory_dtype)
+            qp, kp, vp = (t.to(torch.bfloat16).contiguous() for t in qkv)
             b, s = memory.shape[0], memory.shape[1]
             kv_len = torch.full((b,), s, dtype=torch.int32, device=x.device)
             kv_valid = memory_valid if memory_valid is not None else torch.ones((b, s), dtype=torch.bool, device=x.device)
@@ -261,7 +348,7 @@ class DecoderLayer(nn.Module):
                                                 block_q=MASK_BQ, block_k=MASK_BK, dropout_rate=rate, mesh=mesh)
             h = ca.out(flash(qp, kp, vp, kv_len, kv_valid.contiguous(), seed))
         else:
-            h = self.multihead_attn(x, memory, mem_mask, rate, generator, kv_in_copied=True)
+            h = self.multihead_attn(x, memory, mem_mask, rate, generator, kv_dtype=memory_dtype)
         x = layer_norm(x + dropout(h, rate, generator), self.norm2)
         x = layer_norm(x + dropout(self._ff(x, generator), rate, generator), self.norm3)
         return x
@@ -339,7 +426,8 @@ class KernDecoder(nn.Module):
 
     def _logits(self, x):
         ax = self.vocab_axis
-        return gather_from(linear(copy_to(x, ax), self.out_layer.weight[:, :, 0], self.out_layer.bias), ax, -1)
+        (y,) = column_parallel(x, ax, (self.out_layer.weight[:, :, 0], self.out_layer.bias))
+        return gather_from(y, ax, -1)
 
     def forward(self, tgt_ids: torch.Tensor, memory: torch.Tensor, memory_valid: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, torch_float_parity: bool = False) -> torch.Tensor:
@@ -366,10 +454,11 @@ class KernDecoder(nn.Module):
             mem_mask = M.key_padding_additive(memory_valid, torch_float_parity=torch_float_parity)
         if self.use_flash_cross and torch_float_parity:
             raise ValueError("flash cross-attention implies -inf pad masking")
-        # the memory's gradient is summed over 'model' once, not once a layer (one all-reduce of [B, S, D])
-        memory = self.layers[0].multihead_attn.inp(memory)
+        # the memory's gradient is summed over the layers' k and v in float32, then over 'model' once
+        mem_dtype = memory.dtype
+        memory = summed_once(memory, self.layers[0].multihead_attn.axis)
         args = (memory, self_mask, mem_mask, gen, memory_valid if self.use_flash_cross else None, banded,
-                self_key_bias)
+                self_key_bias, mem_dtype)
         for layer in self.layers:
             x = remat(layer, gen, x, *args) if self.remat and torch.is_grad_enabled() else layer(x, *args)
         return self._logits(x)

@@ -5,10 +5,10 @@ and ``all_gather`` (parts of unequal length padded to the longest first).
 Both take CUDA tensors under gloo, which two ranks sharing one card run on,
 as under NCCL. A collective on an axis of one rank is the identity.
 
-The tensor-parallel layers use the four autograd functions of Megatron-LM:
+The tensor-parallel layers use three autograd functions of Megatron-LM
+(its fourth, the column-parallel input's all-reduce of the gradient, is
+``models/decoder.py`` ``column_parallel``, which sums in float32):
 
-- ``copy_to(x, axis)``: identity forward, all-reduce of the gradient (the
-  input of a column-parallel layer, replicated over 'model');
 - ``reduce_from(x, axis)``: all-reduce forward, identity backward (the
   output of a row-parallel layer);
 - ``gather_from(x, axis, dim)``: each rank's part concatenated along
@@ -66,17 +66,6 @@ def all_gather(x: torch.Tensor, axis: Optional[Axis], dim: int, full: Optional[i
     return torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)], dim=dim)
 
 
-class _CopyTo(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce(g.contiguous().clone(), ctx.axis), None
-
-
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
@@ -111,10 +100,6 @@ class _ScatterTo(torch.autograd.Function):
 
 def _active(axis: Optional[Axis]) -> bool:
     return axis is not None and axis.size > 1
-
-
-def copy_to(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
-    return _CopyTo.apply(x, axis) if _active(axis) else x
 
 
 def reduce_from(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:

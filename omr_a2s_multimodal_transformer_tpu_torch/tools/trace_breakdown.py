@@ -122,7 +122,7 @@ class ModuleRanges:
             post = m.register_forward_hook(lambda _m, _a, _o: self._pop(), always_call=True)
             self._undo += [pre.remove, post.remove]
             if isinstance(m, dec.MultiheadProj):
-                for meth in ("q_proj", "k_proj", "v_proj", "out"):
+                for meth in ("project", "q_proj", "k_proj", "v_proj", "out"):
                     self._set(m, meth, self.wrap(getattr(m, meth), lambda _p=path: _p))
             if isinstance(m, dec.DecoderLayer):
                 self._set(m, "_ff", self.wrap(m._ff, lambda _p=path: _p + "/ff"))

@@ -6,6 +6,7 @@ import json
 import os
 import importlib.util
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -40,6 +41,27 @@ def test_no_port_file_imports_jax_or_the_jax_package():
         for name in _imported_roots(path):
             root = name.split(".")[0]
             assert root not in FORBIDDEN, f"{path.relative_to(PORT_DIR)} imports {name}"
+
+
+# in a shell script: a module run by ``python -m``, imported in an inline program, or a root tools/ file run by path
+SH_MODULE = re.compile(r"(?:-m\s+|\bfrom\s+|(?:^|[;\"'])\s*import\s+)([A-Za-z_][\w.]*)")
+SH_ROOT_TOOL = re.compile(r"\bpython3?\s+(tools/\S+)")
+
+
+def test_no_port_shell_script_runs_jax_or_the_jax_package():
+    """The scan above over the port's shell scripts (the r05 queue scripts and
+    run_experiments.sh): no module they run or import is of the JAX stack,
+    the JAX package or the repository's tools/, and none runs a root tools/
+    file by path."""
+    scripts = sorted(PORT_DIR.rglob("*.sh"))
+    assert len(scripts) >= 8
+    for path in scripts:
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if line.lstrip().startswith("#"):
+                continue
+            for name in SH_MODULE.findall(line):
+                assert name.split(".")[0] not in FORBIDDEN, f"{path.name}:{i} runs {name}"
+            assert not SH_ROOT_TOOL.search(line), f"{path.name}:{i}: {line.strip()}"
 
 
 def test_package_imports_with_jax_blocked():
@@ -231,6 +253,18 @@ def test_probe_split_bwd_imports_no_jax_and_needs_a_gpu(tmp_path):
     path = PORT_DIR.parent / "probe_split_bwd.py"
     for script in (path, PORT_DIR.parent / "probe_turns.py"):
         assert not {name.split(".")[0] for name in _imported_roots(script)} & set(FORBIDDEN), script.name
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
+    out = subprocess.run([sys.executable, str(path), "--out-dir", str(tmp_path)], capture_output=True, text=True,
+                         timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 2 and out.stdout == ""
+
+
+def test_probe_parallel_imports_no_jax_and_needs_a_gpu(tmp_path):
+    """probe_parallel.py (chip_smoke.py's parallel phase and path alone)
+    imports no JAX and, without a GPU, exits 2 and prints no result."""
+    path = PORT_DIR.parent / "probe_parallel.py"
+    assert not {name.split(".")[0] for name in _imported_roots(path)} & set(FORBIDDEN)
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a GPU")
     out = subprocess.run([sys.executable, str(path), "--out-dir", str(tmp_path)], capture_output=True, text=True,

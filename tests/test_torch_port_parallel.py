@@ -276,3 +276,81 @@ def test_row_parallel_sums_in_float32_closer_to_the_single_process():
                equal=((d_wide == 0).mean(), (d_narrow == 0).mean()))
     assert d_wide.max() <= d_narrow.max() and d_wide.mean() < d_narrow.mean() / 2, got
     assert (d_wide == 0).mean() > (d_narrow == 0).mean(), got
+
+
+def test_column_parallel_input_gradient_sums_in_float32_closer_to_the_single_process():
+    """A column-parallel layer on two gloo ranks in bf16: its input
+    gradient, float32 partial products all-reduced and rounded once, lies
+    at half or less of the mean |difference| from the single process's
+    (one bf16 product of the same bf16 operands) that bf16 partial sums
+    all-reduced in bf16 do, and no farther in max; both ranks hold the same
+    input gradient; each rank's weight and bias gradients are autograd's
+    through ``linear``."""
+    from omr_a2s_multimodal_transformer_tpu_torch.models.decoder import linear
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((4, 32, 256)).astype(np.float32)
+    w = (rng.standard_normal((1024, 256)) / 16).astype(np.float32)
+    b = rng.standard_normal(1024).astype(np.float32)
+    g = rng.standard_normal((4, 32, 1024)).astype(np.float32)
+    ranks = D.run_ranks(D.column_parallel_grads, 2, x, w, b, g)
+    xs = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    linear(xs, *(torch.from_numpy(a).to(torch.bfloat16) for a in (w, b))).backward(
+        torch.from_numpy(g).to(torch.bfloat16))
+    single = xs.grad.float().numpy()
+    (wide, narrow), (wide1, narrow1) = ranks
+    assert np.array_equal(wide[0], wide1[0]) and np.array_equal(narrow[0], narrow1[0])
+    for r in ranks:
+        assert all(np.array_equal(a, c) for a, c in zip(r[0][1:], r[1][1:]))
+    d_wide, d_narrow = np.abs(wide[0] - single), np.abs(narrow[0] - single)
+    got = dict(max=(d_wide.max(), d_narrow.max()), mean=(d_wide.mean(), d_narrow.mean()),
+               equal=((d_wide == 0).mean(), (d_narrow == 0).mean()))
+    assert d_wide.max() <= d_narrow.max() and d_wide.mean() <= d_narrow.mean() / 2, got
+    assert (d_wide == 0).mean() > (d_narrow == 0).mean(), got
+
+
+def test_memory_gradient_summed_over_layers_in_float32_then_all_reduced_once():
+    """A memory read by eight column-parallel layers on two gloo ranks in
+    bf16, as the decoder's is by its layers' k and v: through
+    ``summed_once`` its gradient is all-reduced once (one [B, S, D] float32
+    tensor; eight all-reduces without it), both ranks hold the same one, and
+    it lies at half or less of the mean |difference| from the float64 sum
+    of the same bf16 operands, and no farther in max, than the per-layer
+    sums summed in bf16 do; the outputs and the weight and bias gradients
+    equal the per-layer path's bit for bit."""
+    rng = np.random.default_rng(3)
+    m = rng.standard_normal((2, 48, 256)).astype(np.float32)
+    w = (rng.standard_normal((8, 512, 256)) / 16).astype(np.float32)
+    b = rng.standard_normal((8, 512)).astype(np.float32)
+    g = rng.standard_normal((8, 2, 48, 512)).astype(np.float32)
+    ranks = D.run_ranks(D.memory_grads, 2, m, w, b, g)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16).double().numpy()  # noqa: E731
+    exact = np.einsum("lbsn,lnd->bsd", bf(g), bf(w))
+    r0, r1 = ranks
+    assert r0["once"]["all_reduces"] == [(2, 48, 256)] and len(r0["per_layer"]["all_reduces"]) == 8
+    assert np.array_equal(r0["once"]["mem"], r1["once"]["mem"])
+    for r in ranks:
+        assert all(np.array_equal(a, c) for a, c in zip(r["once"]["y"] + r["once"]["w"],
+                                                        r["per_layer"]["y"] + r["per_layer"]["w"]))
+    d_once, d_layer = np.abs(r0["once"]["mem"] - exact), np.abs(r0["per_layer"]["mem"] - exact)
+    got = dict(max=(d_once.max(), d_layer.max()), mean=(d_once.mean(), d_layer.mean()))
+    assert d_once.max() <= d_layer.max() and d_once.mean() <= d_layer.mean() / 2, got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_column_parallel_without_an_axis_is_linear_bit_for_bit(dtype):
+    """``column_parallel`` with no 'model' axis runs ``linear`` on each
+    pair: the outputs and the input, weight and bias gradients equal the
+    plain layer's bit for bit."""
+    from omr_a2s_multimodal_transformer_tpu_torch.models.decoder import column_parallel, linear
+
+    rng = np.random.default_rng(2)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in ((2, 16, 64), (48, 64), (48,), (32, 64), (32,))]
+    runs = []
+    for fn in (lambda x, *p: column_parallel(x, None, p[0:2], p[2:4]),
+               lambda x, *p: (linear(x, *p[0:2]), linear(x, *p[2:4]))):
+        ts = [torch.from_numpy(a).to(dtype).requires_grad_() for a in arrays]
+        ys = fn(*ts)
+        sum((y.float() * (i + 1)).sum() for i, y in enumerate(ys)).backward()
+        runs.append([y.detach() for y in ys] + [t.grad for t in ts])
+    assert all(torch.equal(a, c) for a, c in zip(*runs))

@@ -59,14 +59,14 @@ def _attend_at_flash_boundary(q, k, v, mask=None, dropout_rate=0.0, generator=No
 
 def _cross_attention_at_flash_boundary(real):
     """``MultiheadProj.forward`` whose decoder cross-attention (the call
-    that passes ``kv_in_copied``) takes ``_attend_at_flash_boundary``."""
+    that passes ``kv_dtype``) takes ``_attend_at_flash_boundary``."""
 
-    def forward(self, q_in, kv_in, mask, dropout_rate=0.0, generator=None, kv_in_copied=False):
-        if not kv_in_copied:
-            return real(self, q_in, kv_in, mask, dropout_rate, generator, kv_in_copied)
+    def forward(self, q_in, kv_in, mask, dropout_rate=0.0, generator=None, kv_dtype=None):
+        if kv_dtype is None:
+            return real(self, q_in, kv_in, mask, dropout_rate, generator, kv_dtype)
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(pdecoder, "attend", _attend_at_flash_boundary)
-            return real(self, q_in, kv_in, mask, dropout_rate, generator, kv_in_copied)
+            return real(self, q_in, kv_in, mask, dropout_rate, generator, kv_dtype)
 
     return forward
 

@@ -251,6 +251,78 @@ def row_parallel_sums(rank, x, w, b):
     return wide.float().numpy(), narrow.float().numpy()
 
 
+def column_parallel_grads(rank, x, w, b, g):
+    """On a 1 x 2 mesh in bf16: the gradients of ``x @ w.T + b``, whose
+    output columns (w's rows) are split over the two ranks, under the
+    upstream gradient ``g`` (this rank's columns of it), through
+    ``column_parallel`` (the input gradient's float32 partial sums) and
+    through ``linear`` with its bf16 input gradient all-reduced in bf16
+    (the bf16 partial sums); each path's input, weight and bias gradients
+    as float32 numpy."""
+    from omr_a2s_multimodal_transformer_tpu_torch.models.decoder import column_parallel, linear
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel.collectives import all_reduce
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
+
+    axis = make_mesh(model=2).model_axis
+    n = w.shape[0] // 2
+    rows = slice(rank * n, (rank + 1) * n)
+    out = []
+    for wide in (True, False):
+        xs = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+        ws = torch.from_numpy(w[rows]).to(torch.bfloat16).requires_grad_()
+        bs = torch.from_numpy(b[rows]).to(torch.bfloat16).requires_grad_()
+        y = column_parallel(xs, axis, (ws, bs))[0] if wide else linear(xs, ws, bs)
+        y.backward(torch.from_numpy(g[..., rows]).to(torch.bfloat16))
+        if not wide:
+            all_reduce(xs.grad, axis)
+        assert xs.grad.dtype == torch.bfloat16
+        out.append([t.grad.float().numpy() for t in (xs, ws, bs)])
+    return out
+
+
+def memory_grads(rank, m, w, b, g):
+    """On a 1 x 2 mesh in bf16: a memory ``m`` read by len(w) column-parallel
+    layers (this rank's half of each layer's rows of ``w`` [L, N, D] and
+    ``b`` [L, N], upstream gradients ``g`` [L, ..., N] at this rank's
+    columns), its gradient through ``summed_once`` (the layers' float32
+    partials summed, all-reduced once) and through ``column_parallel``
+    alone (each layer's all-reduced and rounded, the layers summed in
+    bf16 by autograd). Each path's outputs, memory and weight gradients as
+    float32 numpy, and the all-reduces its backward ran."""
+    import torch.distributed as dist
+
+    from omr_a2s_multimodal_transformer_tpu_torch.models.decoder import column_parallel, summed_once
+    from omr_a2s_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
+
+    axis = make_mesh(model=2).model_axis
+    n = w.shape[1] // 2
+    rows = slice(rank * n, (rank + 1) * n)
+    real, calls = dist.all_reduce, []
+
+    def counting(t, *a, **kw):
+        calls.append(tuple(t.shape))
+        return real(t, *a, **kw)
+
+    out = {}
+    for once in (True, False):
+        mem = torch.from_numpy(m).to(torch.bfloat16).requires_grad_()
+        ws = [torch.from_numpy(wl[rows]).to(torch.bfloat16).requires_grad_() for wl in w]
+        bs = [torch.from_numpy(bl[rows]).to(torch.bfloat16).requires_grad_() for bl in b]
+        x = summed_once(mem, axis) if once else mem
+        ys = [column_parallel(x, axis, (wl, bl), dtype=mem.dtype if once else None)[0] for wl, bl in zip(ws, bs)]
+        calls.clear()
+        dist.all_reduce = counting
+        try:
+            torch.autograd.backward(ys, [torch.from_numpy(gl[..., rows]).to(torch.bfloat16) for gl in g])
+        finally:
+            dist.all_reduce = real
+        assert mem.grad.dtype == torch.bfloat16
+        out["once" if once else "per_layer"] = dict(
+            y=[y.detach().float().numpy() for y in ys], mem=mem.grad.float().numpy(),
+            w=[t.grad.float().numpy() for t in ws + bs], all_reduces=list(calls))
+    return out
+
+
 def write_frontend_key(root, start, wave, sr, n):
     """A process of its own: ``preprocess_audio(wave, sr)`` n times into the
     frontend cache at ``root``, from when ``start`` is set."""
